@@ -62,6 +62,7 @@ class Transformer(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings else
                         nn.Linear(cfg.dim, cfg.vocab_size, bias=False, **kw))
         self._head_f32: Optional[torch.Tensor] = None
+        self._head_key: Optional[tuple] = None
 
     @classmethod
     def empty(cls, cfg: ModelConfig, device, dtype) -> "Transformer":
@@ -77,13 +78,18 @@ class Transformer(nn.Module):
         upcasts the head to fp32 on every call; at llama-3-8b scale that
         re-reads and re-writes a 2.1 GB tensor per decode step, so the port
         casts ONCE and keeps the fp32 copy (2.1 GB of device memory) —
-        the same fp32 product, without the per-step cast. fp32 models use
-        their own weight."""
+        the same fp32 product, without the per-step cast. The copy is made
+        anew when the weight moves, is replaced, or is written in place
+        (``copy_``, ``load_state_dict``: the tensor's version counter).
+        fp32 models use their own weight."""
         w = self.embed.weight if self.lm_head is None else self.lm_head.weight
         if w.dtype == torch.float32:
             return w
-        if self._head_f32 is None or self._head_f32.device != w.device:
+        key = (w.device, w.data_ptr(), w._version)
+        if self._head_key != key:
+            self._head_f32 = None            # free the old copy first
             self._head_f32 = w.detach().float()
+            self._head_key = key
         return self._head_f32
 
 

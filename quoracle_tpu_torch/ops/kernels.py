@@ -3,9 +3,11 @@
 The sources live in ``quoracle_tpu_torch/csrc``. On first use, ``nvcc``
 compiles each ``.cu`` file for ``sm_90a`` (all files at once, one
 process each) and links them into one shared library with a plain C
-interface under ``build/torch_kernels/`` at the repository root; the
-library's file name carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads the cached build. ``ctypes``
+interface under ``build/torch_kernels/`` at the repository root (for an
+installed package, under the user's cache directory); the library's file
+name carries a hash of the sources, the flags and ``nvcc --version``, so
+an edited source or a new toolkit rebuilds and an unchanged one loads the
+cached build. ``ctypes``
 binds each entry point with ``c_void_p`` for every pointer and for the
 CUDA stream. A missing ``nvcc`` or a failed build raises: there is no
 fallback for a CUDA tensor.
@@ -28,7 +30,21 @@ from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+
+
+def _build_dir() -> str:
+    """``build/torch_kernels`` in a checkout (the package's parent holds
+    ``pyproject.toml``); a per-user cache directory for an installed
+    package, whose site-packages is shared and often read-only."""
+    root = os.path.dirname(_PKG_DIR)
+    if os.path.isfile(os.path.join(root, "pyproject.toml")):
+        return os.path.join(root, "build", "torch_kernels")
+    cache = (os.environ.get("XDG_CACHE_HOME")
+             or os.path.join(os.path.expanduser("~"), ".cache"))
+    return os.path.join(cache, "quoracle_tpu_torch", "kernels")
+
+
+BUILD_DIR = _build_dir()
 SOURCES = ("flash_fwd.cu", "ragged_fwd.cu")
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -82,16 +98,19 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-def _sources_digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _sources_digest(nvcc: str) -> str:
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, check=True).stdout
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + "\0" + version).encode())
     for name in sorted(SOURCES + HEADERS):
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
 
 
-def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"libqtt_kernels-{_sources_digest()}.so")
+def library_path(nvcc: str) -> str:
+    return os.path.join(BUILD_DIR,
+                        f"libqtt_kernels-{_sources_digest(nvcc)}.so")
 
 
 def find_nvcc() -> str:
@@ -114,10 +133,10 @@ def build() -> tuple[str, str]:
     build was used). Raises RuntimeError with the compiler output when a
     source fails to compile."""
     with _build_lock:
-        path = library_path()
+        nvcc = find_nvcc()
+        path = library_path(nvcc)
         if os.path.isfile(path):
             return path, ""
-        nvcc = find_nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
         work = tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR)
         try:

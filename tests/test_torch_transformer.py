@@ -179,6 +179,34 @@ def test_project_logits_casts_a_bf16_head_once(name):
                                (h @ w.float().T).numpy(), **TOL)
 
 
+@pytest.mark.parametrize("how", ["copy_", "load_state_dict"])
+@pytest.mark.parametrize("name", ["tiny", "tiny-gemma"])
+def test_project_logits_follows_an_in_place_head_update(name, how):
+    """Writing new weights into a bf16 model's head (untied head, or the
+    tied embedding) after a projection makes the next projection use them:
+    the kept fp32 copy is rebuilt, never stale."""
+    _, tcfg = both_configs(name)
+    params, _ = shared_params(name, seed=6)
+    model = params_from_jax(jax.device_get(params), tcfg,
+                            dtype=torch.bfloat16)
+    h = torch.randn(3, tcfg.dim, generator=torch.Generator().manual_seed(6))
+    before = ttr.project_logits(model, tcfg, h)
+    wname = "embed.weight" if tcfg.tie_embeddings else "lm_head.weight"
+    w = model.get_parameter(wname)
+    new = torch.randn(w.shape, generator=torch.Generator().manual_seed(7)
+                      ).to(torch.bfloat16)
+    with torch.no_grad():
+        if how == "copy_":
+            w.copy_(new)
+        else:
+            model.load_state_dict({wname: new}, strict=False)
+    after = ttr.project_logits(model, tcfg, h)
+    assert torch.equal(model.head_f32(), new.float())
+    assert not torch.allclose(after, before)
+    np.testing.assert_allclose(after.numpy(), (h @ new.float().T).numpy(),
+                               **TOL)
+
+
 @pytest.mark.parametrize("scaling", [None, ("linear", 2.0),
                                      ("llama3", 8.0, 1.0, 4.0, 8192)])
 def test_rope_matches_jax(scaling):
