@@ -17,14 +17,29 @@ exits non-zero and never prints its last line):
              random bf16 weights from a seeded generator: a consensus
              round (three sessioned JSON-constrained rows at temperatures
              1.0/0.7/0.0), one long sessionless row as its own query, then
-             the resumed round. The launch counts are zeroed just before
-             and read just after: both kernels must have run. The inputs
-             of the first flash call and of the resumed round's first
-             ragged chunk and decode ticks are kept for the next phase.
+             the resumed round, on the unified tier (the card's default).
+             The launch counts are zeroed just before and read just after:
+             flash and ragged must have run. The inputs of the first flash
+             call and of the resumed round's first ragged chunk and decode
+             ticks are kept for the mainpath phase.
+  serve_paged the same consensus rounds on two more engines that share
+             the serve phase's weights: the direct tier (gates written by
+             save_paged_gates to a file and read through the engine's
+             loader; the paged prefill and paged decode kernels must run,
+             the ragged kernel must not), then the gather tier on the same
+             engine (pinned by _force_gather_decode), then the gather tier
+             under pool exhaustion (a session pool too small for the
+             rounds' stores, set by session_max_bytes: the rounds must
+             still answer, through the dense prefill and decode, with no
+             paged kernel launched). The direct round 2's first inputs of
+             both paged kernels are kept, and the three tiers' round-2
+             prefill and decode times are printed side by side.
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
-             bound, the twin's time and, for flash,
-             scaled_dot_product_attention's time as a yardstick
+             bound, the twin's time and scaled_dot_product_attention's
+             time as a yardstick (for the paged kernels over K/V gathered
+             beforehand, outside the timing, with the same mask; it
+             returns a normalized output where they return partials)
   trace      one more resumed round and one more sessionless row, each
              under torch.profiler: wall time, device busy time (the union
              of kernel intervals), idle share, launches, and the kernels
@@ -33,7 +48,8 @@ exits non-zero and never prints its last line):
              ragged decode ticks over resident lengths, flash over T
   reference  a 2-layer cut of llama-3-8b in fp32: the same rounds through
              the GPU engine (kernels) and through the same weights on the
-             CPU (plain twins) must give identical greedy texts
+             CPU (plain twins) must give identical greedy texts and cached
+             counts, on the unified, direct and gather tiers
 
 then the card's nvidia-smi line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. Every comparison runs with TF32 off
@@ -44,8 +60,10 @@ script imports torch and the port, never JAX or the JAX package.
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -61,10 +79,26 @@ H100_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense peaks
 #    weighted means of V, mostly |x| < 0.1, where a dropped key moves a
 #    value by several ulps
 #  bf16 ragged: bf16 inputs, fp32 math and fp32 output on both sides
+#  paged partials (acc, m, l; unnormalized, fp32 out, fp32 math on both
+#    sides from the same inputs): m is a max of scores, exact but for the
+#    scores' own sum order (~1e-6 at |s| of order 10); l and acc are sums
+#    of exp(s - m) weights, which the kernel rescales tile by tile
+#    (exp(a)·exp(b) against the twin's exp(a + b)): a few ulps relative
+#    per term, so rtol 1e-5; acc's atol is 1e-4 because its terms p·v
+#    cancel, and its error follows sum |p·v| (of order l, up to ~100 here)
+#    rather than |acc|. Rows that see no key must be (0, NEG_INF, 0)
+#    exactly.
 TOL = {("flash_fwd", "float32"): (1e-5, 0.0),
        ("flash_fwd", "bfloat16"): (1e-5, 2.0 ** -7),
        ("ragged_fwd", "float32"): (1e-5, 0.0),
        ("ragged_fwd", "bfloat16"): (1e-5, 0.0)}
+PARTIAL_TOL = {"acc": (1e-4, 1e-5), "m": (1e-5, 1e-5), "l": (1e-5, 1e-5)}
+PAGED_KERNELS = ("paged_fwd", "paged_prefill_fwd")
+for _k in PAGED_KERNELS:
+    for _d in ("float32", "bfloat16"):
+        for _f, _tol in PARTIAL_TOL.items():
+            TOL[(f"{_k}.{_f}", _d)] = _tol
+NEG_INF = -1e30
 MAX_TOKENS = 32             # new tokens per row in the serve phase
 N_RULES = 30                # system-prompt length of the serve phase
 TEMPS = [1.0, 0.7, 0.0]     # the consensus round's member temperatures
@@ -97,6 +131,26 @@ def check(torch, kernel: str, got, ref, what: dict) -> dict:
            "atol": atol, "rtol": rtol}
     if not (ok and bool(torch.isfinite(got).all())):
         raise AssertionError(f"{kernel} disagrees with its twin: {row}")
+    return row
+
+
+def check_partials(torch, kernel: str, got, ref, what: dict) -> dict:
+    """(acc, m, l) of a paged kernel against its twin, field by field;
+    rows whose twin saw no key must be exactly (0, NEG_INF, 0)."""
+    row = {"kernel": kernel, **what}
+    for name, g, r in zip(("acc", "m", "l"), got, ref):
+        row[f"max_abs_err_{name}"] = check(
+            torch, f"{kernel}.{name}", g, r, what)["max_abs_err"]
+    empty = ref[2] == 0                               # [..., H]
+    acc_ok = bool(torch.all(got[0][empty] == 0))
+    row["empty_rows"] = int(empty.sum())
+    row["empty_exact"] = (acc_ok and bool(torch.all(got[1][empty] == NEG_INF))
+                          and bool(torch.all(got[2][empty] == 0)))
+    if not row["empty_exact"]:
+        raise AssertionError(f"{kernel}: empty rows not (0, NEG_INF, 0): "
+                             f"{row}")
+    row["max_abs_err"] = max(row[f"max_abs_err_{n}"] for n in ("acc", "m",
+                                                               "l"))
     return row
 
 
@@ -141,35 +195,105 @@ def flash_work(q, k, qp, kv_len, window, off) -> tuple[int, int]:
     return nbytes, 4 * hd * H * pairs             # QK^T and PV, 2 each
 
 
-def ragged_work(q, k_pages, tables, meta, tq, window) -> tuple[int, int]:
-    import numpy as np
+def paged_mask(torch, kernel: str, page: int, tables, ints, n_q: int,
+               window):
+    """[rows, n_q, maxp·page] bool: which slots of its page table each
+    query of a row sees. The one statement of each paged kernel's
+    visibility rule here; the bound counts keys and pairs from it and the
+    library yardstick takes it as its attn_mask.
+
+      ragged_fwd         ints (meta [NB, 3] of kv_len, qpos0, nq), n_q = tq:
+                         s < kv_len, s <= qpos0 + t, t < nq
+      paged_fwd          ints (kv_len, kv_off, q_pos), n_q = 1:
+                         s < kv_len, kv_off + s <= q_pos
+      paged_prefill_fwd  ints (kv_len,), n_q = T: s < kv_len (every pool
+                         token precedes every chunk token)
+
+    and with a window W, query-to-key distance < W."""
+    dev = tables.device
+    s = torch.arange(tables.shape[1] * page, device=dev)[None, None]
+    t = torch.arange(n_q, device=dev)[None, :, None]
+    if kernel == "ragged_fwd":
+        ints = ints[0].unbind(dim=1)
+    cols = [x.long()[:, None, None] for x in ints]        # [rows, 1, 1]
+    if kernel == "ragged_fwd":
+        kv_len, qpos0, nq = cols
+        mask = (s < kv_len) & (s <= qpos0 + t) & (t < nq)
+        dist = qpos0 + t - s
+    elif kernel == "paged_fwd":
+        kv_len, kv_off, q_pos = cols
+        mask = (s < kv_len) & (kv_off + s <= q_pos)
+        dist = q_pos - kv_off - s
+    else:
+        (kv_len,) = cols
+        mask = (s < kv_len) & (t >= 0)
+        dist = kv_len + t - s
+    return mask if window is None else mask & (dist < window)
+
+
+def mask_counts(torch, mask, tables) -> tuple[int, int]:
+    """(keys, pairs) of a visibility mask: the slots some query sees,
+    once per distinct page table (a row's blocks share its pages), and
+    the visible (query, key) pairs."""
+    _, inv = torch.unique(tables, dim=0, return_inverse=True)
+    seen = torch.zeros(int(inv.max()) + 1, mask.shape[2], dtype=torch.int32,
+                       device=mask.device)
+    seen.index_add_(0, inv, mask.any(dim=1).int())
+    return int((seen > 0).sum()), int(mask.sum())
+
+
+def ragged_work(torch, q, k_pages, tables, meta, tq,
+                window) -> tuple[int, int]:
     _, H, hd = q.shape
-    KV = k_pages.shape[2]
-    tables = tables.cpu().numpy()
-    meta = meta.cpu().tolist()               # Python ints: no overflow
-    spans: dict = {}
-    pairs = 0
-    for i, (kv_len, qpos0, nq) in enumerate(meta):
-        if nq <= 0:
-            continue
-        lo = max(0, qpos0 + 1 - window) if window else 0
-        spans.setdefault(tables[i].tobytes(), []).append(
-            (lo, min(kv_len, qpos0 + nq)))
-        for t in range(nq):
-            p = qpos0 + t
-            pairs += max(0, min(kv_len, p + 1)
-                         - (max(0, p + 1 - window) if window else 0))
-    keys = 0                       # a row's blocks share its pages
-    for ranges in spans.values():
-        cover = np.zeros(max(hi for _, hi in ranges), bool)
-        for lo, hi in ranges:
-            cover[lo:hi] = True
-        keys += int(cover.sum())
+    page, KV = k_pages.shape[1], k_pages.shape[2]
+    keys, pairs = mask_counts(torch, paged_mask(
+        torch, "ragged_fwd", page, tables, (meta,), tq, window), tables)
     es = q.element_size()
     nbytes = (q.numel() * es + q.numel() * 4      # q in, fp32 out
               + 2 * keys * KV * hd * es           # visible K and V slots
-              + 4 * (tables.size + 3 * len(meta)))
+              + 4 * (tables.numel() + meta.numel()))
     return nbytes, 4 * hd * H * pairs
+
+
+def paged_work(torch, q, k_pages, tables, kv_lens, kv_off, q_pos,
+               window) -> tuple[int, int]:
+    """paged_fwd: one query per row; a row's visible pool keys are read
+    once (shared by its heads) and each (head, key) pair costs 4·hd."""
+    B, H, hd = q.shape
+    page, KV = k_pages.shape[1], k_pages.shape[2]
+    keys, pairs = mask_counts(torch, paged_mask(
+        torch, "paged_fwd", page, tables, (kv_lens, kv_off, q_pos), 1,
+        window), tables)
+    es = q.element_size()
+    nbytes = (q.numel() * es + q.numel() * 4 + 2 * B * H * 4  # q; acc, m, l
+              + 2 * keys * KV * hd * es
+              + 4 * (tables.numel() + 4 * B))
+    return nbytes, 4 * hd * H * pairs
+
+
+def paged_prefill_work(torch, q, k_pages, tables, kv_lens,
+                       window) -> tuple[int, int]:
+    """paged_prefill_fwd: every chunk query against the row's prefix."""
+    B, T, H, hd = q.shape
+    page, KV = k_pages.shape[1], k_pages.shape[2]
+    keys, pairs = mask_counts(torch, paged_mask(
+        torch, "paged_prefill_fwd", page, tables, (kv_lens,), T, window),
+        tables)
+    es = q.element_size()
+    nbytes = (q.numel() * es + q.numel() * 4 + 2 * B * T * H * 4
+              + 2 * keys * KV * hd * es
+              + 4 * (tables.numel() + B))
+    return nbytes, 4 * hd * H * pairs
+
+
+def gathered_kv(torch, k_pages, v_pages, tables):
+    """[B, KV, maxp·page, hd] K and V of each row's table, for the
+    library yardstick (gathered outside its timing)."""
+    B, maxp = tables.shape
+    _, page, KV, hd = k_pages.shape
+    t = tables.long()
+    return tuple(x[t].reshape(B, maxp * page, KV, hd).transpose(1, 2)
+                 .contiguous() for x in (k_pages, v_pages))
 
 
 def bound(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
@@ -254,7 +378,46 @@ def phase_kernels(torch, F, P) -> list:
                 if not row["inert_zero"]:
                     raise AssertionError(f"inert slots not zero: {row}")
                 cases.append(row)
+        cases += paged_cases(torch, P, dt, dname, g, perm, kp, vp, page)
     torch.cuda.synchronize()
+    return cases
+
+
+def paged_cases(torch, P, dt, dname, g, perm, kp, vp, page) -> list:
+    """The direct tier's two kernels against their twins: scattered page
+    tables, an empty row, rows past a page edge, with and without a
+    window, at G = 4 (llama-3-8b), 1 and 8 query heads per KV head; the
+    prefill chunk T = 37 is no multiple of any block's tq (32/G)."""
+    dev = "cuda"
+    cases = []
+    B, maxp, hd = 4, 16, 128
+    tables = torch.stack([perm[[(r * maxp + j) % len(perm)
+                                for j in range(maxp)]]
+                          for r in range(B)]).int().to(dev)
+    kv_lens = torch.tensor([300, 0, 1999, 129], dtype=torch.int32,
+                           device=dev)
+    kv_off = torch.tensor([0, 5, 0, 128], dtype=torch.int32, device=dev)
+    q_pos = kv_off + kv_lens + torch.tensor([0, 3, 7, 31], dtype=torch.int32,
+                                            device=dev)
+    for H, KV in ((32, 8), (8, 8), (32, 4)):
+        kpg, vpg = kp[:, :, :KV].contiguous(), vp[:, :, :KV].contiguous()
+        q = torch.randn(B, H, hd, generator=g, device=dev).to(dt)
+        qc = torch.randn(3, 37, H, hd, generator=g, device=dev).to(dt)
+        pre = torch.tensor([700, 0, 1500], dtype=torch.int32, device=dev)
+        for window in (None, 200):
+            a = (q, kpg, vpg, tables, kv_lens, kv_off, q_pos, window)
+            cases.append(check_partials(
+                torch, "paged_fwd", P.paged_attend(*a), P.paged_attend_ref(*a),
+                {"dtype": dname, "H": H, "KV": KV, "window": window}))
+            a = (qc, kpg, vpg, tables[:3], pre, window)
+            cases.append(check_partials(
+                torch, "paged_prefill_fwd", P.paged_prefill_attend(*a),
+                P.paged_prefill_attend_ref(*a),
+                {"dtype": dname, "H": H, "KV": KV, "T": 37,
+                 "window": window}))
+    for row in cases:
+        if row["empty_rows"] == 0:
+            raise AssertionError(f"no empty row was checked: {row}")
     return cases
 
 
@@ -318,12 +481,12 @@ def sessionless_row(R, backend, spec, max_tokens, n_rules):
 
 
 def run_rounds(R, backend, spec, temps, max_tokens, n_rules,
-               on_round=lambda rnd: None):
+               on_round=lambda rnd: None, sessionless: bool = True):
     """The consensus-shaped traffic: round 1 (three sessioned JSON rows)
-    and one long sessionless row as its own query, then round 2, which
-    resumes each session with one more user message. Returns per-round
-    summaries, the results of every row, and the histories a next round
-    would send."""
+    and (unless ``sessionless`` is False) one long sessionless row as its
+    own query, then round 2, which resumes each session with one more
+    user message. Returns per-round summaries, the results of every row,
+    and the histories a next round would send."""
     users = ["pick the next action", "decide what to do next",
              "propose one step"]
     hist = [chat(u, n_rules) for u in users]
@@ -333,7 +496,7 @@ def run_rounds(R, backend, spec, temps, max_tokens, n_rules,
         summary, res = consensus_round(R, backend, spec, hist, temps,
                                        max_tokens)
         summary = {"round": rnd, **summary}
-        if rnd == 1:
+        if rnd == 1 and sessionless:
             summary["sessionless"], one = sessionless_row(
                 R, backend, spec, max_tokens, n_rules)
             res = res + [one]
@@ -345,15 +508,20 @@ def run_rounds(R, backend, spec, temps, max_tokens, n_rules,
     return rounds, results, hist
 
 
+def check_json(results, dfa) -> None:
+    """Every consensus row's text walks the JSON grammar."""
+    for res in results:
+        for r in res[:3]:
+            if not json_prefix_ok(dfa, r.text):
+                raise AssertionError(f"not a JSON prefix: {r.text!r}")
+
+
 def check_rounds(rounds, results, dfa, long_min: int) -> None:
     if rounds[0]["sessionless"]["prompt_tokens"] < long_min:
         raise AssertionError(f"sessionless prompt below {long_min} tokens")
     if min(rounds[1]["cached_tokens"]) <= 0:
         raise AssertionError(f"round 2 resumed nothing: {rounds[1]}")
-    for res in results:
-        for r in res[:3]:
-            if not json_prefix_ok(dfa, r.text):
-                raise AssertionError(f"not a JSON prefix: {r.text!r}")
+    check_json(results, dfa)
 
 
 def phase_serve(torch, R, F, P, kernels, dfa):
@@ -397,7 +565,7 @@ def phase_serve(torch, R, F, P, kernels, dfa):
     finally:
         F.flash_attend, P.ragged_attend = orig_flash, orig_ragged
     launches = kernels.launch_counts()
-    if min(launches.values()) <= 0:
+    if min(launches["flash_fwd"], launches["ragged_fwd"]) <= 0:
         raise AssertionError(f"the main path missed a kernel: {launches}")
     check_rounds(rounds, results, dfa, long_min=256)
     eng = backend.engines[MODEL]
@@ -408,6 +576,212 @@ def phase_serve(torch, R, F, P, kernels, dfa):
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "texts": [r.text[:48] for r in results[0]]}
     return backend, report, kept, launches, hist
+
+
+def phase_serve_paged(torch, R, P, kernels, dfa, backend, serve_report):
+    """The direct and gather tiers at full width and depth, on engines
+    that share the serve phase's weights (one 16 GB copy on the card)."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.utils.calibration import save_paged_gates
+    base = backend.engines[MODEL]
+
+    def engine(**kw):
+        eng = GenerateEngine(base.cfg, base.params, base.tokenizer, seed=0,
+                             device="cuda", **kw)
+        return eng, R.TorchBackend([MODEL], device="cuda",
+                                   engines={MODEL: eng})
+
+    # direct tier: gates through a calibration file and the normal loader;
+    # the file lives in a temporary directory (never in the checkout) and
+    # goes once the engine has read it
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    prev = os.environ.get("QUORACLE_PAGED_CALIB")
+    try:
+        os.environ["QUORACLE_PAGED_CALIB"] = save_paged_gates(
+            os.path.join(work, "direct_gates.json"), decode_min_resident=0,
+            prefill_min_resident=0, unified_min_resident=None,
+            device_kind=torch.cuda.get_device_name(0),
+            note="chip_smoke.py: direct tier on")
+        direct, direct_backend = engine()
+    finally:
+        shutil.rmtree(work)
+        if prev is None:
+            os.environ.pop("QUORACLE_PAGED_CALIB", None)
+        else:
+            os.environ["QUORACLE_PAGED_CALIB"] = prev
+    if not (direct.direct_decode_min_tokens == 0
+            and direct.direct_prefill_min_tokens == 0
+            and direct.unified_min_tokens >= 1 << 30):
+        raise AssertionError(f"gates not read: {direct.paged_gates}")
+
+    kept: dict = {}
+    cur = {"round": 0}
+    orig = {k: getattr(P, k) for k in ("paged_attend",
+                                       "paged_prefill_attend")}
+
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    def recorder(name):
+        def rec(*a, **kw):
+            if cur["round"] == 2 and name not in kept:
+                kept[name] = ([clone(x) for x in a],
+                              {n: clone(x) for n, x in kw.items()})
+            return orig[name](*a, **kw)
+        return rec
+
+    for name in orig:
+        setattr(P, name, recorder(name))
+    kernels.reset_launch_counts()
+    try:
+        rounds, results, _ = run_rounds(
+            R, direct_backend, MODEL, TEMPS, MAX_TOKENS, N_RULES,
+            on_round=lambda rnd: cur.update(round=rnd), sessionless=False)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in orig.items():
+            setattr(P, name, fn)
+    d_launch = kernels.launch_counts()
+    if not (d_launch["paged_fwd"] > 0 and d_launch["paged_prefill_fwd"] > 0
+            and d_launch["ragged_fwd"] == 0):
+        raise AssertionError(f"direct tier launches: {d_launch}")
+    check_json(results, dfa)
+    direct_rep = {"launches": d_launch, "rounds": rounds,
+                  "kv_pages_free": direct.sessions.free_pages()}
+
+    # gather tier on the same engine, pinned by the JAX engine's seam
+    # with the pool as large as the other tiers had (the comparable run)
+    for i in range(len(TEMPS)):
+        direct.drop_session(f"agent-{i}")
+    direct._force_gather_decode = True
+    kernels.reset_launch_counts()
+    rounds_f, results_f, _ = run_rounds(
+        R, direct_backend, MODEL, TEMPS, MAX_TOKENS, N_RULES,
+        sessionless=False)
+    torch.cuda.synchronize()
+    f_launch = kernels.launch_counts()
+    if (f_launch["ragged_fwd"] or f_launch["paged_fwd"]
+            or f_launch["paged_prefill_fwd"]):
+        raise AssertionError(f"forced gather launches: {f_launch}")
+    check_json(results_f, dfa)
+    forced_rep = {"launches": f_launch, "rounds": rounds_f}
+    del direct_backend, direct
+
+    # gather tier under pool exhaustion: 8 usable pages of 128 tokens;
+    # round 1 stores one session and declines the others' stores, and the
+    # page-reading tiers find no free pages for those rows, so both rounds
+    # drop to gather (the port used to raise here)
+    token_bytes = (2 * base.cfg.n_layers * base.cfg.n_kv_heads
+                   * base.cfg.head_dim * 2)
+    gather, gather_backend = engine(session_max_bytes=8 * 128 * token_bytes)
+    kernels.reset_launch_counts()
+    rounds_g, results_g, _ = run_rounds(
+        R, gather_backend, MODEL, TEMPS, MAX_TOKENS, N_RULES,
+        sessionless=False)
+    torch.cuda.synchronize()
+    g_launch = kernels.launch_counts()
+    if (g_launch["ragged_fwd"] or g_launch["paged_fwd"]
+            or g_launch["paged_prefill_fwd"] or not g_launch["flash_fwd"]):
+        raise AssertionError(f"gather tier launches: {g_launch}")
+    check_json(results_g, dfa)
+    if rounds_g[1]["cached_tokens"][0] <= 0:
+        raise AssertionError(f"gather round 2 resumed nothing: {rounds_g}")
+    exhausted_rep = {"launches": g_launch, "rounds": rounds_g,
+                  "kv_pages": gather.sessions.n_pages,
+                  "kv_pages_free": gather.sessions.free_pages(),
+                  "stored_sessions": len(gather.sessions)}
+    del gather_backend, gather
+    torch.cuda.empty_cache()
+
+    unified_r2 = serve_report["rounds"][1]
+    compare = {tier: {"prefill_ms": r2["prefill_ms"],
+                      "decode_ms": r2["decode_ms"],
+                      "decode_ms_per_step":
+                          r2["decode_ms"] / max(1, max(r2["new_tokens"]) - 1),
+                      "new_tokens": r2["new_tokens"],
+                      "cached_tokens": r2["cached_tokens"]}
+               for tier, r2 in (("unified", unified_r2),
+                                ("direct", rounds[1]),
+                                ("gather", rounds_f[1]))}
+    report = {"phase": "serve_paged", "model": MODEL,
+              "direct": direct_rep, "gather_forced": forced_rep,
+              "gather_pool_exhausted": exhausted_rep,
+              "round2_by_tier": compare}
+    return report, kept, d_launch
+
+
+def paged_library(torch, kernel, q, kp, vp, tables, ints, window):
+    """scaled_dot_product_attention on a paged kernel's work: each row's
+    K/V gathered beforehand (not timed), its ``paged_mask`` as attn_mask;
+    q is [rows, n_q, H, hd]."""
+    k, v = gathered_kv(torch, kp, vp, tables)          # [rows, KV, S, hd]
+    mask = paged_mask(torch, kernel, kp.shape[1], tables, ints, q.shape[1],
+                      window)
+    qb = q.transpose(1, 2).contiguous()                # [rows, H, n_q, hd]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qb, k, v, attn_mask=mask[:, None], enable_gqa=True)
+
+
+def ragged_library(torch, q, kp, vp, bt, bm, tq, window):
+    return paged_library(torch, "ragged_fwd",
+                         q.reshape(bt.shape[0], tq, *q.shape[1:]), kp, vp,
+                         bt, (bm,), window)
+
+
+def paged_entries(torch, P, kernels, kept, launches) -> list:
+    """The direct tier's kernels on the inputs the main path gave them
+    (round 2 of the direct engine). The library yardstick is
+    scaled_dot_product_attention over K/V gathered beforehand (not
+    timed) with the same mask; it returns a normalized output, where the
+    kernels return partials."""
+    entries = []
+    a, kw = kept["paged_attend"]
+    q, kp, vp, tables, kv_lens, kv_off, q_pos, window = a
+    err = check_partials(torch, "paged_fwd", P.paged_attend(*a, **kw),
+                         P.paged_attend_ref(*a),
+                         {"dtype": dtype_name(q)})["max_abs_err"]
+    nbytes, flops = paged_work(torch, q, kp, tables, kv_lens, kv_off, q_pos,
+                               window)
+    b_ms, b_by = bound(nbytes, flops, dtype_name(q))
+    entries.append({
+        "name": "paged_fwd", "route": "cuda",
+        "source": kernels.PAGED.source, "replaces": kernels.PAGED.replaces,
+        "launches": launches["paged_fwd"], "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: P.paged_attend(*a, **kw)),
+        "plain_ms": cuda_ms(torch, lambda: P.paged_attend_ref(*a)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(torch, paged_library(
+            torch, "paged_fwd", q[:, None], kp, vp, tables,
+            (kv_lens, kv_off, q_pos), window)),
+        "shape": {"q": list(q.shape), "pages": list(kp.shape),
+                  "tables": list(tables.shape),
+                  "kv_lens": kv_lens.tolist(), "dtype": dtype_name(q),
+                  "bytes": nbytes, "flops": flops}})
+
+    a, kw = kept["paged_prefill_attend"]
+    q, kp, vp, tables, kv_lens, window = a
+    err = check_partials(torch, "paged_prefill_fwd",
+                         P.paged_prefill_attend(*a),
+                         P.paged_prefill_attend_ref(*a),
+                         {"dtype": dtype_name(q)})["max_abs_err"]
+    nbytes, flops = paged_prefill_work(torch, q, kp, tables, kv_lens, window)
+    b_ms, b_by = bound(nbytes, flops, dtype_name(q))
+    entries.append({
+        "name": "paged_prefill_fwd", "route": "cuda",
+        "source": kernels.PAGED_PREFILL.source,
+        "replaces": kernels.PAGED_PREFILL.replaces,
+        "launches": launches["paged_prefill_fwd"], "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: P.paged_prefill_attend(*a)),
+        "plain_ms": cuda_ms(torch, lambda: P.paged_prefill_attend_ref(*a)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(torch, paged_library(
+            torch, "paged_prefill_fwd", q, kp, vp, tables, (kv_lens,),
+            window)),
+        "shape": {"q": list(q.shape), "pages": list(kp.shape),
+                  "tables": list(tables.shape),
+                  "kv_lens": kv_lens.tolist(), "dtype": dtype_name(q),
+                  "bytes": nbytes, "flops": flops}})
+    return entries
 
 
 def phase_mainpath(torch, F, P, kernels, kept, launches) -> list:
@@ -447,13 +821,14 @@ def phase_mainpath(torch, F, P, kernels, kept, launches) -> list:
         got = P.ragged_attend(*a)
         err = check(torch, "ragged_fwd", got, P.ragged_attend_ref(*a),
                     {"dtype": dtype_name(q), "tq": tq})["max_abs_err"]
-        nbytes, flops = ragged_work(q, kp, bt, bm, tq, window)
+        nbytes, flops = ragged_work(torch, q, kp, bt, bm, tq, window)
         b_ms, b_by = bound(nbytes, flops, dtype_name(q))
         ticks[key] = {
             "max_abs_err": err,
             "ms": cuda_ms(torch, lambda: P.ragged_attend(*a)),
             "plain_ms": cuda_ms(torch, lambda: P.ragged_attend_ref(*a)),
             "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(torch, ragged_library(torch, *a)),
             "shape": {"q": list(q.shape), "pages": list(kp.shape),
                       "tables": list(bt.shape), "tq": tq,
                       "live_blocks": int((bm[:, 2] > 0).sum()),
@@ -466,8 +841,8 @@ def phase_mainpath(torch, F, P, kernels, kept, launches) -> list:
         "source": kernels.RAGGED.source,
         "replaces": kernels.RAGGED.replaces,
         "launches": launches["ragged_fwd"], **ticks["decode"],
-        "library_ms": None, "chunk": ticks["chunk"]})
-    return entries
+        "chunk": ticks["chunk"]})
+    return entries + paged_entries(torch, P, kernels, kept, launches)
 
 
 def busy_ms(events) -> float:
@@ -549,7 +924,8 @@ def phase_sweep(torch, F, P) -> dict:
             bm[i] = torch.tensor([resident, resident - 1, 1])
         bt, bm = bt.to(dev), bm.to(dev)
         q = torch.randn(slots, H, hd, generator=g, device=dev).bfloat16()
-        b_ms, b_by = bound(*ragged_work(q, kp, bt, bm, 1, None), "bfloat16")
+        b_ms, b_by = bound(*ragged_work(torch, q, kp, bt, bm, 1, None),
+                           "bfloat16")
         rows.append({"kernel": "ragged_fwd", "tq": 1, "live_rows": live,
                      "resident": resident,
                      "ms": cuda_ms(torch, lambda: P.ragged_attend(
@@ -572,10 +948,25 @@ def phase_sweep(torch, F, P) -> dict:
     return {"phase": "sweep", "cases": rows}
 
 
+REFERENCE_TIERS = {
+    # the unified kernel (the card's default; forced on the CPU)
+    "unified": dict(unified_min_tokens=0),
+    # the direct tier's two kernels, unified off
+    "direct": dict(unified_min_tokens=1 << 30, direct_decode_min_tokens=0,
+                   direct_prefill_min_tokens=0),
+    # the gather tier (the JAX engine's seam)
+    "gather": dict(_force_gather_decode=True),
+}
+
+
 def phase_reference(torch, R) -> dict:
     """The same traffic, greedy, through a 2-layer fp32 cut of llama-3-8b
     on the GPU (kernels) and on the CPU (plain twins), one set of
-    weights: the texts, token counts and cached-token counts must agree."""
+    weights, on each paged tier in turn (one engine per device, sessions
+    dropped between tiers): the texts, token counts and cached-token
+    counts must agree. The unified tier runs the full traffic, the other
+    two the consensus rounds only (the sessionless row takes the dense
+    path whatever the tier)."""
     from quoracle_tpu_torch.models import config as C
     from quoracle_tpu_torch.models.generate import GenerateEngine
     from quoracle_tpu_torch.models.tokenizer import get_tokenizer
@@ -589,30 +980,48 @@ def phase_reference(torch, R) -> dict:
         params = init_params(cfg, gen, device=dev, dtype=torch.float32)
         eng = GenerateEngine(cfg, params, get_tokenizer(spec), device=dev)
         backend = R.TorchBackend([spec], device=dev, engines={spec: eng})
-        t0 = time.monotonic()
-        rounds, results, _ = run_rounds(R, backend, spec, [0.0] * 3,
-                                        max_tokens=12, n_rules=8)
-        out[dev] = {"s": time.monotonic() - t0, "rounds": rounds,
-                    "texts": [[r.text for r in res] for res in results],
-                    "tokens": [[r.usage.completion_tokens for r in res]
-                               for res in results]}
+        for tier, attrs in REFERENCE_TIERS.items():
+            eng.unified_min_tokens = eng.direct_decode_min_tokens = \
+                eng.direct_prefill_min_tokens = 1 << 30
+            eng._force_gather_decode = False
+            for k, v in attrs.items():
+                setattr(eng, k, v)
+            t0 = time.monotonic()
+            rounds, results, _ = run_rounds(
+                R, backend, spec, [0.0] * 3, max_tokens=12, n_rules=8,
+                sessionless=tier == "unified")
+            out[(dev, tier)] = {
+                "s": time.monotonic() - t0, "rounds": rounds,
+                "texts": [[r.text for r in res] for res in results],
+                "tokens": [[r.usage.completion_tokens for r in res]
+                           for res in results]}
+            for i in range(3):
+                backend.drop_session(f"agent-{i}")
         del backend, eng, params
-    same = all(out["cuda"][k] == out["cpu"][k] for k in ("texts", "tokens"))
-    same = same and all(
-        a["cached_tokens"] == b["cached_tokens"]
-        for a, b in zip(out["cuda"]["rounds"], out["cpu"]["rounds"]))
     report = {"phase": "reference", "model": spec, "dtype": "float32",
-              "identical": same,
-              "gpu_s": out["cuda"]["s"], "cpu_s": out["cpu"]["s"],
-              "sessionless_prompt_tokens":
-                  out["cuda"]["rounds"][0]["sessionless"]["prompt_tokens"],
-              "cached_tokens": out["cuda"]["rounds"][1]["cached_tokens"],
-              "new_tokens": out["cuda"]["tokens"]}
-    if not same:
-        report["gpu_texts"] = out["cuda"]["texts"]
-        report["cpu_texts"] = out["cpu"]["texts"]
+              "tiers": {}}
+    bad = []
+    for tier in REFERENCE_TIERS:
+        g, c = out[("cuda", tier)], out[("cpu", tier)]
+        same = all(g[k] == c[k] for k in ("texts", "tokens")) and all(
+            a["cached_tokens"] == b["cached_tokens"]
+            for a, b in zip(g["rounds"], c["rounds"]))
+        row = {"identical": same, "gpu_s": g["s"], "cpu_s": c["s"],
+               "cached_tokens": g["rounds"][1]["cached_tokens"],
+               "new_tokens": g["tokens"]}
+        if tier == "unified":
+            row["sessionless_prompt_tokens"] = \
+                g["rounds"][0]["sessionless"]["prompt_tokens"]
+        if min(g["rounds"][1]["cached_tokens"]) <= 0:
+            raise AssertionError(f"{tier}: round 2 resumed nothing: {row}")
+        if not same:
+            row.update(gpu_texts=g["texts"], cpu_texts=c["texts"])
+            bad.append(tier)
+        report["tiers"][tier] = row
+    report["identical"] = not bad
+    if bad:
         emit(report)
-        raise AssertionError("GPU and CPU engines disagree")
+        raise AssertionError(f"GPU and CPU engines disagree on {bad}")
     return report
 
 
@@ -655,13 +1064,20 @@ def main() -> int:
                        "status": "ok"} for k in kernels.KERNELS],
           "cases": cases})
 
+    dfa = CharDFA(max_depth=4)
     backend, report, kept, launches, hist = phase_serve(
-        torch, R, F, P, kernels, CharDFA(max_depth=4))
+        torch, R, F, P, kernels, dfa)
     emit(report)
+    paged_report, paged_kept, paged_launches = phase_serve_paged(
+        torch, R, P, kernels, dfa, backend, report)
+    emit(paged_report)
+    kept.update(paged_kept)
+    launches = {**launches,
+                **{k: paged_launches[k] for k in PAGED_KERNELS}}
     entries = phase_mainpath(torch, F, P, kernels, kept, launches)
     emit({"phase": "mainpath", "kernels": entries})
     emit(phase_trace(torch, R, backend, hist))
-    del backend, kept
+    del backend, kept, paged_kept
     torch.cuda.empty_cache()
 
     emit(phase_sweep(torch, F, P))

@@ -1,5 +1,5 @@
-// Shared attention core of the port's two CUDA kernels (flash_fwd.cu,
-// ragged_fwd.cu).
+// Shared attention core of the port's CUDA kernels (flash_fwd.cu,
+// ragged_fwd.cu, paged_fwd.cu, paged_prefill_fwd.cu).
 //
 // One block owns up to ROWS query rows that attend to the same key head.
 // Keys stream through shared memory in tiles of BK rows; each tile runs
@@ -252,6 +252,32 @@ __device__ __forceinline__ void write_rows(const float* sm, int R,
         store(out_row(r) + d, den > 0.f ? acc[c][r] / den : 0.f);
       }
     }
+  }
+}
+
+// Unnormalized partials of the block (the direct tier's kernels): row r
+// writes acc to acc_row(r) + d and its running max and denominator to
+// *m_ptr(r), *l_ptr(r). A row that saw no key writes exactly
+// (0, NEG_INF, 0), which the merge with the dense piece relies on.
+template <int HD, int ROWS, typename AccRow, typename MPtr, typename LPtr>
+__device__ __forceinline__ void write_partials(
+    const float* sm, int R, AccRow acc_row, MPtr m_ptr, LPtr l_ptr,
+    const float (&acc)[HD / 128][ROWS]) {
+  using L = Smem<HD, ROWS>;
+  const float* m = sm + L::M;
+  const float* l = sm + L::L;
+#pragma unroll
+  for (int c = 0; c < HD / 128; ++c) {
+    const int d = threadIdx.x + c * 128;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      if (r < R) acc_row(r)[d] = l[r] > 0.f ? acc[c][r] : 0.f;
+  }
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x;
+    const bool seen = l[r] > 0.f;
+    *m_ptr(r) = seen ? m[r] : NEG_INF;
+    *l_ptr(r) = seen ? l[r] : 0.f;
   }
 }
 

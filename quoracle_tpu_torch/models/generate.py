@@ -2,25 +2,37 @@
 of ``quoracle_tpu/models/generate.py``, the subset a consensus round runs).
 
 A consensus round is ONE batched call per pool member with per-row
-sampling params. The functional core (prefill, grammar mask, the two
-decode loops) is plain PyTorch on tensors; the stateful engine handles
-shape bucketing, the paged session store and detokenization. Two paths,
-as in the JAX engine's default configuration:
+sampling params. The functional core (prefill, grammar mask, the decode
+loops) is plain PyTorch on tensors; the stateful engine handles shape
+bucketing, the paged session store and detokenization.
 
-  * sessionless rows: dense prefill (``forward_hidden`` -> flash kernel for
-    chunks of at least 256 tokens on the GPU) and the dense ``decode``;
-  * sessioned rows: the unified ragged tick (``_run_unified``): one
-    token-major chunk forward that writes KV straight into the rows' pages
-    and attends through the ragged kernel, then ``decode_ragged`` through
-    the same kernel at tq = 1.
+Sessionless rows take the dense path: dense prefill (``forward_hidden`` ->
+flash kernel for chunks of at least 256 tokens on the GPU) and the dense
+``decode``. Sessioned rows take one of the JAX engine's three paged tiers,
+chosen in ``_run_paged`` by the same gates (utils/calibration.py) and the
+same page discipline:
+
+  * unified: one token-major chunk forward that writes KV straight into
+    the rows' pages and attends through the ragged kernel, then
+    ``decode_ragged`` through the same kernel at tq = 1 (``_run_unified``);
+  * direct: the suffix chunk attends to the resident pages in place
+    through the paged prefill kernel (``step_paged_prefill_direct``), the
+    decode reads the pages through the paged decode kernel with a dense
+    tail (``decode_paged``), and the tail is copied into the pages after;
+  * gather: the resident prefix is copied into a dense working cache, the
+    dense prefill and decode run over it, and prompt and response KV are
+    copied back to the pages (``step_paged_prefill``,
+    ``step_paged_decode``). It is also the tier a batch drops to when the
+    page pool cannot give the other two their pages.
 
 The JAX ``while_loop``'s all-done early exit becomes one host check per
-decode step. Bucket arithmetic (prompt/batch/max_new buckets, RAGGED_TQ,
-RAGGED_TOKEN_BUCKETS, pow2 table width) is kept verbatim: it fixes cache
-lengths and page bookkeeping, so both packages lay out the same pages.
-Left for later slices: the gather/direct fallbacks (this port raises
-where the JAX engine would fall back), the radix prefix cache, KV tiers,
-speculation, int8, VLM rows and meshes.
+decode step, and the JAX jits with donated buffers become plain methods
+that write the pool in place. Bucket arithmetic (prompt/batch/max_new
+buckets, RAGGED_TQ, RAGGED_TOKEN_BUCKETS, pow2 table width) is kept
+verbatim: it fixes cache lengths and page bookkeeping, so both packages
+lay out the same pages. Left for later slices: int8 KV pools (the next
+slice), the radix prefix cache and its prefix sharing, KV tiers,
+speculation, VLM rows and meshes.
 """
 
 from __future__ import annotations
@@ -36,10 +48,14 @@ import torch
 from quoracle_tpu_torch.models.config import ModelConfig
 from quoracle_tpu_torch.models.sampling import sample_tokens
 from quoracle_tpu_torch.models.transformer import (
-    KVCache, Transformer, forward_hidden, forward_hidden_ragged, init_cache,
+    KVCache, Transformer, forward_hidden, forward_hidden_paged,
+    forward_hidden_paged_prefill, forward_hidden_ragged, init_cache,
     project_logits,
 )
 from quoracle_tpu_torch.ops import kernels
+from quoracle_tpu_torch.utils.calibration import (
+    load_paged_gates, resolve_unified_gate,
+)
 
 # Finite mask value: a whole-row -inf would NaN the sampling softmax; the
 # grammar layer guarantees >= 1 allowed token, this is defense in depth.
@@ -214,6 +230,71 @@ def decode(
 
 
 @torch.no_grad()
+def decode_paged(
+    params: Transformer,
+    cfg: ModelConfig,
+    k_pool: torch.Tensor,         # [L, n_pages, page, KV, hd], read-only
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,         # [B, maxp] int32
+    pool_lens: torch.Tensor,      # [B] int32 valid pool tokens (the prompt)
+    kv_off: torch.Tensor,         # [B] int32 abs position of pool index 0
+    first_logits: torch.Tensor,   # [B, V]
+    generator: torch.Generator,
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    max_new: int,
+    eos_id: int,
+    active: torch.Tensor,
+    row_limit: torch.Tensor,
+    pad_id: int = 0,
+    stop_ids: tuple = (),
+    json_table: Optional[torch.Tensor] = None,
+    json_state: Optional[torch.Tensor] = None,
+    tail_dtype: Optional[torch.dtype] = None,
+):
+    """Autoregressive decode against the paged pool (the direct tier):
+    the sampling and grammar semantics of ``decode``, but attention reads
+    the rows' pages in place (``forward_hidden_paged``) and the new
+    tokens' KV lands in a [L, B, max_new, KV, hd] TAIL buffer instead of
+    a gathered working cache. Returns (tokens [B, max_new], n_emitted [B],
+    lens [B], tail_k, tail_v, jstate), lens = pool_lens + valid tail
+    entries per row; the caller copies tail[:, :lens - pool_lens] into the
+    rows' pages."""
+    B = first_logits.shape[0]
+    L, _, _, KV, HD = k_pool.shape
+    fns = _sampling_fns(json_table, eos_id, stop_ids, first_logits.device)
+    is_stop, mask_logits, advance, _ = fns
+    cur, n_emitted, done, jstate, out = _first_token(
+        fns, first_logits, generator, temperature, top_p, active,
+        row_limit, json_state, max_new, pad_id)
+    dt = k_pool.dtype if tail_dtype is None else tail_dtype
+    tail_k = torch.zeros((L, B, max_new, KV, HD), dtype=dt,
+                         device=k_pool.device)
+    tail_v = torch.zeros_like(tail_k)
+    lens = pool_lens.to(torch.int32)
+    off = kv_off.to(torch.int32)
+    for i in range(1, max_new):
+        if bool(torch.all(done)):
+            break
+        positions = (lens + off)[:, None]
+        hidden, tail_k, tail_v = forward_hidden_paged(
+            params, cfg, cur[:, None], positions, k_pool, v_pool, tables,
+            pool_lens, kv_off, tail_k, tail_v, step=i - 1)
+        logits = project_logits(params, cfg, hidden[:, 0])
+        nxt = sample_tokens(mask_logits(logits, jstate), generator,
+                            temperature, top_p)
+        nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
+        out[:, i] = nxt
+        live = (~done).to(torch.int32)
+        n_emitted = n_emitted + live
+        lens = lens + live
+        jstate = advance(jstate, nxt, done)
+        done = done | is_stop(nxt) | (n_emitted >= row_limit)
+        cur = nxt
+    return out, n_emitted, lens, tail_k, tail_v, jstate
+
+
+@torch.no_grad()
 def decode_ragged(
     params: Transformer,
     cfg: ModelConfig,
@@ -303,12 +384,6 @@ MAX_NEW_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
 
 class ContextOverflowError(ValueError):
     """Prompt does not fit the model's context window."""
-
-
-class KVPoolExhaustedError(RuntimeError):
-    """The page pool cannot hold a batch on the unified path. The JAX
-    engine falls back to its gather programs here; the port has no
-    gather tier yet and raises instead."""
 
 
 @dataclasses.dataclass
@@ -538,6 +613,21 @@ class GenerateEngine:
         self.last_prefill_tokens = 0   # suffix tokens actually computed
         self.last_prefill_s = 0.0
         self.last_decode_s = 0.0
+        # Paged-tier gates (max prompt tokens of the batch): MEASURED data
+        # from a calibration file (utils/calibration.py, env
+        # QUORACLE_PAGED_CALIB), as in the JAX engine. No file: the direct
+        # tier is off and the unified tier is AUTO, on for a CUDA engine
+        # and off for a CPU engine (which then serves through gather).
+        gates = load_paged_gates(device=self.device)
+        self.paged_gates = gates
+        self.direct_decode_min_tokens = gates.decode_min_resident
+        self.direct_prefill_min_tokens = gates.prefill_min_resident
+        self.direct_prefill_max_chunk = gates.prefill_max_chunk
+        self.unified_min_tokens = resolve_unified_gate(gates, self.device)
+        # equality/fallback seams of the JAX engine: pin the gather tier
+        # (decode, and with it unified) or the gather prefill
+        self._force_gather_decode = False
+        self._force_gather_prefill = False
 
     @staticmethod
     def kernel_launches() -> dict[str, int]:
@@ -699,8 +789,9 @@ class GenerateEngine:
             if paged:
                 out, n_emitted, jstate_f, t_prefill, now = self._run_paged(
                     prompts, suffixes, sess_rows, reuse_abs, kv_off_host,
-                    store_sids, B, maxp, pre_arr, off_arr, chunk_arr,
-                    samp_np, jstate_np, json_table, generator, max_new)
+                    store_sids, B, maxp, tokens, pre_arr, off_arr,
+                    chunk_arr, samp_np, jstate_np, json_table, generator,
+                    max_new)
             else:
                 out, n_emitted, jstate_f, t_prefill, now = self._run_dense(
                     tokens, chunk_arr, cache_len, samp_np, jstate_np,
@@ -773,86 +864,116 @@ class GenerateEngine:
         st.v = torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
 
     def _run_paged(self, prompts, suffixes, sess_rows, reuse_abs,
-                   kv_off_host, store_sids, B, maxp, pre_arr, off_arr,
-                   chunk_arr, samp_np, jstate_np, json_table, generator,
-                   max_new):
-        """The sessioned call, unified path only: allocate each stored
-        row's dst pages (its own resident pages first, LRU eviction for the
-        rest) and temporary pages for unstored rows, run the unified tick,
-        then store every session's page list back (ints only — no KV bytes
-        move through the host). The caller holds ``_paged_lock``."""
+                   kv_off_host, store_sids, B, maxp, tokens, pre_arr,
+                   off_arr, chunk_arr, samp_np, jstate_np, json_table,
+                   generator, max_new):
+        """The sessioned call: allocate each stored row's dst pages (its
+        own resident pages first, LRU eviction for the rest), pick the
+        tier as the JAX engine does, run it, then store every session's
+        page list back (ints only — no KV bytes move through the host).
+        The caller holds ``_paged_lock``.
+
+        Tier choice (the JAX ``_run_paged`` without prefix sharing):
+        unified and direct decode each need their gate and no
+        ``_force_gather_decode``; both read every row's prompt from pages,
+        so rows without a stored session borrow TEMP pages from the free
+        list, and when there are none both are off. Unified and the direct
+        prefill also need every resumed row to write through its own
+        pages: a declined store (pool exhausted) rules them out. The
+        direct prefill has its own gate and chunk cap. What remains is
+        gather."""
         n = len(prompts)
         st = self.sessions
         page = st.page
         self._ensure_pool()
+        limits = samp_np[3]
+        src = np.zeros((B, maxp), np.int32)
         dst = np.zeros((B, maxp), np.int32)
         dst_lists: list[Optional[list[int]]] = [None] * n
         temp_lists: list[Optional[list[int]]] = [None] * n
         spills: list[list[int]] = [[] for _ in range(n)]
-        fresh: list[int] = []           # pages this call allocated
         protect = tuple(s for s in store_sids if s)
+        max_prompt = max(len(p) for p in prompts)
+        use_direct = (not self._force_gather_decode
+                      and max_prompt >= self.direct_decode_min_tokens)
+        unified_ok = (not self._force_gather_decode
+                      and max_prompt >= self.unified_min_tokens)
         with st.lock:   # one allocation transaction for the batch
-            try:
-                for i in range(n):
-                    if store_sids[i] is None:
+            for i in range(n):
+                s = sess_rows[i]
+                if s is not None:
+                    # pages past this call's table width hold KV past the
+                    # reusable prefix: never read (prefix <= maxp·page)
+                    k = min(len(s.pages), maxp)
+                    src[i, :k] = s.pages[:k]
+                if store_sids[i] is None:
+                    continue
+                # dst reuses the STORED session's pages even when the
+                # prefix-reuse decision declined them: their content is
+                # dead either way, and put_raw must not leak them
+                stored = st._sessions.get(store_sids[i])
+                old = list(stored.pages) if stored is not None else []
+                # resident pages past the table width can't be rewritten
+                # this call: release them after the batch
+                spills[i], old = old[maxp:], old[:maxp]
+                pre_buf = reuse_abs[i] - kv_off_host[i]
+                need_tokens = min(pre_buf + len(suffixes[i])
+                                  + int(limits[i]), maxp * page)
+                n_extra = max(0, -(-need_tokens // page) - len(old))
+                if n_extra:
+                    extra = st.alloc(n_extra, protect=protect)
+                    if extra is None:
+                        # pool exhausted even after eviction: serve the
+                        # row without storing (old session stays valid)
+                        store_sids[i] = None
+                        spills[i] = []
                         continue
-                    # dst reuses the STORED session's pages even when the
-                    # prefix-reuse decision declined them: their content
-                    # is dead either way, and put_raw must not leak them
-                    stored = st._sessions.get(store_sids[i])
-                    old = list(stored.pages) if stored is not None else []
-                    # resident pages past the table width can't be
-                    # rewritten this call: release them after the batch
-                    spills[i], old = old[maxp:], old[:maxp]
-                    pre_buf = reuse_abs[i] - kv_off_host[i]
-                    need_tokens = min(pre_buf + len(suffixes[i])
-                                      + int(samp_np[3][i]), maxp * page)
-                    need = -(-need_tokens // page)
-                    n_extra = max(0, need - len(old))
-                    if n_extra:
-                        extra = st.alloc(n_extra, protect=protect)
-                        if extra is None:
-                            # pool exhausted even after eviction: serve the
-                            # row without storing (old session stays valid)
-                            store_sids[i] = None
-                            spills[i] = []
-                            continue
-                        fresh.extend(extra)
-                        old = old + extra
-                    dst_lists[i] = old
-                    dst[i, :len(old)] = old
-                if any(sess_rows[i] is not None and dst_lists[i] is None
-                       for i in range(n)):
-                    raise KVPoolExhaustedError(
-                        f"engine {self.cfg.name}: a resumed row's store was "
-                        f"declined (page pool exhausted); the unified path "
-                        f"must write through the row's own pages and the "
-                        f"gather fallback is not ported yet")
+                    old = old + extra
+                dst_lists[i] = old
+                dst[i, :len(old)] = old
+            if use_direct or unified_ok:
                 for i in range(n):
                     if dst_lists[i] is not None:
                         continue
-                    need_tokens = min(len(suffixes[i]) + int(samp_np[3][i])
+                    need_tokens = min(len(suffixes[i]) + int(limits[i])
                                       + int(pre_arr[i]), maxp * page)
                     # free-list only: pages that die at call end must not
                     # evict other agents' resident sessions
                     tmp = st.alloc(-(-need_tokens // page), protect=protect,
                                    evict=False)
                     if tmp is None:
-                        raise KVPoolExhaustedError(
-                            f"engine {self.cfg.name}: no free pages for a "
-                            f"sessionless row of a sessioned batch; the "
-                            f"gather fallback is not ported yet")
-                    fresh.extend(tmp)
+                        use_direct = unified_ok = False
+                        break
                     temp_lists[i] = tmp
                     dst[i, :len(tmp)] = tmp
-            except KVPoolExhaustedError:
-                st._release(fresh)
-                raise
+                if not (use_direct or unified_ok):
+                    for i, tmp in enumerate(temp_lists):
+                        if tmp:
+                            st._release(tmp)
+                        temp_lists[i] = None
 
-        out, n_emitted, final_lens, jstate_f, t_prefill, now = \
-            self._run_unified(n, suffixes, dst, pre_arr, off_arr, chunk_arr,
-                              samp_np, jstate_np, json_table, generator,
-                              max_new, maxp)
+        # every resumed row must read its prefix from the SAME pages the
+        # unified kernel / direct prefill write (nothing relocates it)
+        own_pages = all(sess_rows[i] is None or dst_lists[i] is not None
+                        for i in range(n))
+        T = tokens.shape[1]
+        use_direct_pre = (use_direct and own_pages
+                          and not self._force_gather_prefill
+                          and max_prompt >= self.direct_prefill_min_tokens
+                          and T <= self.direct_prefill_max_chunk)
+        use_unified = unified_ok and own_pages
+
+        if use_unified:
+            out, n_emitted, final_lens, jstate_f, t_prefill, now = \
+                self._run_unified(n, suffixes, dst, pre_arr, off_arr,
+                                  chunk_arr, samp_np, jstate_np, json_table,
+                                  generator, max_new, maxp)
+        else:
+            out, n_emitted, final_lens, jstate_f, t_prefill, now = \
+                self._run_split(n, suffixes, src, dst, tokens, pre_arr,
+                                off_arr, chunk_arr, samp_np, jstate_np,
+                                json_table, generator, max_new, maxp,
+                                use_direct, use_direct_pre)
 
         for i in range(n):
             sid, pages = store_sids[i], dst_lists[i]
@@ -877,10 +998,192 @@ class GenerateEngine:
                 start += drop * page
             st.put_raw(sid, _Session(tokens=toks, pages=pages,
                                      start_pos=start))
+        # temp pages (sessionless rows on the page-reading tiers) die with
+        # the call
         for tmp in temp_lists:
             if tmp:
                 st.release(tmp)
         return out, n_emitted, jstate_f, t_prefill, now
+
+    def _run_split(self, n, suffixes, src, dst, tokens, pre_arr, off_arr,
+                   chunk_arr, samp_np, jstate_np, json_table, generator,
+                   max_new, maxp, use_direct, use_direct_pre):
+        """The direct and gather tiers. Prefill: the direct paged prefill
+        (chunk against pages, chunk KV to dst pages) or the gather prefill
+        (working cache). Decode: the direct decode (pages + tail, after
+        the working cache, if any, is copied to dst pages; the tail is
+        copied after) or the gather decode (working cache, then prompt
+        and response KV copied to dst pages)."""
+        st = self.sessions
+        dev = self.device
+        page = st.page
+
+        def put(a):
+            return torch.as_tensor(a, device=dev)
+
+        temp, top, active, limits = (put(a) for a in samp_np)
+        jstate0 = None if jstate_np is None else put(jstate_np)
+        off_dev = put(off_arr)
+        if use_direct_pre:
+            n_tok = st.n_pages * page
+            T = tokens.shape[1]
+            flat = np.full((tokens.shape[0], T), n_tok, np.int32)  # = drop
+            for i in range(n):
+                n_chunk = min(len(suffixes[i]) or 1,
+                              maxp * page - int(pre_arr[i]))
+                pos = int(pre_arr[i]) + np.arange(max(0, n_chunk))
+                flat[i, :len(pos)] = dst[i, pos // page] * page + pos % page
+            last_logits = self.step_paged_prefill_direct(
+                put(src), put(tokens), put(pre_arr), put(chunk_arr),
+                off_dev, put(flat))
+            cache = None
+            pool_lens = pre_arr + chunk_arr
+        else:
+            last_logits, cache = self.step_paged_prefill(
+                put(src), put(tokens), put(pre_arr), put(chunk_arr),
+                off_dev)
+        _fence(dev)
+        t_prefill = time.monotonic()
+
+        if use_direct:
+            if cache is not None:
+                pool_lens = cache.lens.cpu().numpy()
+                self.step_scatter_prompt(cache.k, cache.v, put(dst))
+                cache = None                    # the working cache frees
+            out, n_emitted, final_lens, tail_k, tail_v, jstate_f = \
+                self.step_paged_decode_direct(
+                    put(dst), put(pool_lens), off_dev, last_logits,
+                    generator, temp, top, active, limits, json_table,
+                    jstate0, max_new)
+            out, n_emitted, final_lens, jstate_f = (
+                x.cpu().numpy() for x in (out, n_emitted, final_lens,
+                                          jstate_f))
+            flat = np.full((dst.shape[0], max_new), st.n_pages * page,
+                           np.int32)            # out of range = drop
+            for i in range(n):
+                n_tail = int(final_lens[i]) - int(pool_lens[i])
+                if n_tail <= 0:
+                    continue
+                pos = int(pool_lens[i]) + np.arange(n_tail)
+                pos = pos[pos < maxp * page]
+                flat[i, :len(pos)] = dst[i, pos // page] * page + pos % page
+            self.step_scatter_tail(tail_k, tail_v, put(flat))
+        else:
+            out, n_emitted, final_lens, jstate_f = self.step_paged_decode(
+                cache, put(dst), off_dev, last_logits, generator, temp, top,
+                active, limits, json_table, jstate0, max_new)
+            out, n_emitted, final_lens, jstate_f = (
+                x.cpu().numpy() for x in (out, n_emitted, final_lens,
+                                          jstate_f))
+        # the page copies belong to this call's decode phase
+        _fence(dev)
+        now = time.monotonic()
+        return out, n_emitted, final_lens, jstate_f, t_prefill, now
+
+    # -- the paged steps: plain methods over the pool, written in place
+    # where the JAX jits donate it --
+
+    @torch.no_grad()
+    def step_paged_prefill(self, src, tokens, prefix_lens, chunk_lens,
+                           kv_off):
+        """Gather tier prefill: the rows' resident pages gathered into a
+        dense working cache [L, B, maxp·page, KV, hd] (one device gather;
+        the host only sends the page table), then the suffix chunk through
+        the dense ``prefill_chunk``. Returns (last-token logits [B, V],
+        cache)."""
+        st = self.sessions
+        L, _, page, KV, HD = st.k.shape
+        B, maxp = src.shape
+        idx = src.long()
+        cache = KVCache(
+            k=st.k[:, idx].reshape(L, B, maxp * page, KV, HD),
+            v=st.v[:, idx].reshape(L, B, maxp * page, KV, HD),
+            lens=torch.zeros((B,), dtype=torch.int32, device=src.device))
+        return prefill_chunk(self.params, self.cfg, tokens, prefix_lens,
+                             chunk_lens, cache, kv_off=kv_off)
+
+    @torch.no_grad()
+    def step_paged_decode(self, cache, dst, kv_off, last_logits, generator,
+                          temperature, top_p, active, row_limit, json_table,
+                          json_state, max_new: int):
+        """Gather tier decode: the dense ``decode`` over the working cache,
+        then prompt and response KV copied back to the dst pages. Returns
+        (tokens, n_emitted, lens, jstate)."""
+        cfg = self.cfg
+        out, n_emitted, cache, jstate = decode(
+            self.params, cfg, cache, last_logits, generator, temperature,
+            top_p, max_new, cfg.eos_token_id, active=active,
+            row_limit=row_limit, pad_id=self.tokenizer.pad_id,
+            stop_ids=cfg.stop_token_ids, json_table=json_table,
+            json_state=json_state, kv_off=kv_off)
+        self.step_scatter_prompt(cache.k, cache.v, dst)
+        return out, n_emitted, cache.lens, jstate
+
+    @torch.no_grad()
+    def step_paged_prefill_direct(self, src_tables, tokens, prefix_lens,
+                                  chunk_lens, kv_off, flat_dst):
+        """Direct tier prefill: the suffix chunk attends to the resident
+        prefix straight off its pages (the paged prefill kernel on the
+        card) and its KV is copied into the dst pages in place; no working
+        cache. Returns the last-token logits [B, V]."""
+        st = self.sessions
+        B, T = tokens.shape
+        positions = ((prefix_lens + kv_off).to(torch.int32)[:, None]
+                     + torch.arange(T, dtype=torch.int32,
+                                    device=tokens.device)[None, :])
+        hidden, st.k, st.v = forward_hidden_paged_prefill(
+            self.params, self.cfg, tokens, positions, st.k, st.v,
+            src_tables, prefix_lens, chunk_lens, flat_dst)
+        rows = torch.arange(B, device=tokens.device)
+        last_h = hidden[rows, (chunk_lens - 1).long()]
+        return project_logits(self.params, self.cfg, last_h)
+
+    def step_scatter_prompt(self, k_work: torch.Tensor,
+                            v_work: torch.Tensor, dst: torch.Tensor) -> None:
+        """Working cache -> dst pages, in place: before the direct decode
+        (which then reads pages only), or after the gather decode. Page ids
+        out of range drop (the JAX ``mode="drop"``); rows without pages
+        point at scratch page 0."""
+        st = self.sessions
+        L, n_pages, page, KV, HD = st.k.shape
+        B, maxp = dst.shape
+        flat = dst.reshape(-1)
+        keep = torch.nonzero((flat >= 0) & (flat < n_pages))[:, 0]
+        pid = flat[keep].long()
+        for pool, work in ((st.k, k_work), (st.v, v_work)):
+            pool.index_copy_(1, pid, work.reshape(L, B * maxp, page, KV, HD)
+                             .index_select(1, keep).to(pool.dtype))
+
+    @torch.no_grad()
+    def step_paged_decode_direct(self, tables, pool_lens, kv_off,
+                                 last_logits, generator, temperature, top_p,
+                                 active, row_limit, json_table, json_state,
+                                 max_new: int):
+        """Direct tier decode: ``decode_paged`` reads the pool (the paged
+        decode kernel on the card) and keeps new KV in the tail."""
+        cfg = self.cfg
+        st = self.sessions
+        return decode_paged(
+            self.params, cfg, st.k, st.v, tables, pool_lens, kv_off,
+            last_logits, generator, temperature, top_p, max_new,
+            cfg.eos_token_id, active=active, row_limit=row_limit,
+            pad_id=self.tokenizer.pad_id, stop_ids=cfg.stop_token_ids,
+            json_table=json_table, json_state=json_state,
+            tail_dtype=self.cache_dtype)
+
+    def step_scatter_tail(self, tail_k, tail_v, flat_idx) -> None:
+        """Tail slot t of row b -> pool token slot flat_idx[b, t], in
+        place; slots out of range drop."""
+        st = self.sessions
+        L, n_pages, page, KV, HD = st.k.shape
+        n_tok = n_pages * page
+        flat = flat_idx.reshape(-1)
+        keep = torch.nonzero((flat >= 0) & (flat < n_tok))[:, 0]
+        slot = flat[keep].long()
+        for pool, tail in ((st.k, tail_k), (st.v, tail_v)):
+            pool.view(L, n_tok, KV, HD).index_copy_(
+                1, slot, tail.reshape(L, -1, KV, HD).index_select(1, keep)
+                .to(pool.dtype))
 
     def _run_unified(self, n, suffixes, dst, pre_arr, off_arr, chunk_arr,
                      samp_np, jstate_np, json_table, generator, max_new,

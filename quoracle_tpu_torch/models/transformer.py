@@ -25,7 +25,9 @@ from torch import nn
 
 from quoracle_tpu_torch.models.config import ModelConfig
 from quoracle_tpu_torch.ops.flash_attention import attend_auto
-from quoracle_tpu_torch.ops.paged_attention import ragged_attend_auto
+from quoracle_tpu_torch.ops.paged_attention import (
+    DecodeStep, paged_prefill_merge, ragged_attend_auto,
+)
 
 
 class Layer(nn.Module):
@@ -267,6 +269,107 @@ def forward_hidden(
     return x, cache
 
 
+def _kept_slots(flat_dst: torch.Tensor, n_tok: int):
+    """The JAX scatters ``.at[flat_dst].set(mode="drop")`` silently drop
+    out-of-range slots (the n_tok sentinel of padding and overflow
+    tokens); a torch ``index_copy_`` would fault on them instead. Returns
+    (source token indices, destination slots) of the kept tokens, chosen
+    once per forward (one host sync) so that every layer copies only
+    those."""
+    flat = flat_dst.reshape(-1)
+    src = torch.nonzero((flat >= 0) & (flat < n_tok))[:, 0]
+    return src, flat[src].long()
+
+
+@torch.no_grad()
+def forward_hidden_paged(
+    params: Transformer,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,        # [B, 1] int32 (decode step)
+    positions: torch.Tensor,     # [B, 1] int32 absolute positions
+    k_pool: torch.Tensor,        # [L, n_pages, page, n_kv, hd], read-only
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,        # [B, maxp] int32 page table
+    pool_lens: torch.Tensor,     # [B] int32 valid pool tokens (fixed)
+    kv_off: torch.Tensor,        # [B] int32 abs position of pool index 0
+    tail_k: torch.Tensor,        # [L, B, Tmax, n_kv, hd], written in place
+    tail_v: torch.Tensor,
+    step: int,                   # tail slot this token writes
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode-step forward of the direct tier: attention reads the row's
+    pages in place (ops/paged_attention.paged_decode_attend: the paged
+    decode kernel on the card) merged with the dense tail of tokens
+    generated this call. Every row writes tail slot ``step`` (done rows
+    deposit junk there; the causal mask hides it behind their frozen
+    q_pos). The step's index tensors (kernel meta, tail mask) are built
+    once and shared by the layers. Returns (hidden [B, 1, D], tail_k,
+    tail_v)."""
+    B, T = tokens.shape
+    shared = DecodeStep.build(tables, pool_lens, kv_off, step + 1,
+                              positions[:, 0], tail_k.shape[2],
+                              cfg.sliding_window)
+    x = _embed_lookup(params, cfg, tokens)
+    for li, p in enumerate(params.layers):
+        q, k, v = _qkv(x, p, cfg, B, T)
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        tk, tv = tail_k[li], tail_v[li]               # [B, Tmax, KV, hd]
+        tk[:, step] = k[:, 0].to(tk.dtype)
+        tv[:, step] = v[:, 0].to(tv.dtype)
+        attn = shared.attend(q, k_pool[li], v_pool[li], tk, tv)
+        x = x + _wo(attn.to(x.dtype), p, cfg)
+        x = _mlp(x, p, cfg)
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps, cfg.rmsnorm_plus_one)
+    return x, tail_k, tail_v
+
+
+@torch.no_grad()
+def forward_hidden_paged_prefill(
+    params: Transformer,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,        # [B, T] int32 right-padded suffix chunk
+    positions: torch.Tensor,     # [B, T] int32 absolute positions
+    k_pool: torch.Tensor,        # [L, n_pages, page, n_kv, hd], in place
+    v_pool: torch.Tensor,
+    src_tables: torch.Tensor,    # [B, maxp] pages of the resident prefix
+    prefix_lens: torch.Tensor,   # [B] int32 resident pool tokens per row
+    chunk_lens: torch.Tensor,    # [B] int32 valid chunk tokens per row
+    flat_dst: torch.Tensor,      # [B, T] int32 flat pool slot per chunk
+                                 # position; n_pages * page = drop
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill of the direct tier: the suffix chunk attends to the
+    resident prefix straight off its pages
+    (ops/paged_attention.paged_prefill_merge: the paged prefill kernel on
+    the card) merged with dense causal intra-chunk attention; then the
+    chunk's KV is copied into the rows' dst pages. Attention reads the
+    pool BEFORE this layer's copy, as in the JAX package (the chunk sees
+    itself through the dense piece). Returns (hidden [B, T, D], k_pool,
+    v_pool) with the chunk KV written in place."""
+    B, T = tokens.shape
+    n_tok = k_pool.shape[1] * k_pool.shape[2]
+    src, dst = _kept_slots(flat_dst, n_tok)
+    x = _embed_lookup(params, cfg, tokens)
+    for li, p in enumerate(params.layers):
+        q, k, v = _qkv(x, p, cfg, B, T)
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        k = k.to(k_pool.dtype)
+        v = v.to(v_pool.dtype)
+        attn = paged_prefill_merge(
+            q, k, v, k_pool[li], v_pool[li], src_tables, prefix_lens,
+            chunk_lens, sliding_window=cfg.sliding_window)
+        kf = k_pool[li].view(n_tok, cfg.n_kv_heads, cfg.head_dim)
+        vf = v_pool[li].view(n_tok, cfg.n_kv_heads, cfg.head_dim)
+        kf.index_copy_(0, dst, k.reshape(B * T, *k.shape[2:])
+                       .index_select(0, src))
+        vf.index_copy_(0, dst, v.reshape(B * T, *v.shape[2:])
+                       .index_select(0, src))
+        x = x + _wo(attn.to(x.dtype), p, cfg)
+        x = _mlp(x, p, cfg)
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps, cfg.rmsnorm_plus_one)
+    return x, k_pool, v_pool
+
+
 @torch.no_grad()
 def forward_hidden_ragged(
     params: Transformer,
@@ -284,18 +387,12 @@ def forward_hidden_ragged(
     """Unified ragged forward: each layer writes the chunk's KV into the
     rows' pages FIRST, then attention streams each block's real pages
     (intra-chunk visibility is pure causal masking). Returns (hidden
-    [1, Tp, D], k_pool, v_pool) with the chunk KV written in place.
-
-    The JAX scatter ``.at[flat_dst].set(mode="drop")`` silently drops
-    out-of-range slots (the n_tok sentinel of padding and overflow
-    tokens); a torch ``index_copy_`` would fault on them instead, so the
-    kept tokens are selected explicitly, once per call (the one host sync
-    of the forward), and every layer copies only those."""
+    [1, Tp, D], k_pool, v_pool) with the chunk KV written in place; slots
+    out of range drop (``_kept_slots``)."""
     B, Tp = tokens.shape
     n_pages, page = k_pool.shape[1], k_pool.shape[2]
     n_tok = n_pages * page
-    src = torch.nonzero((flat_dst >= 0) & (flat_dst < n_tok))[:, 0]
-    dst = flat_dst[src].long()
+    src, dst = _kept_slots(flat_dst, n_tok)
     x = _embed_lookup(params, cfg, tokens)
     for li, p in enumerate(params.layers):
         q, k, v = _qkv(x, p, cfg, B, Tp)

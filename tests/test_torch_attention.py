@@ -195,4 +195,40 @@ def test_cpu_tensors_take_plain_paths_and_never_count_launches():
     ref = tpaged.ragged_attend_ref(*fq, tq=c["tq"])
     assert torch.equal(tpaged.ragged_attend(*fq, tq=c["tq"]), ref)
     assert torch.equal(tpaged.ragged_attend_auto(*fq, tq=c["tq"]), ref)
-    assert kernels.launch_counts() == {"flash_fwd": 0, "ragged_fwd": 0}
+    # the direct tier's split kernels and their dispatchers
+    rng = np.random.default_rng(6)
+    B, T, H, KV, hd, page, n_pages = 2, 5, 4, 2, 32, 16, 8
+    pools = [_t(rng.standard_normal((n_pages, page, KV, hd))
+                .astype(np.float32)) for _ in range(2)]
+    tables = _t(np.array([[1, 2], [3, 4]], np.int32))
+    lens = _t(np.array([20, 0], np.int32))
+    off = _t(np.array([0, 3], np.int32))
+    qd = _t(rng.standard_normal((B, H, hd)).astype(np.float32))
+    qpos = _t(np.array([22, 4], np.int32))
+    for got, ref in zip(
+            tpaged.paged_attend(qd, *pools, tables, lens, off, qpos, 8),
+            tpaged.paged_attend_ref(qd, *pools, tables, lens, off, qpos, 8)):
+        assert torch.equal(got, ref)
+    qc = _t(rng.standard_normal((B, T, H, hd)).astype(np.float32))
+    for got, ref in zip(
+            tpaged.paged_prefill_attend(qc, *pools, tables, lens, 8),
+            tpaged.paged_prefill_attend_ref(qc, *pools, tables, lens, 8)):
+        assert torch.equal(got, ref)
+    ck, cv = (_t(rng.standard_normal((B, T, KV, hd)).astype(np.float32))
+              for _ in range(2))
+    chunk_lens = _t(np.array([5, 3], np.int32))
+    merged = tpaged.paged_prefill_merge(qc, ck, cv, *pools, tables, lens,
+                                        chunk_lens, 8)
+    assert torch.equal(merged, tpaged.merge_partials(
+        tpaged.paged_prefill_attend_ref(qc, *pools, tables, lens, 8),
+        tpaged.chunk_attend_partials(qc, ck, cv, chunk_lens, 8)))
+    tk, tv = (_t(rng.standard_normal((B, 3, KV, hd)).astype(np.float32))
+              for _ in range(2))
+    dec = tpaged.paged_decode_attend(qd[:, None], *pools, tables, lens, off,
+                                     tk, tv, 3, qpos, 8)
+    assert torch.equal(dec[:, 0], tpaged.merge_partials(
+        tpaged.paged_attend_ref(qd, *pools, tables, lens, off, qpos, 8),
+        tpaged.tail_attend_partials(qd, tk, tv, 3, off + lens, qpos, 8)))
+    assert kernels.launch_counts() == {"flash_fwd": 0, "ragged_fwd": 0,
+                                       "paged_fwd": 0,
+                                       "paged_prefill_fwd": 0}

@@ -4,7 +4,8 @@ against the JAX package's, on the CPU.
 The same fp32 weights (tests/_torch_parity.py) serve in a JAX
 ``GenerateEngine`` with the unified ragged path forced on and the radix
 prefix cache off (the seam tests/test_ragged_attention.py uses) and in
-the port's engine on ``device="cpu"``. At temperature 0 the token ids
+the port's engine on ``device="cpu"``, unified forced on the same way
+(tests/test_torch_paged_kv.py covers the direct and gather tiers). At temperature 0 the token ids
 must be IDENTICAL: sessionless rows (dense path), sessioned round 1 and
 the resumed round 2 (unified ragged path, equal cached-token counts),
 grammar-constrained JSON rows, and a sliding-window model whose session
@@ -39,6 +40,7 @@ def _engines(name):
     je.prefix_sharing = False       # the port has no radix cache yet
     te = tgen.GenerateEngine(tcfg, model, ttok.get_tokenizer(spec),
                              device="cpu", **KW)
+    te.unified_min_tokens = 0       # on the CPU, AUTO leaves unified off
     return je, te
 
 
@@ -69,7 +71,8 @@ def test_sessionless_rows_identical(tiny):
     tres = te.generate(prompts, **kw)
     _same(jres, tres)
     assert all(r.n_gen_tokens > 0 for r in tres)
-    assert te.kernel_launches() == {"flash_fwd": 0, "ragged_fwd": 0}
+    assert te.kernel_launches() == {"flash_fwd": 0, "ragged_fwd": 0,
+                                    "paged_fwd": 0, "paged_prefill_fwd": 0}
 
 
 def test_sessioned_rounds_identical(tiny):
