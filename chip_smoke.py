@@ -12,7 +12,8 @@ exits non-zero and never prints its last line):
              quoracle_tpu_torch/csrc (one process per source, in parallel)
   kernels    each kernel against its plain PyTorch twin on the card at
              llama-3-8b attention shapes (H=32, KV=8, hd=128, page 128),
-             in fp32 and bf16, with each case's tolerance
+             in fp32 and bf16, with each case's tolerance; the int8
+             ragged kernel also at hd 256 and G = 1, 4, 8
   serve      TorchBackend(["xla:llama-3-8b"]) at full width and depth,
              random bf16 weights from a seeded generator: a consensus
              round (three sessioned JSON-constrained rows at temperatures
@@ -34,22 +35,36 @@ exits non-zero and never prints its last line):
              paged kernel launched). The direct round 2's first inputs of
              both paged kernels are kept, and the three tiers' round-2
              prefill and decode times are printed side by side.
+  serve_int8 int8 serving (quantize_weights and quantize_kv) from the
+             serve phase's bf16 weights: the same traffic on the unified
+             tier, where the int8 ragged kernel must run (and ragged_fwd
+             and the paged kernels must not) and flash serves the
+             sessionless row; then the rounds again on the gather tier
+             (forced) and under pool exhaustion, with no int8 ragged
+             launch. The int8 pool must hold ~1.94x the bf16 pool's
+             tokens in the same 2 GiB. The resumed round's first int8
+             chunk and decode ticks are kept for the mainpath phase, and
+             round 2's prefill ms and ms per decode step are printed for
+             int8 unified, int8 gather and bf16 unified.
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
              time as a yardstick (for the paged kernels over K/V gathered
              beforehand, outside the timing, with the same mask; it
-             returns a normalized output where they return partials)
+             returns a normalized output where they return partials; for
+             the int8 kernel over K/V gathered and dequantized beforehand)
   trace      one more resumed round and one more sessionless row, each
              under torch.profiler: wall time, device busy time (the union
              of kernel intervals), idle share, launches, and the kernels
              that take the most device time
   sweep      each kernel's time and bound over the lengths it serves:
-             ragged decode ticks over resident lengths, flash over T
+             ragged decode ticks (bf16 and int8 pages side by side) over
+             resident lengths, flash over T
   reference  a 2-layer cut of llama-3-8b in fp32: the same rounds through
              the GPU engine (kernels) and through the same weights on the
              CPU (plain twins) must give identical greedy texts and cached
-             counts, on the unified, direct and gather tiers
+             counts, on the unified, direct and gather tiers, and with
+             int8 weights and pages on the unified and gather tiers
 
 then the card's nvidia-smi line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. Every comparison runs with TF32 off
@@ -79,6 +94,10 @@ H100_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense peaks
 #    weighted means of V, mostly |x| < 0.1, where a dropped key moves a
 #    value by several ulps
 #  bf16 ragged: bf16 inputs, fp32 math and fp32 output on both sides
+#  int8 ragged (fp32 or bf16 q): the kernel dequantizes each key row as
+#    it loads the tile (float(q8) * scale, one fp32 product), the very
+#    values of the twin's k.float() * scale, then runs ragged_fwd's fp32
+#    math; so ragged_fwd's bar: fp32 sums in another order
 #  paged partials (acc, m, l; unnormalized, fp32 out, fp32 math on both
 #    sides from the same inputs): m is a max of scores, exact but for the
 #    scores' own sum order (~1e-6 at |s| of order 10); l and acc are sums
@@ -91,7 +110,9 @@ H100_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense peaks
 TOL = {("flash_fwd", "float32"): (1e-5, 0.0),
        ("flash_fwd", "bfloat16"): (1e-5, 2.0 ** -7),
        ("ragged_fwd", "float32"): (1e-5, 0.0),
-       ("ragged_fwd", "bfloat16"): (1e-5, 0.0)}
+       ("ragged_fwd", "bfloat16"): (1e-5, 0.0),
+       ("ragged_q8_fwd", "float32"): (1e-5, 0.0),
+       ("ragged_q8_fwd", "bfloat16"): (1e-5, 0.0)}
 PARTIAL_TOL = {"acc": (1e-4, 1e-5), "m": (1e-5, 1e-5), "l": (1e-5, 1e-5)}
 PAGED_KERNELS = ("paged_fwd", "paged_prefill_fwd")
 for _k in PAGED_KERNELS:
@@ -242,15 +263,19 @@ def mask_counts(torch, mask, tables) -> tuple[int, int]:
     return int((seen > 0).sum()), int(mask.sum())
 
 
-def ragged_work(torch, q, k_pages, tables, meta, tq,
-                window) -> tuple[int, int]:
+def ragged_work(torch, q, k_pages, tables, meta, tq, window,
+                scales: bool = False) -> tuple[int, int]:
+    """ragged_fwd, or ragged_q8_fwd with ``scales``: a visible key costs
+    K and V rows of each KV head in the pages' dtype (int8: hd bytes each)
+    plus, for int8 pages, the two fp32 scales of each KV head."""
     _, H, hd = q.shape
     page, KV = k_pages.shape[1], k_pages.shape[2]
     keys, pairs = mask_counts(torch, paged_mask(
         torch, "ragged_fwd", page, tables, (meta,), tq, window), tables)
     es = q.element_size()
+    kv_bytes = 2 * hd * k_pages.element_size() + (8 if scales else 0)
     nbytes = (q.numel() * es + q.numel() * 4      # q in, fp32 out
-              + 2 * keys * KV * hd * es           # visible K and V slots
+              + keys * KV * kv_bytes              # visible K and V slots
               + 4 * (tables.numel() + meta.numel()))
     return nbytes, 4 * hd * H * pairs
 
@@ -286,14 +311,22 @@ def paged_prefill_work(torch, q, k_pages, tables, kv_lens,
     return nbytes, 4 * hd * H * pairs
 
 
-def gathered_kv(torch, k_pages, v_pages, tables):
-    """[B, KV, maxp·page, hd] K and V of each row's table, for the
-    library yardstick (gathered outside its timing)."""
+def gathered_kv(torch, k_pages, v_pages, tables, dtype, k_scale=None,
+                v_scale=None):
+    """[B, KV, maxp·page, hd] K and V of each row's table in ``dtype``,
+    for the library yardstick (gathered, and int8 pages dequantized,
+    outside its timing)."""
+    from quoracle_tpu_torch.models.quant import gather_scales
     B, maxp = tables.shape
     _, page, KV, hd = k_pages.shape
     t = tables.long()
-    return tuple(x[t].reshape(B, maxp * page, KV, hd).transpose(1, 2)
-                 .contiguous() for x in (k_pages, v_pages))
+    out = []
+    for x, sc in ((k_pages, k_scale), (v_pages, v_scale)):
+        x = x[t].reshape(B, maxp * page, KV, hd)
+        if sc is not None:
+            x = x.float() * gather_scales(sc, tables)[..., None]
+        out.append(x.to(dtype).transpose(1, 2).contiguous())
+    return tuple(out)
 
 
 def bound(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
@@ -379,7 +412,56 @@ def phase_kernels(torch, F, P) -> list:
                     raise AssertionError(f"inert slots not zero: {row}")
                 cases.append(row)
         cases += paged_cases(torch, P, dt, dname, g, perm, kp, vp, page)
+        cases += ragged_q8_cases(torch, P, dt, dname, g, perm, ticks, page)
     torch.cuda.synchronize()
+    return cases
+
+
+def ragged_q8_cases(torch, P, dt, dname, g, perm, ticks, page) -> list:
+    """The int8 ragged kernel against its twin: pools quantized from
+    random K/V with the engine's rule (every vector's max on +-127),
+    some all-zero vectors in a visible page (scale 1.0), scattered pages,
+    the ragged phase's ticks with a window, inert blocks and one-token
+    rows; hd 128 and 256, q in fp32 and bf16, G = 4 (llama-3-8b), 1 and
+    8 query heads per KV head. tq = 8 holds 8·G score rows, so G = 8
+    runs tq = 4 (the kernel takes at most 32 rows per block)."""
+    from quoracle_tpu_torch.models.quant import kv_quant
+    dev = "cuda"
+    cases = []
+    n_pages = 64
+    for hd in (128, 256):
+        pools = [torch.randn(n_pages, page, 8, hd, generator=g, device=dev)
+                 for _ in range(2)]
+        for x in pools:                          # in row 0's first page
+            x[int(perm[0]), :3] = 0.0
+        for H, KV, tqs in ((32, 8, (8, 1)), (8, 8, (8, 1)), (32, 4, (4, 1))):
+            quant = []
+            for x in pools:
+                q8, sc = kv_quant(x[:, :, :KV].contiguous())
+                quant += [q8, sc.transpose(1, 2).contiguous()]
+            kq, ks, vq, vs = quant
+            if not bool(torch.all(ks[int(perm[0]), :, :3] == 1.0)):
+                raise AssertionError("zero vectors did not get scale 1.0")
+            for tq in tqs:
+                rows = ticks[8 if tq > 1 else 1]
+                bt, bm = ragged_tick(torch, rows, tq, 16, perm, dev)
+                qq = torch.randn(bm.shape[0] * tq, H, hd, generator=g,
+                                 device=dev).to(dt)
+                for window in (None, 200):
+                    a = (qq, kq, vq, bt, bm, tq, window)
+                    sc = dict(k_scale=ks, v_scale=vs)
+                    got = P.ragged_attend(*a, **sc)
+                    row = check(torch, "ragged_q8_fwd", got,
+                                P.ragged_attend_ref(*a, **sc),
+                                {"dtype": dname, "hd": hd, "H": H, "KV": KV,
+                                 "tq": tq, "window": window})
+                    row["inert_zero"] = all(
+                        bool(torch.all(got[i * tq + int(n):(i + 1) * tq]
+                                       == 0))
+                        for i, n in enumerate(bm[:, 2].tolist()))
+                    if not row["inert_zero"]:
+                        raise AssertionError(f"inert slots not zero: {row}")
+                    cases.append(row)
     return cases
 
 
@@ -524,6 +606,28 @@ def check_rounds(rounds, results, dfa, long_min: int) -> None:
     check_json(results, dfa)
 
 
+def ragged_recorder(torch, P, kept: dict, keep_now):
+    """A stand-in for ``P.ragged_attend`` that keeps (cloned) the inputs
+    of the first chunk tick (tq > 1) and the first decode tick (tq = 1)
+    seen while ``keep_now()`` holds, under kept["chunk"] and
+    kept["decode"], then calls the real wrapper."""
+    orig = P.ragged_attend
+
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    def rec(q, k_pages, v_pages, tables, meta, tq, sliding_window=None,
+            **kw):
+        key = "chunk" if tq > 1 else "decode"
+        if keep_now() and key not in kept:
+            kept[key] = ([clone(x) for x in (q, k_pages, v_pages, tables,
+                                             meta, tq, sliding_window)],
+                         {n: clone(x) for n, x in kw.items()})
+        return orig(q, k_pages, v_pages, tables, meta, tq, sliding_window,
+                    **kw)
+    return rec
+
+
 def phase_serve(torch, R, F, P, kernels, dfa):
     t0 = time.monotonic()
     backend = R.TorchBackend([MODEL], seed=0)        # the card, bf16
@@ -545,16 +649,8 @@ def phase_serve(torch, R, F, P, kernels, dfa):
                  for n, x in kw.items()})
         return orig_flash(*a, **kw)
 
-    def ragged_rec(q, k_pages, v_pages, tables, meta, tq,
-                   sliding_window=None):
-        key = "chunk" if tq > 1 else "decode"
-        if cur["round"] == 2 and key not in kept:
-            kept[key] = ([q.clone(), k_pages.clone(), v_pages.clone(),
-                          tables.clone(), meta.clone(), tq,
-                          sliding_window], {})
-        return orig_ragged(q, k_pages, v_pages, tables, meta, tq,
-                           sliding_window)
-
+    ragged_rec = ragged_recorder(torch, P, kept.setdefault("ragged_fwd", {}),
+                                 lambda: cur["round"] == 2)
     F.flash_attend, P.ragged_attend = flash_rec, ragged_rec
     kernels.reset_launch_counts()
     try:
@@ -693,16 +789,8 @@ def phase_serve_paged(torch, R, P, kernels, dfa, backend, serve_report):
     del gather_backend, gather
     torch.cuda.empty_cache()
 
-    unified_r2 = serve_report["rounds"][1]
-    compare = {tier: {"prefill_ms": r2["prefill_ms"],
-                      "decode_ms": r2["decode_ms"],
-                      "decode_ms_per_step":
-                          r2["decode_ms"] / max(1, max(r2["new_tokens"]) - 1),
-                      "new_tokens": r2["new_tokens"],
-                      "cached_tokens": r2["cached_tokens"]}
-               for tier, r2 in (("unified", unified_r2),
-                                ("direct", rounds[1]),
-                                ("gather", rounds_f[1]))}
+    compare = round2_compare({"unified": serve_report["rounds"][1],
+                              "direct": rounds[1], "gather": rounds_f[1]})
     report = {"phase": "serve_paged", "model": MODEL,
               "direct": direct_rep, "gather_forced": forced_rep,
               "gather_pool_exhausted": exhausted_rep,
@@ -710,11 +798,135 @@ def phase_serve_paged(torch, R, P, kernels, dfa, backend, serve_report):
     return report, kept, d_launch
 
 
-def paged_library(torch, kernel, q, kp, vp, tables, ints, window):
+def round2_compare(tiers: dict) -> dict:
+    """Round 2's prefill ms and ms per decode step of each tier's run."""
+    return {tier: {"prefill_ms": r2["prefill_ms"],
+                   "decode_ms": r2["decode_ms"],
+                   "decode_ms_per_step":
+                       r2["decode_ms"] / max(1, max(r2["new_tokens"]) - 1),
+                   "new_tokens": r2["new_tokens"],
+                   "cached_tokens": r2["cached_tokens"]}
+            for tier, r2 in tiers.items()}
+
+
+def phase_serve_int8(torch, R, P, kernels, dfa, backend, serve_report):
+    """Int8 serving at full width and depth: an engine with int8 weights
+    (quantized on the card from the serve phase's bf16 weights) and an
+    int8 page pool in the same 2 GiB budget, driven with the serve
+    phase's traffic on the unified tier, then on the gather tier (forced,
+    same engine) and under pool exhaustion (a second engine sharing the
+    int8 weights, 8 usable pages)."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.quant import kv_token_bytes, params_nbytes
+    base = backend.engines[MODEL]
+    int8 = dict(quantize_weights=True, quantize_kv=True)
+    t0 = time.monotonic()
+    eng = GenerateEngine(base.cfg, base.params, base.tokenizer, seed=0,
+                         device="cuda", **int8)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    ib = R.TorchBackend([MODEL], device="cuda", engines={MODEL: eng})
+    ratio = eng.sessions.max_tokens / base.sessions.max_tokens
+    if not 1.9 <= ratio <= 2.0:
+        raise AssertionError(f"int8 pool holds {ratio:.3f}x the bf16 pool's "
+                             f"tokens, not ~1.94x")
+
+    kept: dict = {}
+    cur = {"round": 0}
+    orig = P.ragged_attend
+    P.ragged_attend = ragged_recorder(torch, P, kept,
+                                      lambda: cur["round"] == 2)
+    kernels.reset_launch_counts()
+    try:
+        rounds, results, hist = run_rounds(
+            R, ib, MODEL, TEMPS, MAX_TOKENS, N_RULES,
+            on_round=lambda rnd: cur.update(round=rnd))
+        torch.cuda.synchronize()
+    finally:
+        P.ragged_attend = orig
+    launches = kernels.launch_counts()
+    if not (launches["ragged_q8_fwd"] > 0 and launches["flash_fwd"] > 0
+            and launches["ragged_fwd"] == launches["paged_fwd"]
+            == launches["paged_prefill_fwd"] == 0):
+        raise AssertionError(f"int8 unified launches: {launches}")
+    if set(kept) != {"chunk", "decode"} or any(
+            "k_scale" not in kw for _, kw in kept.values()):
+        raise AssertionError("the int8 ticks' inputs were not kept")
+    check_rounds(rounds, results, dfa, long_min=256)
+    # where an int8 round's time goes: the weights' dequantization runs
+    # on every call, beside the kernels
+    trace = traced(torch, "int8 resumed consensus round",
+                   lambda: consensus_round(R, ib, MODEL, hist, TEMPS,
+                                           MAX_TOKENS))
+    trace.update(prefill_ms=eng.last_prefill_s * 1e3,
+                 decode_ms=eng.last_decode_s * 1e3)
+    unified_rep = {"launches": launches, "rounds": rounds,
+                   "texts": [r.text[:48] for r in results[0]],
+                   "trace": trace}
+
+    # the gather tier on the same engine: pages dequantize into the
+    # working cache and requantize on the way back
+    for i in range(len(TEMPS)):
+        eng.drop_session(f"agent-{i}")
+    eng._force_gather_decode = True
+    kernels.reset_launch_counts()
+    rounds_f, results_f, _ = run_rounds(
+        R, ib, MODEL, TEMPS, MAX_TOKENS, N_RULES, sessionless=False)
+    torch.cuda.synchronize()
+    f_launch = kernels.launch_counts()
+    if f_launch["ragged_q8_fwd"] or f_launch["ragged_fwd"]:
+        raise AssertionError(f"int8 forced gather launches: {f_launch}")
+    check_json(results_f, dfa)
+    forced_rep = {"launches": f_launch, "rounds": rounds_f}
+    del ib
+
+    # pool exhaustion: 8 usable int8 pages, through gather
+    cfg = base.cfg
+    tb = kv_token_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, 1, True)
+    small = GenerateEngine(cfg, eng.params, base.tokenizer, seed=0,
+                           device="cuda", session_max_bytes=8 * 128 * tb,
+                           **int8)
+    sb = R.TorchBackend([MODEL], device="cuda", engines={MODEL: small})
+    kernels.reset_launch_counts()
+    rounds_g, results_g, _ = run_rounds(
+        R, sb, MODEL, TEMPS, MAX_TOKENS, N_RULES, sessionless=False)
+    torch.cuda.synchronize()
+    g_launch = kernels.launch_counts()
+    if g_launch["ragged_q8_fwd"] or g_launch["ragged_fwd"] \
+            or not g_launch["flash_fwd"]:
+        raise AssertionError(f"int8 pool-exhausted launches: {g_launch}")
+    check_json(results_g, dfa)
+    if rounds_g[1]["cached_tokens"][0] <= 0:
+        raise AssertionError(f"int8 exhausted round 2 resumed nothing: "
+                             f"{rounds_g}")
+    exhausted_rep = {"launches": g_launch, "rounds": rounds_g,
+                     "kv_pages": small.sessions.n_pages,
+                     "stored_sessions": len(small.sessions)}
+    report = {"phase": "serve_int8", "model": MODEL, "build_s": build_s,
+              "weight_bytes": params_nbytes(eng.params),
+              "bf16_weight_bytes": params_nbytes(base.params),
+              "kv_token_bytes": tb,
+              "max_tokens": eng.sessions.max_tokens,
+              "bf16_max_tokens": base.sessions.max_tokens,
+              "max_tokens_ratio": ratio,
+              "unified": unified_rep, "gather_forced": forced_rep,
+              "gather_pool_exhausted": exhausted_rep,
+              "round2": round2_compare({
+                  "int8_unified": rounds[1], "int8_gather": rounds_f[1],
+                  "bf16_unified": serve_report["rounds"][1]}),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del sb, small, eng
+    torch.cuda.empty_cache()
+    return report, kept, launches
+
+
+def paged_library(torch, kernel, q, kp, vp, tables, ints, window,
+                  k_scale=None, v_scale=None):
     """scaled_dot_product_attention on a paged kernel's work: each row's
-    K/V gathered beforehand (not timed), its ``paged_mask`` as attn_mask;
-    q is [rows, n_q, H, hd]."""
-    k, v = gathered_kv(torch, kp, vp, tables)          # [rows, KV, S, hd]
+    K/V gathered (int8 pages: and dequantized) beforehand, not timed, its
+    ``paged_mask`` as attn_mask; q is [rows, n_q, H, hd]."""
+    k, v = gathered_kv(torch, kp, vp, tables, q.dtype, k_scale,
+                       v_scale)                        # [rows, KV, S, hd]
     mask = paged_mask(torch, kernel, kp.shape[1], tables, ints, q.shape[1],
                       window)
     qb = q.transpose(1, 2).contiguous()                # [rows, H, n_q, hd]
@@ -722,10 +934,10 @@ def paged_library(torch, kernel, q, kp, vp, tables, ints, window):
     return lambda: sdpa(qb, k, v, attn_mask=mask[:, None], enable_gqa=True)
 
 
-def ragged_library(torch, q, kp, vp, bt, bm, tq, window):
+def ragged_library(torch, q, kp, vp, bt, bm, tq, window, **scales):
     return paged_library(torch, "ragged_fwd",
                          q.reshape(bt.shape[0], tq, *q.shape[1:]), kp, vp,
-                         bt, (bm,), window)
+                         bt, (bm,), window, **scales)
 
 
 def paged_entries(torch, P, kernels, kept, launches) -> list:
@@ -784,6 +996,38 @@ def paged_entries(torch, P, kernels, kept, launches) -> list:
     return entries
 
 
+def ragged_entry(torch, P, kernel, kept: dict, launches: int) -> dict:
+    """A ragged kernel (``ragged_fwd``, or ``ragged_q8_fwd`` whose kept
+    inputs carry the scale pools) on its kept decode and chunk ticks. The
+    decode tick is the one the main path launches most; the chunk tick's
+    numbers ride beside it."""
+    ticks = {}
+    for key in ("decode", "chunk"):
+        a, kw = kept[key]
+        q, kp, vp, bt, bm, tq, window = a
+        got = P.ragged_attend(*a, **kw)
+        err = check(torch, kernel.name, got, P.ragged_attend_ref(*a, **kw),
+                    {"dtype": dtype_name(q), "tq": tq})["max_abs_err"]
+        nbytes, flops = ragged_work(torch, q, kp, bt, bm, tq, window,
+                                    scales=bool(kw))
+        b_ms, b_by = bound(nbytes, flops, dtype_name(q))
+        ticks[key] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: P.ragged_attend(*a, **kw)),
+            "plain_ms": cuda_ms(torch, lambda: P.ragged_attend_ref(*a, **kw)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(torch, ragged_library(torch, *a, **kw)),
+            "shape": {"q": list(q.shape), "pages": list(kp.shape),
+                      "page_dtype": dtype_name(kp),
+                      "tables": list(bt.shape), "tq": tq,
+                      "live_blocks": int((bm[:, 2] > 0).sum()),
+                      "dtype": dtype_name(q), "bytes": nbytes,
+                      "flops": flops}}
+    return {"name": kernel.name, "route": "cuda", "source": kernel.source,
+            "replaces": kernel.replaces, "launches": launches,
+            **ticks["decode"], "chunk": ticks["chunk"]}
+
+
 def phase_mainpath(torch, F, P, kernels, kept, launches) -> list:
     """Each kernel on the inputs the main path gave it: error against the
     twin, device times, and the bound from these inputs."""
@@ -814,34 +1058,9 @@ def phase_mainpath(torch, F, P, kernels, kept, launches) -> list:
                   "dtype": dtype_name(q), "bytes": nbytes,
                   "flops": flops}})
 
-    ticks = {}
-    for key in ("decode", "chunk"):
-        a, kw = kept[key]
-        q, kp, vp, bt, bm, tq, window = a
-        got = P.ragged_attend(*a)
-        err = check(torch, "ragged_fwd", got, P.ragged_attend_ref(*a),
-                    {"dtype": dtype_name(q), "tq": tq})["max_abs_err"]
-        nbytes, flops = ragged_work(torch, q, kp, bt, bm, tq, window)
-        b_ms, b_by = bound(nbytes, flops, dtype_name(q))
-        ticks[key] = {
-            "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: P.ragged_attend(*a)),
-            "plain_ms": cuda_ms(torch, lambda: P.ragged_attend_ref(*a)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(torch, ragged_library(torch, *a)),
-            "shape": {"q": list(q.shape), "pages": list(kp.shape),
-                      "tables": list(bt.shape), "tq": tq,
-                      "live_blocks": int((bm[:, 2] > 0).sum()),
-                      "dtype": dtype_name(q), "bytes": nbytes,
-                      "flops": flops}}
-    # the decode tick is the one the main path launches most; the chunk
-    # tick's numbers ride beside it
-    entries.append({
-        "name": "ragged_fwd", "route": "cuda",
-        "source": kernels.RAGGED.source,
-        "replaces": kernels.RAGGED.replaces,
-        "launches": launches["ragged_fwd"], **ticks["decode"],
-        "chunk": ticks["chunk"]})
+    for kernel in (kernels.RAGGED, kernels.RAGGED_Q8):
+        entries.append(ragged_entry(torch, P, kernel, kept[kernel.name],
+                                    launches[kernel.name]))
     return entries + paged_entries(torch, P, kernels, kept, launches)
 
 
@@ -905,8 +1124,11 @@ def phase_trace(torch, R, backend, hist) -> dict:
 def phase_sweep(torch, F, P) -> dict:
     """Each kernel's time and bound over the lengths it serves, bf16 at
     llama-3-8b attention geometry: ragged decode ticks (tq=1, 3 live rows
-    in 8 slots, the consensus round's shape) over resident lengths, and
-    flash prefill chunks (B=1, 64 keys more than queries) over T."""
+    in 8 slots, the consensus round's shape) over resident lengths, over
+    bf16 pages and over the same pages quantized to int8 (the int8
+    kernel's time and bound beside ragged_fwd's), and flash prefill
+    chunks (B=1, 64 keys more than queries) over T."""
+    from quoracle_tpu_torch.models.quant import kv_quant
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(2)
     H, KV, hd, page, n_pages = 32, 8, 128, 128, 129
@@ -914,6 +1136,9 @@ def phase_sweep(torch, F, P) -> dict:
                      device=dev).bfloat16()
     vp = torch.randn(n_pages, page, KV, hd, generator=g,
                      device=dev).bfloat16()
+    (kq, ks), (vq, vs) = (kv_quant(x) for x in (kp, vp))
+    q8 = dict(k_scale=ks.transpose(1, 2).contiguous(),
+              v_scale=vs.transpose(1, 2).contiguous())
     rows = []
     for resident in (128, 512, 823, 1800, 4000):
         slots, live, maxp = 8, 3, 32
@@ -926,11 +1151,17 @@ def phase_sweep(torch, F, P) -> dict:
         q = torch.randn(slots, H, hd, generator=g, device=dev).bfloat16()
         b_ms, b_by = bound(*ragged_work(torch, q, kp, bt, bm, 1, None),
                            "bfloat16")
+        q8_ms, q8_by = bound(*ragged_work(torch, q, kq, bt, bm, 1, None,
+                                          scales=True), "bfloat16")
         rows.append({"kernel": "ragged_fwd", "tq": 1, "live_rows": live,
                      "resident": resident,
                      "ms": cuda_ms(torch, lambda: P.ragged_attend(
                          q, kp, vp, bt, bm, 1, None)),
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "ragged_q8_fwd": {
+                         "ms": cuda_ms(torch, lambda: P.ragged_attend(
+                             q, kq, vq, bt, bm, 1, None, **q8)),
+                         "bound_ms": q8_ms, "bound_by": q8_by}})
     for T in (256, 512, 1024, 2048):
         q = torch.randn(1, T, H, hd, generator=g, device=dev).bfloat16()
         k = torch.randn(1, T + 64, KV, hd, generator=g,
@@ -949,24 +1180,30 @@ def phase_sweep(torch, F, P) -> dict:
 
 
 REFERENCE_TIERS = {
+    # (int8 weights and pages, engine attributes)
     # the unified kernel (the card's default; forced on the CPU)
-    "unified": dict(unified_min_tokens=0),
+    "unified": (False, dict(unified_min_tokens=0)),
     # the direct tier's two kernels, unified off
-    "direct": dict(unified_min_tokens=1 << 30, direct_decode_min_tokens=0,
-                   direct_prefill_min_tokens=0),
+    "direct": (False, dict(unified_min_tokens=1 << 30,
+                           direct_decode_min_tokens=0,
+                           direct_prefill_min_tokens=0)),
     # the gather tier (the JAX engine's seam)
-    "gather": dict(_force_gather_decode=True),
+    "gather": (False, dict(_force_gather_decode=True)),
+    # int8: the int8 ragged kernel, then the dequantizing gather tier
+    "int8_unified": (True, dict(unified_min_tokens=0)),
+    "int8_gather": (True, dict(_force_gather_decode=True)),
 }
 
 
 def phase_reference(torch, R) -> dict:
     """The same traffic, greedy, through a 2-layer fp32 cut of llama-3-8b
     on the GPU (kernels) and on the CPU (plain twins), one set of
-    weights, on each paged tier in turn (one engine per device, sessions
+    weights, on each paged tier in turn (one float and one int8 engine,
+    both ``quantize_weights`` and ``quantize_kv``, per device; sessions
     dropped between tiers): the texts, token counts and cached-token
-    counts must agree. The unified tier runs the full traffic, the other
-    two the consensus rounds only (the sessionless row takes the dense
-    path whatever the tier)."""
+    counts must agree. The float unified tier runs the full traffic, the
+    other tiers the consensus rounds only (the sessionless row takes the
+    dense path whatever the tier)."""
     from quoracle_tpu_torch.models import config as C
     from quoracle_tpu_torch.models.generate import GenerateEngine
     from quoracle_tpu_torch.models.tokenizer import get_tokenizer
@@ -978,9 +1215,14 @@ def phase_reference(torch, R) -> dict:
     for dev in ("cuda", "cpu"):
         gen = torch.Generator().manual_seed(1)      # CPU draws, both sides
         params = init_params(cfg, gen, device=dev, dtype=torch.float32)
-        eng = GenerateEngine(cfg, params, get_tokenizer(spec), device=dev)
-        backend = R.TorchBackend([spec], device=dev, engines={spec: eng})
-        for tier, attrs in REFERENCE_TIERS.items():
+        backends = {quant: R.TorchBackend([spec], device=dev, engines={
+            spec: GenerateEngine(cfg, params, get_tokenizer(spec),
+                                 device=dev, quantize_weights=quant,
+                                 quantize_kv=quant)})
+            for quant in (False, True)}
+        for tier, (quant, attrs) in REFERENCE_TIERS.items():
+            backend = backends[quant]
+            eng = backend.engines[spec]
             eng.unified_min_tokens = eng.direct_decode_min_tokens = \
                 eng.direct_prefill_min_tokens = 1 << 30
             eng._force_gather_decode = False
@@ -997,7 +1239,7 @@ def phase_reference(torch, R) -> dict:
                            for res in results]}
             for i in range(3):
                 backend.drop_session(f"agent-{i}")
-        del backend, eng, params
+        del backends, params
     report = {"phase": "reference", "model": spec, "dtype": "float32",
               "tiers": {}}
     bad = []
@@ -1072,8 +1314,12 @@ def main() -> int:
         torch, R, P, kernels, dfa, backend, report)
     emit(paged_report)
     kept.update(paged_kept)
+    int8_report, kept["ragged_q8_fwd"], int8_launches = phase_serve_int8(
+        torch, R, P, kernels, dfa, backend, report)
+    emit(int8_report)
     launches = {**launches,
-                **{k: paged_launches[k] for k in PAGED_KERNELS}}
+                **{k: paged_launches[k] for k in PAGED_KERNELS},
+                "ragged_q8_fwd": int8_launches["ragged_q8_fwd"]}
     entries = phase_mainpath(torch, F, P, kernels, kept, launches)
     emit({"phase": "mainpath", "kernels": entries})
     emit(phase_trace(torch, R, backend, hist))

@@ -1,5 +1,5 @@
 // Shared attention core of the port's CUDA kernels (flash_fwd.cu,
-// ragged_fwd.cu, paged_fwd.cu, paged_prefill_fwd.cu).
+// ragged_fwd.cu, ragged_q8_fwd.cu, paged_fwd.cu, paged_prefill_fwd.cu).
 //
 // One block owns up to ROWS query rows that attend to the same key head.
 // Keys stream through shared memory in tiles of BK rows; each tile runs
@@ -61,36 +61,44 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
 // Copy `rows` rows of HD elements into shared fp32 rows of `stride`
-// floats, multiplied by `scale`. row_ptr(r) gives the global address of
-// row r, or nullptr for a row that is filled with zeros (past the valid
-// keys: a zero value row times a zero probability stays 0, where stale
-// memory could hold a NaN). Each thread first issues a batch of 8
-// independent 16-byte global reads, then converts and stores them as
-// 16-byte shared writes, so the batch's memory latency is paid once, not
-// once per read. Rows must start 16-byte aligned (the wrappers check
-// contiguity, and HD * sizeof(T) is a multiple of 16).
-template <typename T, int HD, typename RowPtr>
-__device__ __forceinline__ void load_rows(float* dst, int stride, int rows,
-                                          RowPtr row_ptr, float scale) {
-  constexpr int VEC = 16 / sizeof(T);      // 8 bf16 or 4 fp32 per read
+// floats, row r multiplied by row_scale(r) (one fp32 product per element:
+// an int8 row times its scale gives exactly the fp32 values of the plain
+// twin's q.float() * scale). row_ptr(r) gives the global address of row
+// r, or nullptr for a row that is filled with zeros (past the valid keys:
+// a zero value row times a zero probability stays 0, where stale memory
+// could hold a NaN); row_scale(r) must then still return a finite value.
+// Each thread first issues a batch of 8 independent 16-byte global reads
+// (and the rows' scales), then converts and stores them as 16-byte
+// shared writes, so the batch's memory latency is paid once, not once per
+// read. Rows must start 16-byte aligned (the wrappers check contiguity,
+// and HD * sizeof(T) is a multiple of 16).
+template <typename T, int HD, typename RowPtr, typename RowScale>
+__device__ __forceinline__ void load_rows_scaled(float* dst, int stride,
+                                                 int rows, RowPtr row_ptr,
+                                                 RowScale row_scale) {
+  constexpr int VEC = 16 / sizeof(T);      // 16 int8, 8 bf16 or 4 fp32
   constexpr int CHUNKS = HD / VEC;
   constexpr int BATCH = 8;
   const int total = rows * CHUNKS;
   for (int base = 0; base < total; base += THREADS * BATCH) {
     uint4 raw[BATCH];
+    float sc[BATCH];
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       const int i = base + threadIdx.x + u * THREADS;
-      raw[u] = make_uint4(0u, 0u, 0u, 0u);  // all-zero bits: 0.0 in fp32/bf16
+      raw[u] = make_uint4(0u, 0u, 0u, 0u);  // all-zero bits: 0 in every T
+      sc[u] = 0.f;
       if (i < total) {
         const int r = i / CHUNKS;
         const T* src = row_ptr(r);
+        sc[u] = row_scale(r);
         if (src != nullptr)
           raw[u] = *reinterpret_cast<const uint4*>(src + (i - r * CHUNKS) * VEC);
       }
@@ -103,15 +111,24 @@ __device__ __forceinline__ void load_rows(float* dst, int stride, int rows,
         float4* d = reinterpret_cast<float4*>(dst + r * stride +
                                               (i - r * CHUNKS) * VEC);
         const T* vals = reinterpret_cast<const T*>(&raw[u]);
+        const float s = sc[u];
 #pragma unroll
         for (int e = 0; e < VEC / 4; ++e)
-          d[e] = make_float4(to_float(vals[4 * e]) * scale,
-                             to_float(vals[4 * e + 1]) * scale,
-                             to_float(vals[4 * e + 2]) * scale,
-                             to_float(vals[4 * e + 3]) * scale);
+          d[e] = make_float4(to_float(vals[4 * e]) * s,
+                             to_float(vals[4 * e + 1]) * s,
+                             to_float(vals[4 * e + 2]) * s,
+                             to_float(vals[4 * e + 3]) * s);
       }
     }
   }
+}
+
+// load_rows_scaled with one scale for every row.
+template <typename T, int HD, typename RowPtr>
+__device__ __forceinline__ void load_rows(float* dst, int stride, int rows,
+                                          RowPtr row_ptr, float scale) {
+  load_rows_scaled<T, HD>(dst, stride, rows, row_ptr,
+                          [scale](int) { return scale; });
 }
 
 template <int HD, int ROWS>

@@ -30,9 +30,17 @@ decode step, and the JAX jits with donated buffers become plain methods
 that write the pool in place. Bucket arithmetic (prompt/batch/max_new
 buckets, RAGGED_TQ, RAGGED_TOKEN_BUCKETS, pow2 table width) is kept
 verbatim: it fixes cache lengths and page bookkeeping, so both packages
-lay out the same pages. Left for later slices: int8 KV pools (the next
-slice), the radix prefix cache and its prefix sharing, KV tiers,
-speculation, VLM rows and meshes.
+lay out the same pages.
+
+Int8 serving (``quantize_weights``, ``quantize_kv``; models/quant.py): the
+engine quantizes its weights per channel at build, and an int8 KV pool
+keeps fp32 scale pools ``[L, n_pages, KV, page]`` beside the pages. An
+int8 pool serves through the unified tier on every device (the int8
+ragged kernel on the card); the gather tier stays its fallback,
+dequantizing into the working cache and requantizing on the way back; the
+direct tier, which has no scale stream, is off. Left for later slices:
+the radix prefix cache and its prefix sharing, KV tiers, speculation, VLM
+rows and meshes.
 """
 
 from __future__ import annotations
@@ -46,6 +54,9 @@ import numpy as np
 import torch
 
 from quoracle_tpu_torch.models.config import ModelConfig
+from quoracle_tpu_torch.models.quant import (
+    kv_quant, kv_token_bytes, quantize_params,
+)
 from quoracle_tpu_torch.models.sampling import sample_tokens
 from quoracle_tpu_torch.models.transformer import (
     KVCache, Transformer, forward_hidden, forward_hidden_paged,
@@ -315,13 +326,18 @@ def decode_ragged(
     stop_ids: tuple = (),
     json_table: Optional[torch.Tensor] = None,
     json_state: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,   # [L, n_pages, KV, page] fp32
+    v_scale: Optional[torch.Tensor] = None,   # (int8 pools), in place
 ):
     """Autoregressive decode through the unified ragged kernel: each
     step's KV goes straight into the row's pages before attention, and the
     kernel reads prompt, chunk and generated tokens off the pages, one
     tq = 1 block per row. Returns (tokens [R, max_new], n_emitted [R],
     lens [R], k_pool, v_pool, jstate); lens counts the row's valid pool
-    tokens (prompt + chunk + emitted-and-forwarded)."""
+    tokens (prompt + chunk + emitted-and-forwarded). With ``k_scale``/
+    ``v_scale`` (int8 pools) each step's token quantizes on its write and
+    the return grows to (…, k_pool, v_pool, k_scale, v_scale, jstate)."""
+    quant = k_scale is not None
     _, n_pages, page, _, _ = k_pool.shape
     n_tok = n_pages * page
     maxp = tables.shape[1]
@@ -349,9 +365,9 @@ def decode_ragged(
             live,                     # nq
         ], dim=1)
         positions = lens + kv_off.to(torch.int32)
-        hidden, k_pool, v_pool = forward_hidden_ragged(
+        hidden = forward_hidden_ragged(
             params, cfg, cur[None], positions[None], k_pool, v_pool, tables,
-            meta, flat, tq=1)
+            meta, flat, tq=1, k_scale=k_scale, v_scale=v_scale)[0]
         logits = project_logits(params, cfg, hidden[0])      # [R, V]
         nxt = sample_tokens(mask_logits(logits, jstate), generator,
                             temperature, top_p)
@@ -362,6 +378,8 @@ def decode_ragged(
         jstate = advance(jstate, nxt, done)
         done = done | is_stop(nxt) | (n_emitted >= row_limit)
         cur = nxt
+    if quant:
+        return out, n_emitted, lens, k_pool, v_pool, k_scale, v_scale, jstate
     return out, n_emitted, lens, k_pool, v_pool, jstate
 
 
@@ -420,7 +438,8 @@ class _Session:
 
 class SessionStore:
     """Paged session cache: sessions are PAGE LISTS into one device pool
-    (``k``/``v`` [L, n_pages, page, KV, hd], set by the engine). Page 0 is
+    (``k``/``v`` [L, n_pages, page, KV, hd], set by the engine; int8 pools
+    add ``k_scale``/``v_scale`` [L, n_pages, KV, page]). Page 0 is
     scratch. LRU sessions evict when the free list runs dry. Thread-safe;
     the engine additionally serializes sessioned steps. (No radix prefix
     cache, refcounts or KV tiers yet: every page has one owner.)"""
@@ -434,6 +453,8 @@ class SessionStore:
         self._free: list[int] = list(range(self.n_pages - 1, 0, -1))
         self.k: Optional[torch.Tensor] = None
         self.v: Optional[torch.Tensor] = None
+        self.k_scale: Optional[torch.Tensor] = None
+        self.v_scale: Optional[torch.Tensor] = None
 
     def get(self, key: str) -> Optional[_Session]:
         with self.lock:
@@ -577,7 +598,9 @@ class GenerateEngine:
     params on one device, shape bucketing, the paged session store, and a
     list-in/list-out ``generate``. ``device=None`` means the GPU (and
     raises without one). Sessioned calls serialize on the engine; the RNG
-    draw is locked."""
+    draw is locked. ``quantize_weights`` serves int8 weights (a quantized
+    copy; the caller's module is left as it was), ``quantize_kv`` an int8
+    page pool with its scale pools."""
 
     BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
 
@@ -585,10 +608,15 @@ class GenerateEngine:
                  max_seq: Optional[int] = None, seed: int = 0,
                  prompt_buckets: Sequence[int] = (128, 256, 512, 1024, 2048,
                                                   4096, 8192),
-                 session_max_bytes: int = 2 << 30, device=None):
+                 session_max_bytes: int = 2 << 30, device=None,
+                 quantize_weights: bool = False, quantize_kv: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.quantize_weights = bool(quantize_weights)
+        self.quantize_kv = bool(quantize_kv)
         self.params = params.to(self.device)
+        if self.quantize_weights:
+            self.params = quantize_params(self.params, cfg)
         self.tokenizer = tokenizer
         self.max_seq = max_seq or cfg.context_window
         self.prompt_buckets = tuple(b for b in prompt_buckets
@@ -596,12 +624,17 @@ class GenerateEngine:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         self._rng_lock = threading.Lock()
-        # KV dtype follows the params (bf16 serving, fp32 parity tests)
+        # KV dtype follows the params (bf16 serving, fp32 parity tests);
+        # an int8 pool keeps scales beside its pages, and the dense working
+        # caches stay at the params dtype
         self.cache_dtype = self.params.dtype
-        # Session budget in BYTES, converted to tokens (K+V per token:
-        # 2·L·n_kv·hd·itemsize), capped at 32 full context windows
-        token_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
-                       * torch.finfo(self.cache_dtype).bits // 8)
+        self.pool_dtype = torch.int8 if self.quantize_kv else self.cache_dtype
+        # Session budget in BYTES, converted to tokens (K+V per token, the
+        # scales included), capped at 32 full context windows
+        token_bytes = kv_token_bytes(
+            cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+            torch.empty((), dtype=self.pool_dtype).element_size(),
+            self.quantize_kv)
         self.sessions = SessionStore(
             max_tokens=max(PAGE, min(session_max_bytes // token_bytes,
                                      32 * self.max_seq)))
@@ -624,6 +657,11 @@ class GenerateEngine:
         self.direct_prefill_min_tokens = gates.prefill_min_resident
         self.direct_prefill_max_chunk = gates.prefill_max_chunk
         self.unified_min_tokens = resolve_unified_gate(gates, self.device)
+        if self.quantize_kv:
+            # int8 pools serve through the unified tier on every device
+            # (the int8 ragged kernel on the card, its twin on the CPU),
+            # whatever the gates say; gather stays the fallback
+            self.unified_min_tokens = 0
         # equality/fallback seams of the JAX engine: pin the gather tier
         # (decode, and with it unified) or the gather prefill
         self._force_gather_decode = False
@@ -854,14 +892,21 @@ class GenerateEngine:
         return out, n_emitted, jstate_f, t_prefill, now
 
     def _ensure_pool(self) -> None:
-        """Allocate the device page pool on the first sessioned call."""
+        """Allocate the device page pool on the first sessioned call; an
+        int8 pool gets its fp32 scale pools of ones, [L, n_pages, KV,
+        page]."""
         st = self.sessions
         if st.k is not None:
             return
-        shape = (self.cfg.n_layers, st.n_pages, st.page,
-                 self.cfg.n_kv_heads, self.cfg.head_dim)
-        st.k = torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
-        st.v = torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
+        L, KV = self.cfg.n_layers, self.cfg.n_kv_heads
+        shape = (L, st.n_pages, st.page, KV, self.cfg.head_dim)
+        st.k = torch.zeros(shape, dtype=self.pool_dtype, device=self.device)
+        st.v = torch.zeros(shape, dtype=self.pool_dtype, device=self.device)
+        if self.quantize_kv:
+            sshape = (L, st.n_pages, KV, st.page)
+            st.k_scale = torch.ones(sshape, dtype=torch.float32,
+                                    device=self.device)
+            st.v_scale = torch.ones_like(st.k_scale)
 
     def _run_paged(self, prompts, suffixes, sess_rows, reuse_abs,
                    kv_off_host, store_sids, B, maxp, tokens, pre_arr,
@@ -875,7 +920,7 @@ class GenerateEngine:
 
         Tier choice (the JAX ``_run_paged`` without prefix sharing):
         unified and direct decode each need their gate and no
-        ``_force_gather_decode``; both read every row's prompt from pages,
+        ``_force_gather_decode``, and the direct tier an unquantized pool; both read every row's prompt from pages,
         so rows without a stored session borrow TEMP pages from the free
         list, and when there are none both are off. Unified and the direct
         prefill also need every resumed row to write through its own
@@ -895,6 +940,7 @@ class GenerateEngine:
         protect = tuple(s for s in store_sids if s)
         max_prompt = max(len(p) for p in prompts)
         use_direct = (not self._force_gather_decode
+                      and not self.quantize_kv
                       and max_prompt >= self.direct_decode_min_tokens)
         unified_ok = (not self._force_gather_decode
                       and max_prompt >= self.unified_min_tokens)
@@ -1083,6 +1129,24 @@ class GenerateEngine:
     # -- the paged steps: plain methods over the pool, written in place
     # where the JAX jits donate it --
 
+    def _gather_work(self, src: torch.Tensor) -> tuple:
+        """Resident pages -> dense working cache [L, B, maxp·page, KV, hd]
+        (k, v): one device gather by the page table; int8 pools dequantize
+        per (token, kv-head) in fp32 and cast to the working dtype."""
+        st = self.sessions
+        L, _, page, KV, HD = st.k.shape
+        B, maxp = src.shape
+        idx = src.long()
+        work = []
+        for pool, spool in ((st.k, st.k_scale), (st.v, st.v_scale)):
+            w = pool[:, idx].reshape(L, B, maxp * page, KV, HD)
+            if self.quantize_kv:
+                s = spool[:, idx].transpose(3, 4).reshape(
+                    L, B, maxp * page, KV)
+                w = (w.float() * s[..., None]).to(self.cache_dtype)
+            work.append(w)
+        return tuple(work)
+
     @torch.no_grad()
     def step_paged_prefill(self, src, tokens, prefix_lens, chunk_lens,
                            kv_off):
@@ -1091,14 +1155,9 @@ class GenerateEngine:
         the host only sends the page table), then the suffix chunk through
         the dense ``prefill_chunk``. Returns (last-token logits [B, V],
         cache)."""
-        st = self.sessions
-        L, _, page, KV, HD = st.k.shape
-        B, maxp = src.shape
-        idx = src.long()
-        cache = KVCache(
-            k=st.k[:, idx].reshape(L, B, maxp * page, KV, HD),
-            v=st.v[:, idx].reshape(L, B, maxp * page, KV, HD),
-            lens=torch.zeros((B,), dtype=torch.int32, device=src.device))
+        k, v = self._gather_work(src)
+        cache = KVCache(k=k, v=v, lens=torch.zeros(
+            (src.shape[0],), dtype=torch.int32, device=src.device))
         return prefill_chunk(self.params, self.cfg, tokens, prefix_lens,
                              chunk_lens, cache, kv_off=kv_off)
 
@@ -1143,16 +1202,27 @@ class GenerateEngine:
         """Working cache -> dst pages, in place: before the direct decode
         (which then reads pages only), or after the gather decode. Page ids
         out of range drop (the JAX ``mode="drop"``); rows without pages
-        point at scratch page 0."""
+        point at scratch page 0. Int8 pools requantize each (token,
+        kv-head) with the shared rule (models/quant.kv_quant) and write
+        the scales beside the pages, one layer at a time (the fp32
+        temporaries of a whole working cache would be L times larger)."""
         st = self.sessions
         L, n_pages, page, KV, HD = st.k.shape
         B, maxp = dst.shape
         flat = dst.reshape(-1)
         keep = torch.nonzero((flat >= 0) & (flat < n_pages))[:, 0]
         pid = flat[keep].long()
-        for pool, work in ((st.k, k_work), (st.v, v_work)):
-            pool.index_copy_(1, pid, work.reshape(L, B * maxp, page, KV, HD)
-                             .index_select(1, keep).to(pool.dtype))
+        for pool, spool, work in ((st.k, st.k_scale, k_work),
+                                  (st.v, st.v_scale, v_work)):
+            pages = work.reshape(L, B * maxp, page, KV, HD) \
+                .index_select(1, keep)
+            if not self.quantize_kv:
+                pool.index_copy_(1, pid, pages.to(pool.dtype))
+                continue
+            for li in range(L):
+                q8, s = kv_quant(pages[li])     # [n, page, KV, hd]
+                pool[li].index_copy_(0, pid, q8)
+                spool[li].index_copy_(0, pid, s.transpose(1, 2))
 
     @torch.no_grad()
     def step_paged_decode_direct(self, tables, pool_lens, kv_off,
@@ -1259,21 +1329,26 @@ class GenerateEngine:
         def put(a):
             return torch.as_tensor(a, device=dev)
 
-        hidden, st.k, st.v = forward_hidden_ragged(
+        scales = dict(k_scale=st.k_scale, v_scale=st.v_scale)
+        hidden = forward_hidden_ragged(
             self.params, cfg, put(flat_tok)[None], put(flat_pos)[None],
-            st.k, st.v, put(btab), put(bmeta), put(flat_dst), tq=TQ)
+            st.k, st.v, put(btab), put(bmeta), put(flat_dst), tq=TQ,
+            **scales)[0]
         last_logits = project_logits(self.params, cfg,
                                      hidden[0][put(last_idx)])   # [NB, V]
         _fence(dev)
         t_prefill = time.monotonic()
-        out, n_emitted, final_lens, st.k, st.v, jstate_f = decode_ragged(
+        res = decode_ragged(
             self.params, cfg, st.k, st.v, put(r_tables), put(r_pool_lens),
             put(r_off), last_logits, generator, put(r_temp), put(r_top),
             max_new, cfg.eos_token_id, active=put(r_active),
             row_limit=put(r_limits),
             pad_id=self.tokenizer.pad_id, stop_ids=cfg.stop_token_ids,
             json_table=json_table,
-            json_state=None if r_jstate is None else put(r_jstate))
+            json_state=None if r_jstate is None else put(r_jstate),
+            **scales)
+        # the pools (and scale pools) were written in place
+        out, n_emitted, final_lens, jstate_f = res[:3] + res[-1:]
         out, n_emitted, final_lens, jstate_f = (
             x.cpu().numpy() for x in (out, n_emitted, final_lens, jstate_f))
         now = time.monotonic()

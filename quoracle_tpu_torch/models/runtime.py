@@ -85,12 +85,17 @@ class TorchBackend:
     CPU serves only when asked (``device="cpu"``, the tests). Weights are
     random bf16, drawn from ``torch.Generator``s seeded ``seed + i`` on
     the device (checkpoint loading is a later slice); ``engines`` hands in
-    prebuilt engines instead."""
+    prebuilt engines instead. ``quantize_weights`` and ``quantize_kv``
+    (int8 serving, models/quant.py) apply to every engine the backend
+    builds, as in the JAX backend."""
 
     def __init__(self, pool: Sequence[str], *, seed: int = 0, device=None,
-                 engines: Optional[dict[str, GenerateEngine]] = None):
+                 engines: Optional[dict[str, GenerateEngine]] = None,
+                 quantize_weights: bool = False, quantize_kv: bool = False):
         self.device = resolve_device(device)
         self.pool = list(pool)
+        self.quantize_weights = bool(quantize_weights)
+        self.quantize_kv = bool(quantize_kv)
         self.engines: dict[str, GenerateEngine] = dict(engines or {})
         for i, spec in enumerate(self.pool):
             if spec in self.engines:
@@ -101,7 +106,8 @@ class TorchBackend:
             params = init_params(cfg, gen, device=self.device)
             self.engines[spec] = GenerateEngine(
                 cfg, params, get_tokenizer(spec), seed=seed + i,
-                device=self.device)
+                device=self.device, quantize_weights=self.quantize_weights,
+                quantize_kv=self.quantize_kv)
 
     def query(self, requests: Sequence[QueryRequest]) -> list[QueryResult]:
         """Group rows by pool member; one batched generate per member,

@@ -10,7 +10,9 @@ memory the JAX jits buy back by donation) and returns the same tensors.
 
 Weight layout: every projection is an ``nn.Linear``, whose weight is
 [out, in]; the JAX params hold [in, out]. models/convert.py is the one
-place that transposes between the two.
+place that transposes between the two. A quantized model
+(models/quant.quantize_params) holds ``QuantLinear`` projections in the
+same places, so the call sites are shared, and a ``QuantEmbedding``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from quoracle_tpu_torch.models.config import ModelConfig
+from quoracle_tpu_torch.models.quant import (
+    dequant_weight, is_quantized, kv_quant,
+)
 from quoracle_tpu_torch.ops.flash_attention import attend_auto
 from quoracle_tpu_torch.ops.paged_attention import (
     DecodeStep, paged_prefill_merge, ragged_attend_auto,
@@ -77,20 +82,23 @@ class Transformer(nn.Module):
 
     def head_f32(self) -> torch.Tensor:
         """[V, D] fp32 head weight for project_logits. The JAX package
-        upcasts the head to fp32 on every call; at llama-3-8b scale that
-        re-reads and re-writes a 2.1 GB tensor per decode step, so the port
-        casts ONCE and keeps the fp32 copy (2.1 GB of device memory) —
-        the same fp32 product, without the per-step cast. The copy is made
-        anew when the weight moves, is replaced, or is written in place
-        (``copy_``, ``load_state_dict``: the tensor's version counter).
-        fp32 models use their own weight."""
-        w = self.embed.weight if self.lm_head is None else self.lm_head.weight
+        upcasts (or, quantized, dequantizes) the head to fp32 on every
+        call; at llama-3-8b scale that re-reads and re-writes a 2.1 GB
+        tensor per decode step, so the port does it ONCE and keeps the
+        fp32 copy (2.1 GB of device memory) — the same fp32 product,
+        without the per-step cast. The copy is made anew when the weight
+        moves, is replaced, or is written in place (``copy_``,
+        ``load_state_dict``: the tensor's version counter). fp32 models use
+        their own weight."""
+        head = self.embed if self.lm_head is None else self.lm_head
+        w = head.q8 if is_quantized(head) else head.weight
         if w.dtype == torch.float32:
             return w
         key = (w.device, w.data_ptr(), w._version)
         if self._head_key != key:
             self._head_f32 = None            # free the old copy first
-            self._head_f32 = w.detach().float()
+            self._head_f32 = dequant_weight(head, torch.float32).detach() \
+                .float()
             self._head_key = key
         return self._head_f32
 
@@ -183,7 +191,12 @@ def _activation(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def _embed_lookup(params: Transformer, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
-    x = params.embed.weight[tokens.long()]
+    """Embedding gather; a quantized table dequantizes only the rows it
+    looks up, into the dense leaves' dtype (``params.dtype``)."""
+    if is_quantized(params.embed):
+        x = params.embed.lookup(tokens, params.dtype)
+    else:
+        x = params.embed.weight[tokens.long()]
     if cfg.scale_embeddings:
         x = (x.float() * (cfg.dim ** 0.5)).to(x.dtype)
     return x
@@ -383,31 +396,62 @@ def forward_hidden_ragged(
     flat_dst: torch.Tensor,      # [Tp] int32 flat pool token slot per
                                  # token; n_pages * page = drop
     tq: int,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    k_scale: Optional[torch.Tensor] = None,   # [L, n_pages, KV, page] fp32
+    v_scale: Optional[torch.Tensor] = None,   # (int8 pools), in place
+) -> tuple:
     """Unified ragged forward: each layer writes the chunk's KV into the
     rows' pages FIRST, then attention streams each block's real pages
     (intra-chunk visibility is pure causal masking). Returns (hidden
     [1, Tp, D], k_pool, v_pool) with the chunk KV written in place; slots
-    out of range drop (``_kept_slots``)."""
+    out of range drop (``_kept_slots``).
+
+    With ``k_scale``/``v_scale`` the pools are int8: each layer quantizes
+    the chunk's fresh post-RoPE K and V per (token, kv-head) in the
+    activation dtype (models/quant.kv_quant), writes the payloads into the
+    pages and the scales at ((pid·KV)+j)·page + off of the layer's scale
+    pool, and the attention dequantizes as it reads (the int8 ragged
+    kernel on the card). Returns (hidden, k_pool, v_pool, k_scale,
+    v_scale)."""
     B, Tp = tokens.shape
     n_pages, page = k_pool.shape[1], k_pool.shape[2]
     n_tok = n_pages * page
+    KV = cfg.n_kv_heads
+    quant = k_scale is not None
     src, dst = _kept_slots(flat_dst, n_tok)
+    if quant:
+        # scale slot of kept token t, head j: ((pid·KV)+j)·page + off
+        heads = torch.arange(KV, device=dst.device)
+        sidx = (((dst // page)[:, None] * KV + heads[None, :]) * page
+                + (dst % page)[:, None]).reshape(-1)
     x = _embed_lookup(params, cfg, tokens)
     for li, p in enumerate(params.layers):
         q, k, v = _qkv(x, p, cfg, B, Tp)
         q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-        kf = k_pool[li].view(n_tok, cfg.n_kv_heads, cfg.head_dim)
-        vf = v_pool[li].view(n_tok, cfg.n_kv_heads, cfg.head_dim)
-        kf.index_copy_(0, dst, k[0].index_select(0, src).to(kf.dtype))
-        vf.index_copy_(0, dst, v[0].index_select(0, src).to(vf.dtype))
+        kf = k_pool[li].view(n_tok, KV, cfg.head_dim)
+        vf = v_pool[li].view(n_tok, KV, cfg.head_dim)
+        k_new = k[0].index_select(0, src)
+        v_new = v[0].index_select(0, src)
+        if quant:
+            for pool, spool, x_new in ((kf, k_scale[li], k_new),
+                                       (vf, v_scale[li], v_new)):
+                q8, s = kv_quant(x_new)            # [n, KV, hd], [n, KV]
+                pool.index_copy_(0, dst, q8)
+                spool.view(-1).index_copy_(0, sidx, s.reshape(-1))
+            ks, vs = k_scale[li], v_scale[li]
+        else:
+            kf.index_copy_(0, dst, k_new.to(kf.dtype))
+            vf.index_copy_(0, dst, v_new.to(vf.dtype))
+            ks = vs = None
         attn = ragged_attend_auto(q[0], k_pool[li], v_pool[li],
                                   block_tables, block_meta, tq=tq,
-                                  sliding_window=cfg.sliding_window)
+                                  sliding_window=cfg.sliding_window,
+                                  k_scale=ks, v_scale=vs)
         x = x + _wo(attn[None].to(x.dtype), p, cfg)
         x = _mlp(x, p, cfg)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps, cfg.rmsnorm_plus_one)
+    if quant:
+        return x, k_pool, v_pool, k_scale, v_scale
     return x, k_pool, v_pool
 
 
@@ -415,8 +459,8 @@ def forward_hidden_ragged(
 def project_logits(params: Transformer, cfg: ModelConfig,
                    hidden: torch.Tensor) -> torch.Tensor:
     """Final hidden states [..., D] -> fp32 logits [..., vocab]: the fp32
-    product of the fp32 hidden state and the fp32 head (cast once, see
-    Transformer.head_f32), then the optional soft cap. Callers gather the
+    product of the fp32 hidden state and the fp32 head (cast, or
+    dequantized, once: Transformer.head_f32), then the optional soft cap. Callers gather the
     positions they need first: a full-sequence [B, T, 128256] fp32 tensor
     is never wanted."""
     logits = F.linear(hidden.float(), params.head_f32())

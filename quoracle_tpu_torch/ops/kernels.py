@@ -45,8 +45,8 @@ def _build_dir() -> str:
 
 
 BUILD_DIR = _build_dir()
-SOURCES = ("flash_fwd.cu", "ragged_fwd.cu", "paged_fwd.cu",
-           "paged_prefill_fwd.cu")
+SOURCES = ("flash_fwd.cu", "ragged_fwd.cu", "ragged_q8_fwd.cu",
+           "paged_fwd.cu", "paged_prefill_fwd.cu")
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -87,6 +87,10 @@ RAGGED = Kernel(
     "ragged_fwd", "quoracle_tpu_torch/csrc/ragged_fwd.cu",
     "quoracle_tpu/ops/paged_attention.py:642",
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P])
+RAGGED_Q8 = Kernel(
+    "ragged_q8_fwd", "quoracle_tpu_torch/csrc/ragged_q8_fwd.cu",
+    "quoracle_tpu/ops/paged_attention.py:739",
+    [_P] * 8 + [_I] * 8 + [_F, _I, _P])
 PAGED = Kernel(
     "paged_fwd", "quoracle_tpu_torch/csrc/paged_fwd.cu",
     "quoracle_tpu/ops/paged_attention.py:173",
@@ -95,7 +99,7 @@ PAGED_PREFILL = Kernel(
     "paged_prefill_fwd", "quoracle_tpu_torch/csrc/paged_prefill_fwd.cu",
     "quoracle_tpu/ops/paged_attention.py:399",
     [_P] * 8 + [_I] * 9 + [_F, _I, _P])
-KERNELS = (FLASH, RAGGED, PAGED, PAGED_PREFILL)
+KERNELS = (FLASH, RAGGED, RAGGED_Q8, PAGED, PAGED_PREFILL)
 
 
 def launch_counts() -> dict[str, int]:

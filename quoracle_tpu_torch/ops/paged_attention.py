@@ -28,11 +28,15 @@ blocks so a block never spans two rows. Per block:
                    the pages before attending), the buffer position of the
                    block's first query, and its valid queries (0 = inert)
 
+Int8 pools (``GenerateEngine(quantize_kv=True)``) carry fp32 scale pools
+``[n_pages, KV, page]``, one scale per (token, kv-head); ``ragged_attend``
+takes them as ``k_scale``/``v_scale`` and dequantizes as it reads.
+
 Each kernel wrapper launches its hand-written CUDA kernel
-(``csrc/ragged_fwd.cu``, ``csrc/paged_fwd.cu``,
-``csrc/paged_prefill_fwd.cu``) for CUDA tensors and runs its plain twin
-(``*_ref``) for CPU tensors. The int8 pool variant is the next slice; the
-tp shard wrappers of the JAX module are later work.
+(``csrc/ragged_fwd.cu``, ``csrc/ragged_q8_fwd.cu`` for int8 pools,
+``csrc/paged_fwd.cu``, ``csrc/paged_prefill_fwd.cu``) for CUDA tensors
+and runs its plain twin (``*_ref``) for CPU tensors. The tp shard
+wrappers of the JAX module are later work.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from quoracle_tpu_torch.models.quant import gather_scales
 from quoracle_tpu_torch.ops import kernels
 from quoracle_tpu_torch.ops.attention import NEG_INF
 
@@ -210,23 +215,34 @@ def paged_attend_ref(
     return acc.reshape(B, H, hd), m.reshape(B, H), l.reshape(B, H)
 
 
-def _check_kernel_args(name, q, k_pages, v_pages, score_rows: int, ints):
+def _check_kernel_args(name, q, k_pages, v_pages, score_rows: int, ints,
+                       scales=None):
     """The CUDA kernels' contract, shared by every wrapper: float32 or
-    bfloat16 of one dtype, hd 128 or 256, at most MAX_SCORE_ROWS score rows
-    per block, page % KEY_TILE == 0, contiguous q and pools, the int
-    tensors (already int32 and contiguous) on q's device. Each wrapper
-    checks its own index shapes before calling this."""
+    bfloat16 q and pages of q's dtype (int8 pages with ``scales``, the
+    (k_scale, v_scale) pools: contiguous float32 [n_pages, KV, page]), hd
+    128 or 256, at most MAX_SCORE_ROWS score rows per block, page %
+    KEY_TILE == 0, contiguous q and pools, the int tensors (already int32
+    and contiguous) on q's device. Each wrapper checks its own index
+    shapes before calling this."""
     n_heads, hd = q.shape[-2], q.shape[-1]
     n_pages, page, n_kv, hd_k = k_pages.shape
     if v_pages.shape != k_pages.shape or hd_k != hd or n_heads % n_kv:
         raise ValueError(f"{name}: q {tuple(q.shape)} and pages "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} "
                          f"disagree")
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    page_dtype = q.dtype if scales is None else torch.int8
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != page_dtype \
+            or v_pages.dtype != page_dtype:
         raise ValueError(f"{name}: CUDA kernel takes float32 or bfloat16 "
-                         f"q/pages of one dtype, got {q.dtype}/"
-                         f"{k_pages.dtype}/{v_pages.dtype}")
+                         f"q and {'int8' if scales else 'same-dtype'} "
+                         f"pages, got {q.dtype}/{k_pages.dtype}/"
+                         f"{v_pages.dtype}")
+    for s in scales or ():
+        if s.dtype != torch.float32 or not s.is_contiguous() \
+                or tuple(s.shape) != (n_pages, n_kv, page):
+            raise ValueError(f"{name}: scale pools must be contiguous "
+                             f"float32 [{n_pages}, {n_kv}, {page}], got "
+                             f"{s.dtype} {tuple(s.shape)}")
     if hd not in (128, 256):
         raise ValueError(f"{name}: CUDA kernel is built for head_dim 128 "
                          f"and 256, got {hd}")
@@ -243,7 +259,7 @@ def _check_kernel_args(name, q, k_pages, v_pages, score_rows: int, ints):
         if x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError(f"{name}: index tensors must be contiguous "
                              f"int32, got {x.dtype}")
-    for x in (k_pages, v_pages, *ints):
+    for x in (k_pages, v_pages, *(scales or ()), *ints):
         if x.device != q.device:
             raise ValueError(f"{name}: all tensors must share q's device")
 
@@ -479,7 +495,7 @@ class DecodeStep:
 
 
 # ---------------------------------------------------------------------------
-# Unified tier: ragged_attend (K2) and its twin
+# Unified tier: ragged_attend (K2; K3 over int8 pools) and its twin
 # ---------------------------------------------------------------------------
 
 
@@ -491,9 +507,13 @@ def ragged_attend_ref(
     block_meta: torch.Tensor,    # [NB, 3] int32: kv_len, qpos0, nq
     tq: int,
     sliding_window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,   # [n_pages, KV, page] fp32
+    v_scale: Optional[torch.Tensor] = None,   # (int8 pools)
 ) -> torch.Tensor:
-    """Gather twin of the ragged kernel: same contract, normalized output
-    [NB·tq, H, hd] float32."""
+    """Gather twin of the ragged kernels: same contract, normalized output
+    [NB·tq, H, hd] float32. With ``k_scale``/``v_scale`` the pools are
+    int8 and the gathered pages dequantize per (token, kv-head) before the
+    scores (``k.float() * scale``: the values the int8 kernel loads)."""
     nb, maxp = block_tables.shape
     _, n_heads, hd = q.shape
     _, page, n_kv, _ = k_pages.shape
@@ -502,6 +522,9 @@ def ragged_attend_ref(
     qb = (q.float() * hd ** -0.5).reshape(nb, tq, n_kv, g, hd)
     k = k_pages[tables].reshape(nb, maxp * page, n_kv, hd).float()
     v = v_pages[tables].reshape(nb, maxp * page, n_kv, hd).float()
+    if k_scale is not None:
+        k = k * gather_scales(k_scale, block_tables)[..., None]
+        v = v * gather_scales(v_scale, block_tables)[..., None]
     scores = torch.einsum("btkgd,bskd->bkgts", qb, k)
     meta = block_meta.to(torch.int32)
     kv_len = meta[:, 0][:, None, None]
@@ -532,15 +555,22 @@ def ragged_attend(
     block_meta: torch.Tensor,    # [NB, 3] int32
     tq: int,
     sliding_window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,   # [n_pages, KV, page] fp32
+    v_scale: Optional[torch.Tensor] = None,   # (int8 pools)
 ) -> torch.Tensor:
     """Unified ragged attention: the CUDA kernel for CUDA tensors (it
     launches or raises), the plain twin for CPU tensors. Grid (NB, KV):
-    device work follows the tick's real blocks, never batch x max."""
+    device work follows the tick's real blocks, never batch x max. With
+    ``k_scale``/``v_scale`` the pages are int8 and the int8 kernel
+    (``csrc/ragged_q8_fwd.cu``) runs."""
     if q.device.type == "cpu":
         return ragged_attend_ref(q, k_pages, v_pages, block_tables,
-                                 block_meta, tq, sliding_window)
+                                 block_meta, tq, sliding_window,
+                                 k_scale=k_scale, v_scale=v_scale)
     if not q.is_cuda:
         raise ValueError(f"ragged_attend: no kernel for device {q.device}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("ragged_attend: pass both k_scale and v_scale")
     block_tables, block_meta = _int32(block_tables, block_meta)
     tp, n_heads, hd = q.shape
     n_pages, page, n_kv, _ = k_pages.shape
@@ -548,29 +578,40 @@ def ragged_attend(
     if tp != nb * tq or tuple(block_meta.shape) != (nb, 3):
         raise ValueError(f"ragged_attend: {tp} query tokens for {nb} blocks "
                          f"of tq={tq}, meta {tuple(block_meta.shape)}")
+    scales = None if k_scale is None else (k_scale, v_scale)
     _check_kernel_args("ragged_attend", q, k_pages, v_pages,
                        tq * (n_heads // n_kv),
-                       (block_tables, block_meta))
+                       (block_tables, block_meta), scales)
     out = torch.empty((tp, n_heads, hd), dtype=torch.float32,
                       device=q.device)
     if nb == 0:
         return out
-    kernels.RAGGED.launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), block_meta.data_ptr(), out.data_ptr(),
-        nb, tq, n_heads, n_kv, hd, page, maxp,
-        -1 if sliding_window is None else int(sliding_window),
+    window = -1 if sliding_window is None else int(sliding_window)
+    ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
+    if scales is None:
+        kernel = kernels.RAGGED
+    else:
+        kernel = kernels.RAGGED_Q8
+        ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
+    kernel.launch(
+        *ptrs, block_tables.data_ptr(), block_meta.data_ptr(),
+        out.data_ptr(), nb, tq, n_heads, n_kv, hd, page, maxp, window,
         hd ** -0.5, _DTYPE_CODES[q.dtype], kernels.stream_handle(q.device))
     return out
 
 
 def ragged_attend_auto(q, k_pages, v_pages, block_tables, block_meta,
-                       tq: int, sliding_window: Optional[int] = None
+                       tq: int, sliding_window: Optional[int] = None,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """The serving path's dispatcher: kernel for CUDA tensors, plain twin
-    for CPU tensors (the CPU serving path of the tests)."""
+    for CPU tensors (the CPU serving path of the tests); scale pools mark
+    int8 pages."""
     if q.is_cuda:
         return ragged_attend(q, k_pages, v_pages, block_tables, block_meta,
-                             tq=tq, sliding_window=sliding_window)
+                             tq=tq, sliding_window=sliding_window,
+                             k_scale=k_scale, v_scale=v_scale)
     return ragged_attend_ref(q, k_pages, v_pages, block_tables, block_meta,
-                             tq=tq, sliding_window=sliding_window)
+                             tq=tq, sliding_window=sliding_window,
+                             k_scale=k_scale, v_scale=v_scale)

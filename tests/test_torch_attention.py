@@ -230,5 +230,5 @@ def test_cpu_tensors_take_plain_paths_and_never_count_launches():
         tpaged.paged_attend_ref(qd, *pools, tables, lens, off, qpos, 8),
         tpaged.tail_attend_partials(qd, tk, tv, 3, off + lens, qpos, 8)))
     assert kernels.launch_counts() == {"flash_fwd": 0, "ragged_fwd": 0,
-                                       "paged_fwd": 0,
+                                       "ragged_q8_fwd": 0, "paged_fwd": 0,
                                        "paged_prefill_fwd": 0}

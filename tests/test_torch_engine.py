@@ -72,7 +72,8 @@ def test_sessionless_rows_identical(tiny):
     _same(jres, tres)
     assert all(r.n_gen_tokens > 0 for r in tres)
     assert te.kernel_launches() == {"flash_fwd": 0, "ragged_fwd": 0,
-                                    "paged_fwd": 0, "paged_prefill_fwd": 0}
+                                    "ragged_q8_fwd": 0, "paged_fwd": 0,
+                                    "paged_prefill_fwd": 0}
 
 
 def test_sessioned_rounds_identical(tiny):

@@ -17,7 +17,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 for name in ("quoracle_tpu_torch.utils.calibration",
-             "quoracle_tpu_torch.ops.paged_attention"):
+             "quoracle_tpu_torch.ops.paged_attention",
+             "quoracle_tpu_torch.models.quant"):
     assert name in names, name
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join({repo!r}, "chip_smoke.py"))
@@ -36,5 +37,5 @@ def test_port_and_chip_smoke_import_no_jax():
         env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 17, out.stdout          # every module was imported
+    assert int(n) >= 18, out.stdout          # every module was imported
     assert bad.strip() == "[]", out.stdout
