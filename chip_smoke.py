@@ -9,11 +9,14 @@ exits non-zero and never prints its last line):
 
   env        torch and CUDA versions, the card's name and power limit
   build      nvcc builds the hand-written kernels from
-             quoracle_tpu_torch/csrc (one process per source, in parallel)
+             quoracle_tpu_torch/csrc (one process per source, in parallel);
+             ptxas's registers, stack and spills per kernel, the bf16
+             tensor-core instantiations listed apart
   kernels    each kernel against its plain PyTorch twin on the card at
              llama-3-8b attention shapes (H=32, KV=8, hd=128, page 128),
-             in fp32 and bf16, with each case's tolerance; the int8
-             ragged kernel also at hd 256 and G = 1, 4, 8
+             in fp32 and bf16, with each case's tolerance; flash, the
+             paged prefill and the int8 ragged kernels also at hd 256 and
+             G = 1, 4, 8
   serve      TorchBackend(["xla:llama-3-8b"]) at full width and depth,
              random bf16 weights from a seeded generator: a consensus
              round (three sessioned JSON-constrained rows at temperatures
@@ -59,7 +62,9 @@ exits non-zero and never prints its last line):
              that take the most device time
   sweep      each kernel's time and bound over the lengths it serves:
              ragged decode ticks (bf16 and int8 pages side by side) over
-             resident lengths, flash over T
+             resident lengths, flash over T, the paged prefill over prefix
+             lengths at chunks of 16 and 128 tokens (flash and paged
+             prefill beside scaled_dot_product_attention's time)
   reference  a 2-layer cut of llama-3-8b in fp32: the same rounds through
              the GPU engine (kernels) and through the same weights on the
              CPU (plain twins) must give identical greedy texts and cached
@@ -67,9 +72,11 @@ exits non-zero and never prints its last line):
              int8 weights and pages on the unified and gather tiers
 
 then the card's nvidia-smi line, the kernels JSON line and, last,
-``{"ok": true, "device": {...}}``. Every comparison runs with TF32 off
-(torch.backends.cuda.matmul.allow_tf32 = False, and cudnn's too). The
-script imports torch and the port, never JAX or the JAX package.
+``{"ok": true, "device": {...}}``. ``--only kernels`` stops after the
+kernels phase (a quick check of a kernel edit; no last line). Every
+comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
+False, and cudnn's too). The script imports torch and the port, never
+JAX or the JAX package.
 """
 
 import dataclasses
@@ -107,6 +114,13 @@ H100_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense peaks
 #    cancel, and its error follows sum |p·v| (of order l, up to ~100 here)
 #    rather than |acc|. Rows that see no key must be (0, NEG_INF, 0)
 #    exactly.
+#  bf16 on the tensor cores (flash_fwd, paged_prefill_fwd acc): P is
+#    rounded to bf16 once for the P·V product (2^-9 relative per
+#    probability), so the error follows sum p·|v|, not |out|: a third
+#    term P_TOL · ref_abs, where ref_abs is the twin run with |v| in place
+#    of v (flash: normalized, sum p|v| / l; paged prefill: the acc of
+#    sum p|v|). m and l keep their bars: l sums the fp32 p. fp32 keeps
+#    every bar (it stays on the scalar core).
 TOL = {("flash_fwd", "float32"): (1e-5, 0.0),
        ("flash_fwd", "bfloat16"): (1e-5, 2.0 ** -7),
        ("ragged_fwd", "float32"): (1e-5, 0.0),
@@ -119,6 +133,8 @@ for _k in PAGED_KERNELS:
     for _d in ("float32", "bfloat16"):
         for _f, _tol in PARTIAL_TOL.items():
             TOL[(f"{_k}.{_f}", _d)] = _tol
+P_TOL = {("flash_fwd", "bfloat16"): 2.0 ** -8,
+         ("paged_prefill_fwd.acc", "bfloat16"): 2.0 ** -8}
 NEG_INF = -1e30
 MAX_TOKENS = 32             # new tokens per row in the serve phase
 N_RULES = 30                # system-prompt length of the serve phase
@@ -141,27 +157,56 @@ def dtype_name(t) -> str:
     return str(t.dtype).split(".")[-1]
 
 
-def check(torch, kernel: str, got, ref, what: dict) -> dict:
+def bar_of(kernel: str, dtype: str, ref, ref_abs=None):
+    """The elementwise bar of the kernel and dtype around the twin's
+    ``ref`` (a tensor): atol + rtol·|ref|, plus P_TOL·ref_abs for the bf16
+    tensor-core kernels, whose ``ref_abs`` is the twin run with |v| (see
+    TOL)."""
+    atol, rtol = TOL[(kernel, dtype)]
+    ptol = P_TOL.get((kernel, dtype), 0.0)
+    bar = atol + rtol * ref.float().abs()
+    if ptol:
+        if ref_abs is None:
+            raise ValueError(f"{kernel} ({dtype}): the bar needs ref_abs")
+        bar = bar + ptol * ref_abs.float()
+    return bar
+
+
+def within_bar(kernel: str, dtype: str, got, ref, ref_abs=None):
+    """Which elements of a kernel result meet ``bar_of``."""
+    return (got.float() - ref.float()).abs() <= bar_of(kernel, dtype, ref,
+                                                        ref_abs)
+
+
+def check(torch, kernel: str, got, ref, what: dict, ref_abs=None) -> dict:
     """Max abs error of a kernel result against its twin, each element
-    held to the tolerance of the kernel and dtype; raises on
-    disagreement."""
+    held to the tolerance of the kernel and dtype (``within_bar``);
+    raises on disagreement."""
     diff = (got.float() - ref.float()).abs()
+    bar = bar_of(kernel, what["dtype"], ref, ref_abs)
+    ok = bool((diff <= bar).all())
     atol, rtol = TOL[(kernel, what["dtype"])]
-    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
     row = {"kernel": kernel, **what, "max_abs_err": diff.max().item(),
-           "atol": atol, "rtol": rtol}
+           "bar_used": (diff / bar).max().item(), "atol": atol, "rtol": rtol}
+    ptol = P_TOL.get((kernel, what["dtype"]))
+    if ptol:
+        row["ptol"] = ptol
     if not (ok and bool(torch.isfinite(got).all())):
         raise AssertionError(f"{kernel} disagrees with its twin: {row}")
     return row
 
 
-def check_partials(torch, kernel: str, got, ref, what: dict) -> dict:
-    """(acc, m, l) of a paged kernel against its twin, field by field;
+def check_partials(torch, kernel: str, got, ref, what: dict,
+                   acc_abs=None) -> dict:
+    """(acc, m, l) of a paged kernel against its twin, field by field
+    (``acc_abs``: the twin's acc with |v|, for the bf16 tensor-core bar);
     rows whose twin saw no key must be exactly (0, NEG_INF, 0)."""
     row = {"kernel": kernel, **what}
     for name, g, r in zip(("acc", "m", "l"), got, ref):
-        row[f"max_abs_err_{name}"] = check(
-            torch, f"{kernel}.{name}", g, r, what)["max_abs_err"]
+        one = check(torch, f"{kernel}.{name}", g, r, what,
+                    acc_abs if name == "acc" else None)
+        row[f"max_abs_err_{name}"] = one["max_abs_err"]
+        row[f"bar_used_{name}"] = one["bar_used"]
     empty = ref[2] == 0                               # [..., H]
     acc_ok = bool(torch.all(got[0][empty] == 0))
     row["empty_rows"] = int(empty.sum())
@@ -177,9 +222,12 @@ def check_partials(torch, kernel: str, got, ref, what: dict) -> dict:
 
 def cuda_ms(torch, fn, iters: int = 20) -> float:
     """Median device time of one launch of ``fn``: each of ``iters``
-    launches between its own CUDA events, after a 256 MB write outside
-    the events so that every launch finds the 50 MB L2 cold."""
-    scrub = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    launches between its own CUDA events, after a 1 GiB write outside
+    the events, so that every launch finds the 50 MB L2 cold and the
+    card is still busy writing (~0.3 ms) while the host enqueues the
+    events and ``fn``'s launches: no host gap lands inside the events
+    (a wrapper's Python outlasts a 256 MB write)."""
+    scrub = torch.empty(256 << 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     times = []
@@ -311,6 +359,13 @@ def paged_prefill_work(torch, q, k_pages, tables, kv_lens,
     return nbytes, 4 * hd * H * pairs
 
 
+def prefill_blocks(P, q, kp) -> int:
+    """CUDA blocks of a paged_prefill_fwd launch: B · ceil(T/tq) · KV."""
+    B, T, H, _ = q.shape
+    tq, _ = P.prefill_block(H, kp.shape[2], q.dtype)
+    return B * -(-T // tq) * kp.shape[2]
+
+
 def gathered_kv(torch, k_pages, v_pages, tables, dtype, k_scale=None,
                 v_scale=None):
     """[B, KV, maxp·page, hd] K and V of each row's table in ``dtype``,
@@ -364,26 +419,7 @@ def phase_kernels(torch, F, P) -> list:
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[-1]
-        # flash: B=2, T=512, kv_len differing per row, a nonzero offset
-        # on row 1 whose first 16 queries sit at position -1 (padding:
-        # fully masked, exact zeros), with and without a sliding window
-        B, T, S = 2, 512, 576
-        q = torch.randn(B, T, H, hd, generator=g, device=dev).to(dt)
-        k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dt)
-        v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dt)
-        off = torch.tensor([0, 7], dtype=torch.int32, device=dev)
-        qp = (torch.arange(T, device=dev)[None] + off[:, None]).int()
-        qp[1, :16] = -1
-        kv_len = torch.tensor([512, 389], dtype=torch.int32, device=dev)
-        for window in (None, 200):
-            got = F.flash_attend(q, k, v, qp, kv_len, window, off)
-            ref = F.flash_attend_ref(q, k, v, qp, kv_len, window, off)
-            row = check(torch, "flash_fwd", got, ref,
-                        {"dtype": dname, "window": window})
-            row["masked_rows_zero"] = bool(torch.all(got[1, :16] == 0))
-            if not row["masked_rows_zero"]:
-                raise AssertionError(f"masked rows not zero: {row}")
-            cases.append(row)
+        cases += flash_cases(torch, F, dt, dname, g)
         # ragged: a mixed tq=8 tick (a fresh chunk, resumed chunks of other
         # lengths, a one-token row, an inert block) and a tq=1 decode tick
         # (live rows, an inert slot) over scattered page ids
@@ -414,6 +450,46 @@ def phase_kernels(torch, F, P) -> list:
         cases += paged_cases(torch, P, dt, dname, g, perm, kp, vp, page)
         cases += ragged_q8_cases(torch, P, dt, dname, g, perm, ticks, page)
     torch.cuda.synchronize()
+    return cases
+
+
+FLASH_GEOMETRIES = (
+    # (H, KV, hd, T, S, kv_len of the two rows)
+    (32, 8, 128, 512, 576, (512, 389)),     # llama-3-8b, G = 4
+    (16, 16, 256, 300, 333, (300, 217)),    # gemma-7b, hd 256, G = 1
+    (8, 8, 128, 300, 333, (300, 217)),      # hd 128, G = 1
+    (32, 4, 128, 300, 333, (300, 217)),     # hd 128, G = 8
+)
+
+
+def flash_cases(torch, F, dt, dname, g) -> list:
+    """flash_fwd against its twin over FLASH_GEOMETRIES: B=2, kv_len
+    differing per row, a nonzero offset on row 1 whose first 16 queries
+    sit at position -1 (padding: fully masked, exact zeros), with and
+    without a sliding window. T = 300 and S = 333 are multiples neither of
+    the bf16 block's TQ = 64 / G queries nor of the key tile."""
+    dev = "cuda"
+    cases = []
+    for H, KV, hd, T, S, lens in FLASH_GEOMETRIES:
+        q = torch.randn(2, T, H, hd, generator=g, device=dev).to(dt)
+        k = torch.randn(2, S, KV, hd, generator=g, device=dev).to(dt)
+        v = torch.randn(2, S, KV, hd, generator=g, device=dev).to(dt)
+        off = torch.tensor([0, 7], dtype=torch.int32, device=dev)
+        qp = (torch.arange(T, device=dev)[None] + off[:, None]).int()
+        qp[1, :16] = -1
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for window in (None, 200):
+            got = F.flash_attend(q, k, v, qp, kv_len, window, off)
+            ref = F.flash_attend_ref(q, k, v, qp, kv_len, window, off)
+            ref_abs = F.flash_attend_ref(q, k, v.abs(), qp, kv_len, window,
+                                         off)
+            row = check(torch, "flash_fwd", got, ref,
+                        {"dtype": dname, "H": H, "KV": KV, "hd": hd, "T": T,
+                         "S": S, "window": window}, ref_abs)
+            row["masked_rows_zero"] = bool(torch.all(got[1, :16] == 0))
+            if not row["masked_rows_zero"]:
+                raise AssertionError(f"masked rows not zero: {row}")
+            cases.append(row)
     return cases
 
 
@@ -465,11 +541,27 @@ def ragged_q8_cases(torch, P, dt, dname, g, perm, ticks, page) -> list:
     return cases
 
 
+def prefill_case(torch, P, qc, kp, vp, tables, pre, window, dname) -> dict:
+    """paged_prefill_fwd against its twin on one chunk; the bf16 bar's
+    acc_abs is the twin's acc over |v| pages."""
+    a = (qc, kp, vp, tables, pre, window)
+    acc_abs = P.paged_prefill_attend_ref(qc, kp, vp.abs(), tables, pre,
+                                         window)[0]
+    tq, _ = P.prefill_block(qc.shape[2], kp.shape[2], qc.dtype)
+    return check_partials(
+        torch, "paged_prefill_fwd", P.paged_prefill_attend(*a),
+        P.paged_prefill_attend_ref(*a),
+        {"dtype": dname, "H": qc.shape[2], "KV": kp.shape[2],
+         "hd": qc.shape[3], "T": qc.shape[1], "tq": tq, "window": window},
+        acc_abs)
+
+
 def paged_cases(torch, P, dt, dname, g, perm, kp, vp, page) -> list:
     """The direct tier's two kernels against their twins: scattered page
     tables, an empty row, rows past a page edge, with and without a
-    window, at G = 4 (llama-3-8b), 1 and 8 query heads per KV head; the
-    prefill chunk T = 37 is no multiple of any block's tq (32/G)."""
+    window, at G = 4 (llama-3-8b), 1 and 8 query heads per KV head (the
+    prefill kernel also at hd 256, G = 1 and 4); the prefill chunk T = 37
+    is no multiple of any block's tq (64/G in bf16, 32/G in fp32)."""
     dev = "cuda"
     cases = []
     B, maxp, hd = 4, 16, 128
@@ -481,22 +573,27 @@ def paged_cases(torch, P, dt, dname, g, perm, kp, vp, page) -> list:
     kv_off = torch.tensor([0, 5, 0, 128], dtype=torch.int32, device=dev)
     q_pos = kv_off + kv_lens + torch.tensor([0, 3, 7, 31], dtype=torch.int32,
                                             device=dev)
+    pre = torch.tensor([700, 0, 1500], dtype=torch.int32, device=dev)
     for H, KV in ((32, 8), (8, 8), (32, 4)):
         kpg, vpg = kp[:, :, :KV].contiguous(), vp[:, :, :KV].contiguous()
         q = torch.randn(B, H, hd, generator=g, device=dev).to(dt)
         qc = torch.randn(3, 37, H, hd, generator=g, device=dev).to(dt)
-        pre = torch.tensor([700, 0, 1500], dtype=torch.int32, device=dev)
         for window in (None, 200):
             a = (q, kpg, vpg, tables, kv_lens, kv_off, q_pos, window)
             cases.append(check_partials(
                 torch, "paged_fwd", P.paged_attend(*a), P.paged_attend_ref(*a),
                 {"dtype": dname, "H": H, "KV": KV, "window": window}))
-            a = (qc, kpg, vpg, tables[:3], pre, window)
-            cases.append(check_partials(
-                torch, "paged_prefill_fwd", P.paged_prefill_attend(*a),
-                P.paged_prefill_attend_ref(*a),
-                {"dtype": dname, "H": H, "KV": KV, "T": 37,
-                 "window": window}))
+            cases.append(prefill_case(torch, P, qc, kpg, vpg, tables[:3],
+                                      pre, window, dname))
+    # the prefill kernel at hd 256: gemma-7b's G = 1 and G = 4
+    kp2, vp2 = (torch.randn(kp.shape[0], page, 8, 256, generator=g,
+                            device=dev).to(dt) for _ in range(2))
+    for H, KV in ((8, 8), (32, 8)):
+        qc = torch.randn(3, 37, H, 256, generator=g, device=dev).to(dt)
+        for window in (None, 200):
+            cases.append(prefill_case(torch, P, qc, kp2[:, :, :KV].contiguous(),
+                                      vp2[:, :, :KV].contiguous(), tables[:3],
+                                      pre, window, dname))
     for row in cases:
         if row["empty_rows"] == 0:
             raise AssertionError(f"no empty row was checked: {row}")
@@ -934,6 +1031,17 @@ def paged_library(torch, kernel, q, kp, vp, tables, ints, window,
     return lambda: sdpa(qb, k, v, attn_mask=mask[:, None], enable_gqa=True)
 
 
+def flash_library(torch, q, k, v, qp, kv_len, window, off):
+    """scaled_dot_product_attention on flash_fwd's work, in its layout
+    ([B, H, T, hd], transposed beforehand, not timed) with the same
+    mask."""
+    from quoracle_tpu_torch.ops.attention import attention_mask
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = attention_mask(qp, kv_len, k.shape[1], window, off)[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
 def ragged_library(torch, q, kp, vp, bt, bm, tq, window, **scales):
     return paged_library(torch, "ragged_fwd",
                          q.reshape(bt.shape[0], tq, *q.shape[1:]), kp, vp,
@@ -972,10 +1080,13 @@ def paged_entries(torch, P, kernels, kept, launches) -> list:
 
     a, kw = kept["paged_prefill_attend"]
     q, kp, vp, tables, kv_lens, window = a
-    err = check_partials(torch, "paged_prefill_fwd",
+    row = check_partials(torch, "paged_prefill_fwd",
                          P.paged_prefill_attend(*a),
                          P.paged_prefill_attend_ref(*a),
-                         {"dtype": dtype_name(q)})["max_abs_err"]
+                         {"dtype": dtype_name(q)},
+                         P.paged_prefill_attend_ref(q, kp, vp.abs(), tables,
+                                                    kv_lens, window)[0])
+    err = row["max_abs_err"]
     nbytes, flops = paged_prefill_work(torch, q, kp, tables, kv_lens, window)
     b_ms, b_by = bound(nbytes, flops, dtype_name(q))
     entries.append({
@@ -989,10 +1100,12 @@ def paged_entries(torch, P, kernels, kept, launches) -> list:
         "library_ms": cuda_ms(torch, paged_library(
             torch, "paged_prefill_fwd", q, kp, vp, tables, (kv_lens,),
             window)),
+        "bar_used": {f: row[f"bar_used_{f}"] for f in ("acc", "m", "l")},
         "shape": {"q": list(q.shape), "pages": list(kp.shape),
                   "tables": list(tables.shape),
                   "kv_lens": kv_lens.tolist(), "dtype": dtype_name(q),
-                  "bytes": nbytes, "flops": flops}})
+                  "blocks": prefill_blocks(P, q, kp), "bytes": nbytes,
+                  "flops": flops}})
     return entries
 
 
@@ -1031,20 +1144,17 @@ def ragged_entry(torch, P, kernel, kept: dict, launches: int) -> dict:
 def phase_mainpath(torch, F, P, kernels, kept, launches) -> list:
     """Each kernel on the inputs the main path gave it: error against the
     twin, device times, and the bound from these inputs."""
-    from quoracle_tpu_torch.ops.attention import attention_mask
     entries = []
     a, kw = kept["flash_fwd"]
     q, k, v, qp, kv_len = a
     window, off = kw.get("sliding_window"), kw.get("kv_pos_offset")
     got = F.flash_attend(*a, **kw)
-    err = check(torch, "flash_fwd", got, F.flash_attend_ref(*a, **kw),
-                {"dtype": dtype_name(q)})["max_abs_err"]
+    row = check(torch, "flash_fwd", got, F.flash_attend_ref(*a, **kw),
+                {"dtype": dtype_name(q)},
+                F.flash_attend_ref(q, k, v.abs(), qp, kv_len, **kw))
+    err = row["max_abs_err"]
     nbytes, flops = flash_work(q, k, qp, kv_len, window, off)
     b_ms, b_by = bound(nbytes, flops, dtype_name(q))
-    # the yardstick: one PyTorch call on the same work, in its layout
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    mask = attention_mask(qp, kv_len, k.shape[1], window, off)[:, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     entries.append({
         "name": "flash_fwd", "route": "cuda",
         "source": kernels.FLASH.source, "replaces": kernels.FLASH.replaces,
@@ -1052,8 +1162,9 @@ def phase_mainpath(torch, F, P, kernels, kept, launches) -> list:
         "ms": cuda_ms(torch, lambda: F.flash_attend(*a, **kw)),
         "plain_ms": cuda_ms(torch, lambda: F.flash_attend_ref(*a, **kw)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(torch, lambda: sdpa(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        "library_ms": cuda_ms(torch, flash_library(torch, q, k, v, qp,
+                                                   kv_len, window, off)),
+        "bar_used": row["bar_used"],
         "shape": {"q": list(q.shape), "k": list(k.shape),
                   "dtype": dtype_name(q), "bytes": nbytes,
                   "flops": flops}})
@@ -1126,8 +1237,10 @@ def phase_sweep(torch, F, P) -> dict:
     llama-3-8b attention geometry: ragged decode ticks (tq=1, 3 live rows
     in 8 slots, the consensus round's shape) over resident lengths, over
     bf16 pages and over the same pages quantized to int8 (the int8
-    kernel's time and bound beside ragged_fwd's), and flash prefill
-    chunks (B=1, 64 keys more than queries) over T."""
+    kernel's time and bound beside ragged_fwd's), flash prefill chunks
+    (B=1, 64 keys more than queries) over T, and paged prefill chunks of
+    16 and 128 tokens over prefix lengths, each beside its bound and
+    scaled_dot_product_attention's time on the same work."""
     from quoracle_tpu_torch.models.quant import kv_quant
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(2)
@@ -1175,7 +1288,30 @@ def phase_sweep(torch, F, P) -> dict:
         rows.append({"kernel": "flash_fwd", "T": T,
                      "ms": cuda_ms(torch, lambda: F.flash_attend(
                          q, k, v, qp, kl)),
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": cuda_ms(torch, flash_library(
+                         torch, q, k, v, qp, kl, None, None))})
+    # paged prefill: three rows resuming the same prefix length (the
+    # consensus round's shape) with a chunk of T tokens, on scattered pages
+    for T in (16, 128):
+        for prefix in (128, 808, 1800, 4000):
+            maxp = -(-prefix // page)
+            tables = torch.stack([
+                (torch.arange(maxp) * 3 + i) % (n_pages - 1) + 1
+                for i in range(3)]).int().to(dev)
+            lens = torch.full((3,), prefix, dtype=torch.int32, device=dev)
+            q = torch.randn(3, T, H, hd, generator=g, device=dev).bfloat16()
+            b_ms, b_by = bound(*paged_prefill_work(torch, q, kp, tables,
+                                                   lens, None), "bfloat16")
+            rows.append({
+                "kernel": "paged_prefill_fwd", "T": T, "prefix": prefix,
+                "rows": 3, "blocks": prefill_blocks(P, q, kp),
+                "ms": cuda_ms(torch, lambda: P.paged_prefill_attend(
+                    q, kp, vp, tables, lens)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": cuda_ms(torch, paged_library(
+                    torch, "paged_prefill_fwd", q, kp, vp, tables, (lens,),
+                    None))})
     return {"phase": "sweep", "cases": rows}
 
 
@@ -1267,7 +1403,29 @@ def phase_reference(torch, R) -> dict:
     return report
 
 
-def main() -> int:
+def ptxas_entries(log: str) -> list:
+    """One entry per compiled kernel of the nvcc log (``--ptxas-options
+    =-v``): its (mangled) name, the register line and the stack and spill
+    line."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"kernel": ln.split("'")[1], "spill": "", "used": ""}
+            out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            cur["spill"] = ln.strip()
+        elif cur is not None and "Used" in ln:
+            cur["used"] = ln.split(":", 1)[-1].strip()
+    return out
+
+
+def main(argv) -> int:
+    only = None
+    if argv[1:2] == ["--only"] and argv[2:3] == ["kernels"]:
+        only = "kernels"        # env, build, kernels phases, no last line
+    elif argv[1:]:
+        print(f"usage: {argv[0]} [--only kernels]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script checks "
@@ -1295,16 +1453,19 @@ def main() -> int:
 
     t0 = time.monotonic()
     path, log = kernels.build()
+    ptx = ptxas_entries(log)
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "library": os.path.relpath(path, REPO),
-          "ptxas": [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                    if "Used" in ln]})
+          "tensor_core": [e for e in ptx if "_tc_kernel" in e["kernel"]],
+          "ptxas": [e for e in ptx if "_tc_kernel" not in e["kernel"]]})
 
     cases = phase_kernels(torch, F, P)
     emit({"phase": "kernels",
           "kernels": [{"name": k.name, "source": k.source,
                        "status": "ok"} for k in kernels.KERNELS],
           "cases": cases})
+    if only == "kernels":
+        return 0
 
     dfa = CharDFA(max_depth=4)
     backend, report, kept, launches, hist = phase_serve(
@@ -1339,4 +1500,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

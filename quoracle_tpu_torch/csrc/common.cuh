@@ -1,5 +1,7 @@
-// Shared attention core of the port's CUDA kernels (flash_fwd.cu,
-// ragged_fwd.cu, ragged_q8_fwd.cu, paged_fwd.cu, paged_prefill_fwd.cu).
+// Scalar fp32 attention core of the port's CUDA kernels: ragged_fwd.cu,
+// ragged_q8_fwd.cu and paged_fwd.cu in both dtypes, flash_fwd.cu and
+// paged_prefill_fwd.cu in fp32 (their bf16 paths run on the tensor cores,
+// tc_attention.cuh).
 //
 // One block owns up to ROWS query rows that attend to the same key head.
 // Keys stream through shared memory in tiles of BK rows; each tile runs

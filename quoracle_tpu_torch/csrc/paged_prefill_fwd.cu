@@ -14,25 +14,27 @@
 // (0, NEG_INF, 0) exactly. The engine merges these with the dense
 // intra-chunk piece in plain PyTorch.
 //
-// What bounds it on an H100: each block reads the row's visible prefix
-// pages once and does 4·hd FLOPs per (query row, key) pair; with tq·G = 32
-// score rows a page byte feeds ~32 FLOPs, far under the ~295 FLOPs per
-// byte where the tensor cores would bound it, so the least time is the
-// bytes of the prefix pages (read once per KV head) over HBM bandwidth.
-// Here, though, the loads are re-read by each of the ceil(T/tq) query
-// blocks of the row and the FMAs are scalar fp32, so it runs well above
-// that bound.
+// What bounds it on an H100: a block reads the row's visible prefix pages
+// of one KV head and does 4·hd FLOPs per (score row, key) pair; at 64
+// score rows a page byte feeds ~64 FLOPs, under the ~295 FLOPs per byte
+// of the bf16 tensor-core ridge, so the least time is the prefix pages'
+// bytes (read once per KV head) over HBM bandwidth. The first version
+// (PR 2) ran scalar fp32 FMAs over bf16 tiles widened to fp32, 32 score
+// rows a block, and so streamed each prefix through 16 query blocks per
+// row at the main path's T = 128.
 //
-// What the design does about it: the TPU kernel's grid was (B, T/128) and
-// carried all KV heads of 128 queries per program, sized for VMEM. Here
-// the grid is (B, ceil(T/tq), KV) with tq = 32 / G queries (8 at
-// llama-3-8b), so one block's 32 score rows are tq queries times the G
-// heads of one KV head and every page read is shared by them; the grid
-// has enough blocks (T/8 * KV per row) to fill the card. Rows past T are
-// skipped; tiles wholly outside the block's window are not loaded. A
-// tensor-core (mma/wgmma) version with split-K over long prefixes is
-// later work.
+// What the design does about it (bf16, tc_attention.cuh): grid (B,
+// ceil(T/TQ), KV) with TQ = 64 / G queries (16 at llama-3-8b), so a block
+// holds 64 score rows, tq queries times the G heads of one KV head, and
+// every page read feeds all of them; bf16 mma.sync with fp32 sums, K/V in
+// bf16 through a 2-stage cp.async ring. A 64-key (hd 256: 32-key) tile
+// lies inside one page (the wrapper enforces page % 64 == 0), so a tile
+// costs one table read and rows at stride KV·hd. Tiles wholly outside the
+// block's window are not loaded; only edge tiles are masked per element.
+// fp32 keeps common.cuh's scalar path (32 rows, tq = 32 / G). Split-K
+// over long prefixes for short chunks is later work.
 #include "common.cuh"
+#include "tc_attention.cuh"
 
 using namespace qtt;
 
@@ -114,6 +116,114 @@ paged_prefill_fwd_kernel(const T* __restrict__ q,
       [&](int r) { return l_out + row_index(r); }, acc);
 }
 
+// bf16: one block = tq chunk queries x the G heads of KV head blockIdx.z
+template <int HD>
+__global__ void __launch_bounds__(tc::THREADS)
+paged_prefill_fwd_tc_kernel(const tc::bf16* __restrict__ q,
+                            const tc::bf16* __restrict__ k_pages,
+                            const tc::bf16* __restrict__ v_pages,
+                            const int* __restrict__ tables,
+                            const int* __restrict__ kv_lens,
+                            float* __restrict__ acc_out,
+                            float* __restrict__ m_out,
+                            float* __restrict__ l_out, int n_t, int tq,
+                            int n_h, int n_kv, int page, int maxp,
+                            int window, float scale) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  constexpr int BN = tc::Cfg<HD>::BN;
+  const int b = blockIdx.x;
+  const int t0 = blockIdx.y * tq;
+  const int kvh = blockIdx.z;
+  const int G = n_h / n_kv;
+  const int nt = min(tq, n_t - t0);    // chunk queries of this block
+  const int kv_len = kv_lens[b];
+  const int* table = tables + (size_t)b * maxp;
+
+  // keys [lo, hi): within the table and the prefix; the block's first
+  // query sees the window's lowest key (kv_len + t0 - s < W)
+  const int hi = min(kv_len, maxp * page);
+  int lo = 0;
+  if (window >= 0) lo = max(0, kv_len + t0 - window + 1);
+  lo = (lo / BN) * BN;
+
+  // the keys each of this thread's rows sees: s < hi and kv_len + t - s <
+  // window, i.e. [kv_len + t - window + 1, hi); nothing for a row past T
+  bool live[2];
+  int vis_lo[2], vis_hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = tc::my_row(i) / G;
+    live[i] = t < nt;
+    vis_hi[i] = live[i] ? hi : 0;
+    vis_lo[i] = window >= 0 ? kv_len + t0 + t - window + 1 : 0;
+  }
+  const int t_last = t0 + nt - 1;
+  auto full = [&](int key0) {
+    return key0 + BN <= hi && (window < 0 || kv_len + t_last - key0 < window);
+  };
+  const size_t kv_row = (size_t)n_kv * HD;
+  auto tile_base = [&](int key0) {
+    const int p = key0 / page;        // the tile lies inside this page
+    return k_pages + ((size_t)table[p] * page + (key0 - p * page)) * kv_row +
+           (size_t)kvh * HD;
+  };
+  auto q_row = [&](int r) {
+    const int t = r / G;
+    return t < nt ? q + (((size_t)b * n_t + t0 + t) * n_h + kvh * G +
+                         (r - t * G)) * HD
+                  : (const tc::bf16*)nullptr;
+  };
+
+  tc::State<HD> st;
+  st.init();
+  tc::attend<HD>(tc_smem, q_row, k_pages, v_pages, kv_row, lo, hi,
+                 tile_base, vis_lo, vis_hi, full, scale, st);
+  st.finish();
+
+  // partials; a row that saw no key writes exactly (0, NEG_INF, 0)
+  const int quad = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!live[i]) continue;
+    const int r = tc::my_row(i);
+    const int t = r / G;
+    const size_t row = ((size_t)b * n_t + t0 + t) * n_h + kvh * G + (r - t * G);
+    const bool seen = st.l[i] > 0.f;
+    float* a = acc_out + row * HD + 2 * quad;
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d)
+      *reinterpret_cast<float2*>(a + 8 * d) =
+          seen ? make_float2(st.acc[d][2 * i], st.acc[d][2 * i + 1])
+               : make_float2(0.f, 0.f);
+    if (quad == 0) {
+      m_out[row] = seen ? st.m[i] : NEG_INF;
+      l_out[row] = seen ? st.l[i] : 0.f;
+    }
+  }
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k_pages, const void* v_pages,
+              const int* tables, const int* kv_lens, float* acc, float* m,
+              float* l, int n_rows, int n_t, int tq, int n_h, int n_kv,
+              int page, int maxp, int window, float scale,
+              cudaStream_t stream) {
+  // tq * G <= 64 and page % 64 == 0 are the wrapper's contract
+  if (tq < 1 || tq * (n_h / n_kv) > tc::ROWS || page % 64)
+    return (int)cudaErrorInvalidValue;
+  auto kern = paged_prefill_fwd_tc_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tc::Cfg<HD>::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_rows, (n_t + tq - 1) / tq, n_kv);
+  kern<<<grid, tc::THREADS, tc::Cfg<HD>::BYTES, stream>>>(
+      (const tc::bf16*)q, (const tc::bf16*)k_pages, (const tc::bf16*)v_pages,
+      tables, kv_lens, acc, m, l, n_t, tq, n_h, n_kv, page, maxp, window,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const int* tables, const int* kv_lens, float* acc, float* m,
@@ -137,9 +247,10 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q and pages); acc/m/l are float32.
-// window < 0 = no sliding window. The caller guarantees tq * (H / KV) <=
-// 32 and page % 64 == 0. Returns a cudaError_t; nonzero = not launched.
+// dtype: 0 = float32 (scalar path, tq * (H / KV) <= 32), 1 = bfloat16
+// (tensor cores, tq * (H / KV) <= 64), for q and pages; acc/m/l are
+// float32. window < 0 = no sliding window. The caller guarantees page %
+// 64 == 0. Returns a cudaError_t; nonzero = not launched.
 extern "C" int paged_prefill_fwd(const void* q, const void* k_pages,
                                  const void* v_pages, const void* tables,
                                  const void* kv_lens, void* acc, void* m,
@@ -162,12 +273,10 @@ extern "C" int paged_prefill_fwd(const void* q, const void* k_pages,
                               n_t, tq, n_h, n_kv, page, maxp, window, scale,
                               st);
   if (dtype == 1 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(q, k_pages, v_pages, tb, kl, a, mm, ll,
-                                      n_rows, n_t, tq, n_h, n_kv, page, maxp,
-                                      window, scale, st);
+    return launch_tc<128>(q, k_pages, v_pages, tb, kl, a, mm, ll, n_rows, n_t,
+                          tq, n_h, n_kv, page, maxp, window, scale, st);
   if (dtype == 1 && head_dim == 256)
-    return launch<__nv_bfloat16, 256>(q, k_pages, v_pages, tb, kl, a, mm, ll,
-                                      n_rows, n_t, tq, n_h, n_kv, page, maxp,
-                                      window, scale, st);
+    return launch_tc<256>(q, k_pages, v_pages, tb, kl, a, mm, ll, n_rows, n_t,
+                          tq, n_h, n_kv, page, maxp, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

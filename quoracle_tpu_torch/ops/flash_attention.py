@@ -2,7 +2,9 @@
 ``quoracle_tpu/ops/flash_attention.py``).
 
 ``flash_attend`` launches the hand-written CUDA kernel
-(``csrc/flash_fwd.cu``) for CUDA tensors and runs its plain PyTorch twin
+(``csrc/flash_fwd.cu``: bf16 on the tensor cores through
+``csrc/tc_attention.cuh``, fp32 on the scalar core of ``common.cuh``;
+the dtype chooses) for CUDA tensors and runs its plain PyTorch twin
 ``flash_attend_ref`` for CPU tensors; there is no other route. Semantics
 match the Pallas ``_flash_kernel``: validity by ``kv_len``, causality by
 absolute position, optional sliding window, GQA by head-index mapping,

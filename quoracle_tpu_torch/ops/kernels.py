@@ -47,7 +47,7 @@ def _build_dir() -> str:
 BUILD_DIR = _build_dir()
 SOURCES = ("flash_fwd.cu", "ragged_fwd.cu", "ragged_q8_fwd.cu",
            "paged_fwd.cu", "paged_prefill_fwd.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "tc_attention.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v"]

@@ -51,9 +51,23 @@ from quoracle_tpu_torch.ops import kernels
 from quoracle_tpu_torch.ops.attention import NEG_INF
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SCORE_ROWS = 32         # tq * (H / KV) rows per CUDA block
+MAX_SCORE_ROWS = 32         # tq * (H / KV) rows per CUDA block (fp32 and
+                            # the decode kernels: common.cuh's scalar core)
+TC_SCORE_ROWS = 64          # rows per block of the bf16 prefill kernels
+                            # (tc_attention.cuh: 4 warps x 16 mma rows)
 KEY_TILE = 64               # keys per shared-memory tile (page % 64 == 0)
 INT32_MIN = -(1 << 31)
+
+
+def prefill_block(n_heads: int, n_kv: int, dtype) -> tuple[int, int]:
+    """(tq, rows) of the prefill kernels' CUDA block: at most ``rows``
+    score rows, ``tq`` chunk queries times the G = n_heads / n_kv heads of
+    one KV head. bf16 runs on the tensor cores, 64 rows a block
+    (``TC_SCORE_ROWS``, so tq = 64 // G, the rule ``flash_fwd`` also
+    applies); fp32 keeps the scalar core's 32 (``MAX_SCORE_ROWS``). G past
+    the rows still gives tq = 1, which the kernel argument check refuses."""
+    rows = TC_SCORE_ROWS if dtype == torch.bfloat16 else MAX_SCORE_ROWS
+    return max(1, rows // (n_heads // n_kv)), rows
 
 
 # ---------------------------------------------------------------------------
@@ -216,11 +230,11 @@ def paged_attend_ref(
 
 
 def _check_kernel_args(name, q, k_pages, v_pages, score_rows: int, ints,
-                       scales=None):
+                       scales=None, max_rows: int = MAX_SCORE_ROWS):
     """The CUDA kernels' contract, shared by every wrapper: float32 or
     bfloat16 q and pages of q's dtype (int8 pages with ``scales``, the
     (k_scale, v_scale) pools: contiguous float32 [n_pages, KV, page]), hd
-    128 or 256, at most MAX_SCORE_ROWS score rows per block, page %
+    128 or 256, at most ``max_rows`` score rows per block, page %
     KEY_TILE == 0, contiguous q and pools, the int tensors (already int32
     and contiguous) on q's device. Each wrapper checks its own index
     shapes before calling this."""
@@ -246,9 +260,9 @@ def _check_kernel_args(name, q, k_pages, v_pages, score_rows: int, ints,
     if hd not in (128, 256):
         raise ValueError(f"{name}: CUDA kernel is built for head_dim 128 "
                          f"and 256, got {hd}")
-    if score_rows > MAX_SCORE_ROWS:
+    if score_rows > max_rows:
         raise ValueError(f"{name}: {score_rows} score rows per block exceed "
-                         f"the kernel's {MAX_SCORE_ROWS}")
+                         f"the kernel's {max_rows}")
     if page % KEY_TILE:
         raise ValueError(f"{name}: page size {page} is not a multiple of "
                          f"the kernel's {KEY_TILE}-key tile")
@@ -379,8 +393,9 @@ def paged_prefill_attend(
     """Paged prefill partials: the CUDA kernel
     (``csrc/paged_prefill_fwd.cu``) for CUDA tensors (it launches or
     raises), the plain twin for CPU tensors. Grid (B, ceil(T/tq), KV)
-    with tq * H/KV <= 32 score rows per block; every one of the chunk's T
-    query rows is computed."""
+    with tq * H/KV score rows per block (``prefill_block``: 64 on the
+    tensor cores for bf16, 32 for fp32); every one of the chunk's T query
+    rows is computed."""
     if q.device.type == "cpu":
         return paged_prefill_attend_ref(q, k_pages, v_pages, tables,
                                         kv_lens, sliding_window)
@@ -395,10 +410,9 @@ def paged_prefill_attend(
         raise ValueError(f"paged_prefill_attend: tables "
                          f"{tuple(tables.shape)} and kv_lens "
                          f"{tuple(kv_lens.shape)} must have B = {B} rows")
-    # chunk queries per block: as many as fit MAX_SCORE_ROWS score rows
-    tq = max(1, MAX_SCORE_ROWS // (H // n_kv))
+    tq, rows = prefill_block(H, n_kv, q.dtype)
     _check_kernel_args("paged_prefill_attend", q, k_pages, v_pages,
-                       tq * (H // n_kv), (tables, kv_lens))
+                       tq * (H // n_kv), (tables, kv_lens), max_rows=rows)
     acc = torch.empty((B, T, H, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((B, T, H), dtype=torch.float32, device=q.device)
     l = torch.empty((B, T, H), dtype=torch.float32, device=q.device)
