@@ -16,7 +16,10 @@ exits non-zero and never prints its last line):
              llama-3-8b attention shapes (H=32, KV=8, hd=128, page 128),
              in fp32 and bf16, with each case's tolerance; flash, the
              paged prefill and the int8 ragged kernels also at hd 256 and
-             G = 1, 4, 8
+             G = 1, 4, 8; the two split-K kernels (paged_fwd,
+             ragged_q8_fwd) also on 4000-key rows, share-boundary
+             lengths and windows, at S forced to 1, 7 and its maximum and
+             at the wrapper's own S, each launched twice (bit-identical)
   serve      TorchBackend(["xla:llama-3-8b"]) at full width and depth,
              random bf16 weights from a seeded generator: a consensus
              round (three sessioned JSON-constrained rows at temperatures
@@ -61,10 +64,12 @@ exits non-zero and never prints its last line):
              of kernel intervals), idle share, launches, and the kernels
              that take the most device time
   sweep      each kernel's time and bound over the lengths it serves:
-             ragged decode ticks (bf16 and int8 pages side by side) over
-             resident lengths, flash over T, the paged prefill over prefix
-             lengths at chunks of 16 and 128 tokens (flash and paged
-             prefill beside scaled_dot_product_attention's time)
+             ragged decode ticks (bf16 and int8 pages side by side) and
+             the paged decode over resident lengths (with S and the grid
+             of each split-K launch, and S by hand at 823 keys), flash
+             over T, the paged prefill over prefix lengths at chunks of
+             16 and 128 tokens (each beside scaled_dot_product_attention's
+             time)
   reference  a 2-layer cut of llama-3-8b in fp32: the same rounds through
              the GPU engine (kernels) and through the same weights on the
              CPU (plain twins) must give identical greedy texts and cached
@@ -73,7 +78,9 @@ exits non-zero and never prints its last line):
 
 then the card's nvidia-smi line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. ``--only kernels`` stops after the
-kernels phase (a quick check of a kernel edit; no last line). Every
+kernels phase (a quick check of a kernel edit; no last line); ``--only
+sweep`` runs the sweep phase alone after the build (kernel times at the
+main path's lengths without the serving phases; no last line). Every
 comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
 False, and cudnn's too). The script imports torch and the port, never
 JAX or the JAX package.
@@ -449,7 +456,109 @@ def phase_kernels(torch, F, P) -> list:
                 cases.append(row)
         cases += paged_cases(torch, P, dt, dname, g, perm, kp, vp, page)
         cases += ragged_q8_cases(torch, P, dt, dname, g, perm, ticks, page)
+        cases += split_cases(torch, P, dt, dname, g)
     torch.cuda.synchronize()
+    return cases
+
+
+def split_grid(torch, P, n_blocks, n_kv, maxp, page, splits=None) -> dict:
+    """S and the grid of a split-K launch (``splits`` forced, or the
+    wrapper's own choice, ``split_count``)."""
+    if splits is None:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = P.split_count(n_blocks, n_kv, maxp, page, sms)
+    return {"splits": splits, "grid": [n_blocks, n_kv, splits]}
+
+
+def split_cases(torch, P, dt, dname, g) -> list:
+    """The split-K kernels (paged_fwd, ragged_q8_fwd) on cases the split
+    can get wrong: rows of 4000+ keys over a 40-page table, kv_len on a
+    64-key tile (share) boundary and one past it, a one-key row, a window
+    that leaves most shares of the longest row empty, S forced to 1, 7 and
+    its maximum and the wrapper's own S; hd 128 and 256, G = 4, 1 and 8.
+    paged_fwd: an empty row exactly (0, NEG_INF, 0) after the combine;
+    ragged_q8_fwd: pools quantized with the engine's rule (every vector's
+    max on +-127, all-zero vectors at scale 1.0), an inert block and rows
+    t >= nq exactly 0. Every case launches twice: the outputs must be bit
+    for bit the same."""
+    from quoracle_tpu_torch.models.quant import kv_quant
+    dev = "cuda"
+    page, maxp, n_pages, B = 128, 40, 97, 4
+    perm = torch.randperm(n_pages - 1,
+                          generator=torch.Generator().manual_seed(3)) + 1
+    tables = torch.stack([perm[[(r * maxp + j) % len(perm)
+                                for j in range(maxp)]]
+                          for r in range(B)]).int().to(dev)
+    kv_lens = torch.tensor([4100, 1024, 1025, 0], dtype=torch.int32,
+                           device=dev)
+    kv_off = torch.tensor([0, 5, 128, 3], dtype=torch.int32, device=dev)
+    q_pos = kv_off + kv_lens + torch.tensor([0, 3, 7, 31], dtype=torch.int32,
+                                            device=dev)
+    ticks = {8: [(4000, 37), (1016, 8), (0, 0), (1017, 8), (0, 1)],
+             1: [(4099, 1), (1023, 1), (0, 0), (1024, 1), (0, 1)]}
+    s_max = P.max_splits(maxp, page)
+    cases = []
+
+    def twice(fn, what, check_fn):
+        got, again = fn(), fn()
+        row = check_fn(got, what)
+        pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+        row["repeat_identical"] = all(torch.equal(a, b) for a, b in pairs)
+        if not row["repeat_identical"]:
+            raise AssertionError(f"two launches differ: {row}")
+        cases.append(row)
+        return got
+
+    for hd in (128, 256):
+        pools = [torch.randn(n_pages, page, 8, hd, generator=g, device=dev)
+                 for _ in range(2)]
+        for x in pools:                          # in row 0's first page
+            x[int(perm[0]), :3] = 0.0
+        for H, KV, tqs in ((32, 8, (8, 1)), (8, 8, (8, 1)), (32, 4, (4, 1))):
+            kf, vf = (x[:, :, :KV].to(dt).contiguous() for x in pools)
+            q = torch.randn(B, H, hd, generator=g, device=dev).to(dt)
+            for window in (None, 200):
+                a = (q, kf, vf, tables, kv_lens, kv_off, q_pos, window)
+                ref = P.paged_attend_ref(*a)
+                for splits in (1, 7, None, s_max):
+                    twice(lambda: P.paged_attend(*a, splits=splits),
+                          {"dtype": dname, "hd": hd, "H": H, "KV": KV,
+                           "window": window,
+                           **split_grid(torch, P, B, KV, maxp, page, splits)},
+                          lambda got, what: check_partials(
+                              torch, "paged_fwd", got, ref, what))
+            quant = []
+            for x in pools:
+                q8, sc = kv_quant(x[:, :, :KV].contiguous())
+                quant += [q8, sc.transpose(1, 2).contiguous()]
+            kq, ks, vq, vs = quant
+            for tq in tqs:
+                bt, bm = ragged_tick(torch, ticks[8 if tq > 1 else 1], tq,
+                                     maxp, perm, dev)
+                nb = bm.shape[0]
+                qq = torch.randn(nb * tq, H, hd, generator=g,
+                                 device=dev).to(dt)
+                for window in (None, 200):
+                    a = (qq, kq, vq, bt, bm, tq, window)
+                    sc = dict(k_scale=ks, v_scale=vs)
+                    ref = P.ragged_attend_ref(*a, **sc)
+                    for splits in (1, 7, None, s_max):
+                        got = twice(
+                            lambda: P.ragged_attend(*a, **sc, splits=splits),
+                            {"dtype": dname, "hd": hd, "H": H, "KV": KV,
+                             "tq": tq, "window": window,
+                             **split_grid(torch, P, nb, KV, maxp, page,
+                                          splits)},
+                            lambda got, what: check(
+                                torch, "ragged_q8_fwd", got, ref, what))
+                        zero = all(
+                            bool(torch.all(got[i * tq + int(n):(i + 1) * tq]
+                                           == 0))
+                            for i, n in enumerate(bm[:, 2].tolist()))
+                        cases[-1]["inert_zero"] = zero
+                        if not zero:
+                            raise AssertionError(
+                                f"inert slots not zero: {cases[-1]}")
     return cases
 
 
@@ -1076,6 +1185,8 @@ def paged_entries(torch, P, kernels, kept, launches) -> list:
         "shape": {"q": list(q.shape), "pages": list(kp.shape),
                   "tables": list(tables.shape),
                   "kv_lens": kv_lens.tolist(), "dtype": dtype_name(q),
+                  **split_grid(torch, P, q.shape[0], kp.shape[2],
+                               tables.shape[1], kp.shape[1]),
                   "bytes": nbytes, "flops": flops}})
 
     a, kw = kept["paged_prefill_attend"]
@@ -1121,8 +1232,9 @@ def ragged_entry(torch, P, kernel, kept: dict, launches: int) -> dict:
         got = P.ragged_attend(*a, **kw)
         err = check(torch, kernel.name, got, P.ragged_attend_ref(*a, **kw),
                     {"dtype": dtype_name(q), "tq": tq})["max_abs_err"]
+        scaled = kw.get("k_scale") is not None
         nbytes, flops = ragged_work(torch, q, kp, bt, bm, tq, window,
-                                    scales=bool(kw))
+                                    scales=scaled)
         b_ms, b_by = bound(nbytes, flops, dtype_name(q))
         ticks[key] = {
             "max_abs_err": err,
@@ -1136,6 +1248,10 @@ def ragged_entry(torch, P, kernel, kept: dict, launches: int) -> dict:
                       "live_blocks": int((bm[:, 2] > 0).sum()),
                       "dtype": dtype_name(q), "bytes": nbytes,
                       "flops": flops}}
+        if scaled:                  # the int8 kernel runs split-K
+            ticks[key]["shape"].update(split_grid(
+                torch, P, bt.shape[0], kp.shape[2], bt.shape[1],
+                kp.shape[1]))
     return {"name": kernel.name, "route": "cuda", "source": kernel.source,
             "replaces": kernel.replaces, "launches": launches,
             **ticks["decode"], "chunk": ticks["chunk"]}
@@ -1237,9 +1353,12 @@ def phase_sweep(torch, F, P) -> dict:
     llama-3-8b attention geometry: ragged decode ticks (tq=1, 3 live rows
     in 8 slots, the consensus round's shape) over resident lengths, over
     bf16 pages and over the same pages quantized to int8 (the int8
-    kernel's time and bound beside ragged_fwd's), flash prefill chunks
-    (B=1, 64 keys more than queries) over T, and paged prefill chunks of
-    16 and 128 tokens over prefix lengths, each beside its bound and
+    kernel's time and bound beside ragged_fwd's) and the direct tier's
+    paged decode over the same lengths (3 live rows in 4 slots), with each
+    split-K launch's S and grid and, at 823 resident keys, both split-K
+    kernels at S forced to 1-32; flash prefill chunks (B=1, 64 keys more
+    than queries) over T, and paged prefill chunks of 16 and 128 tokens
+    over prefix lengths, each beside its bound and
     scaled_dot_product_attention's time on the same work."""
     from quoracle_tpu_torch.models.quant import kv_quant
     dev = "cuda"
@@ -1271,10 +1390,61 @@ def phase_sweep(torch, F, P) -> dict:
                      "ms": cuda_ms(torch, lambda: P.ragged_attend(
                          q, kp, vp, bt, bm, 1, None)),
                      "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": cuda_ms(torch, ragged_library(
+                         torch, q, kp, vp, bt, bm, 1, None)),
                      "ragged_q8_fwd": {
                          "ms": cuda_ms(torch, lambda: P.ragged_attend(
                              q, kq, vq, bt, bm, 1, None, **q8)),
-                         "bound_ms": q8_ms, "bound_by": q8_by}})
+                         "bound_ms": q8_ms, "bound_by": q8_by,
+                         "library_ms": cuda_ms(torch, ragged_library(
+                             torch, q, kq, vq, bt, bm, 1, None, **q8)),
+                         **split_grid(torch, P, slots, KV, maxp, page)}})
+        # the direct tier's decode over the same lengths: 3 live rows in
+        # 4 slots, each query 16 tokens past its pool (a tail exists)
+        tables = bt[:4].contiguous()
+        lens = torch.tensor([resident] * live + [0], dtype=torch.int32,
+                            device=dev)
+        off = torch.zeros_like(lens)
+        qpos = lens + 16
+        qd = q[:4].contiguous()
+        ints = (lens, off, qpos)
+        pb_ms, pb_by = bound(*paged_work(torch, qd, kp, tables, *ints, None),
+                             "bfloat16")
+        rows.append({"kernel": "paged_fwd", "live_rows": live, "slots": 4,
+                     "resident": resident,
+                     "ms": cuda_ms(torch, lambda: P.paged_attend(
+                         qd, kp, vp, tables, *ints)),
+                     "bound_ms": pb_ms, "bound_by": pb_by,
+                     "library_ms": cuda_ms(torch, paged_library(
+                         torch, "paged_fwd", qd[:, None], kp, vp, tables,
+                         ints, None)),
+                     **split_grid(torch, P, 4, KV, maxp, page)})
+        if resident == 823:
+            # the share count by hand at the main path's length, for the
+            # decode ticks and a chunk tick of 15 tokens a row (6 live
+            # blocks of tq = 8 in 8): what split_count's target trades
+            cbm = torch.zeros_like(bm)
+            for i in range(2 * live):
+                cbm[i] = torch.tensor([resident, resident - 15 + 8 * (i % 2),
+                                       8 - (i % 2)])
+            cbt = bt[[i // 2 if i < 2 * live else i for i in range(slots)]]
+            qc = torch.randn(slots * 8, H, hd, generator=g,
+                             device=dev).bfloat16()
+            for S in (1, 2, 4, 8, 12, 16, 32):
+                rows.append({
+                    "kernel": "splits", "resident": resident,
+                    "paged_fwd_ms": cuda_ms(torch, lambda: P.paged_attend(
+                        qd, kp, vp, tables, *ints, splits=S)),
+                    "ragged_q8_fwd_ms": cuda_ms(
+                        torch, lambda: P.ragged_attend(
+                            q, kq, vq, bt, bm, 1, None, **q8, splits=S)),
+                    "ragged_q8_fwd_chunk_ms": cuda_ms(
+                        torch, lambda: P.ragged_attend(
+                            qc, kq, vq, cbt, cbm, 8, None, **q8,
+                            splits=S)),
+                    "paged_fwd": split_grid(torch, P, 4, KV, maxp, page, S),
+                    "ragged_q8_fwd": split_grid(torch, P, slots, KV, maxp,
+                                                page, S)})
     for T in (256, 512, 1024, 2048):
         q = torch.randn(1, T, H, hd, generator=g, device=dev).bfloat16()
         k = torch.randn(1, T + 64, KV, hd, generator=g,
@@ -1421,10 +1591,10 @@ def ptxas_entries(log: str) -> list:
 
 def main(argv) -> int:
     only = None
-    if argv[1:2] == ["--only"] and argv[2:3] == ["kernels"]:
-        only = "kernels"        # env, build, kernels phases, no last line
+    if argv[1:2] == ["--only"] and argv[2:3] in (["kernels"], ["sweep"]):
+        only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
-        print(f"usage: {argv[0]} [--only kernels]", file=sys.stderr)
+        print(f"usage: {argv[0]} [--only kernels|sweep]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -1459,6 +1629,9 @@ def main(argv) -> int:
           "tensor_core": [e for e in ptx if "_tc_kernel" in e["kernel"]],
           "ptxas": [e for e in ptx if "_tc_kernel" not in e["kernel"]]})
 
+    if only == "sweep":
+        emit(phase_sweep(torch, F, P))
+        return 0
     cases = phase_kernels(torch, F, P)
     emit({"phase": "kernels",
           "kernels": [{"name": k.name, "source": k.source,

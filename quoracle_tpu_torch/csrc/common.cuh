@@ -1,7 +1,7 @@
-// Scalar fp32 attention core of the port's CUDA kernels: ragged_fwd.cu,
-// ragged_q8_fwd.cu and paged_fwd.cu in both dtypes, flash_fwd.cu and
-// paged_prefill_fwd.cu in fp32 (their bf16 paths run on the tensor cores,
-// tc_attention.cuh).
+// Scalar fp32 attention core of the port's CUDA kernels: ragged_fwd.cu
+// in both dtypes, flash_fwd.cu and paged_prefill_fwd.cu in fp32 (their
+// bf16 paths run on the tensor cores, tc_attention.cuh; paged_fwd.cu and
+// ragged_q8_fwd.cu run on the split-K core, split_kv.cuh).
 //
 // One block owns up to ROWS query rows that attend to the same key head.
 // Keys stream through shared memory in tiles of BK rows; each tile runs

@@ -47,7 +47,7 @@ def _build_dir() -> str:
 BUILD_DIR = _build_dir()
 SOURCES = ("flash_fwd.cu", "ragged_fwd.cu", "ragged_q8_fwd.cu",
            "paged_fwd.cu", "paged_prefill_fwd.cu")
-HEADERS = ("common.cuh", "tc_attention.cuh")
+HEADERS = ("common.cuh", "tc_attention.cuh", "split_kv.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v"]
@@ -90,11 +90,11 @@ RAGGED = Kernel(
 RAGGED_Q8 = Kernel(
     "ragged_q8_fwd", "quoracle_tpu_torch/csrc/ragged_q8_fwd.cu",
     "quoracle_tpu/ops/paged_attention.py:739",
-    [_P] * 8 + [_I] * 8 + [_F, _I, _P])
+    [_P] * 9 + [_I] * 9 + [_F, _I, _P])
 PAGED = Kernel(
     "paged_fwd", "quoracle_tpu_torch/csrc/paged_fwd.cu",
     "quoracle_tpu/ops/paged_attention.py:173",
-    [_P] * 8 + [_I] * 6 + [_F, _I, _P])
+    [_P] * 9 + [_I] * 7 + [_F, _I, _P])
 PAGED_PREFILL = Kernel(
     "paged_prefill_fwd", "quoracle_tpu_torch/csrc/paged_prefill_fwd.cu",
     "quoracle_tpu/ops/paged_attention.py:399",

@@ -57,6 +57,7 @@ TC_SCORE_ROWS = 64          # rows per block of the bf16 prefill kernels
                             # (tc_attention.cuh: 4 warps x 16 mma rows)
 KEY_TILE = 64               # keys per shared-memory tile (page % 64 == 0)
 INT32_MIN = -(1 << 31)
+SHARE_BLOCKS_PER_SM = 4     # split-K target: about one wave of decode blocks
 
 
 def prefill_block(n_heads: int, n_kv: int, dtype) -> tuple[int, int]:
@@ -68,6 +69,59 @@ def prefill_block(n_heads: int, n_kv: int, dtype) -> tuple[int, int]:
     the rows still gives tq = 1, which the kernel argument check refuses."""
     rows = TC_SCORE_ROWS if dtype == torch.bfloat16 else MAX_SCORE_ROWS
     return max(1, rows // (n_heads // n_kv)), rows
+
+
+def split_count(n_blocks: int, n_kv: int, maxp: int, page: int,
+                n_sms: int) -> int:
+    """Share count S of the split-K decode kernels (``csrc/split_kv.cuh``:
+    ``paged_fwd``, ``ragged_q8_fwd``), from the grid alone: enough shares
+    that the (n_blocks, n_kv, S) grid puts ``SHARE_BLOCKS_PER_SM`` blocks
+    on each of the card's ``n_sms`` SMs, at most one share per 64-key
+    tile of a full page table (``ceil(maxp * page / KEY_TILE)``), at
+    least 1. The rows' lengths live on the card and are never read here:
+    a host sync per layer would cost more than the kernel."""
+    want = -(-SHARE_BLOCKS_PER_SM * n_sms // max(1, n_blocks * n_kv))
+    return max(1, min(max_splits(maxp, page), want))
+
+
+def max_splits(maxp: int, page: int) -> int:
+    """The most shares a split-K launch takes: one per 64-key tile of a
+    full page table."""
+    return max(1, -(-maxp * page // KEY_TILE))
+
+
+_SMS: dict = {}
+
+
+def _n_sms(device: torch.device) -> int:
+    """SM count of a CUDA device (read once per device)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _splits_and_workspace(name: str, splits: Optional[int], n_blocks: int,
+                          n_kv: int, maxp: int, page: int, n_out: int,
+                          hd: int, device) -> tuple:
+    """(S, workspace, its pointer) of a split-K launch: ``splits`` if
+    given (1 .. ``max_splits``), else ``split_count``; an fp32 workspace
+    of n_out * S * (hd + 2) floats when S > 1 (every share writes its
+    slot, so ``torch.empty``), else None and a null pointer. The caller
+    holds the workspace through the launch."""
+    cap = max_splits(maxp, page)
+    if splits is None:
+        splits = split_count(n_blocks, n_kv, maxp, page, _n_sms(device))
+    elif not 1 <= int(splits) <= cap:
+        raise ValueError(f"{name}: splits={splits} outside 1..{cap} (one "
+                         f"share per {KEY_TILE}-key tile at most)")
+    splits = int(splits)
+    if splits == 1:
+        return 1, None, None
+    ws = torch.empty(n_out * splits * (hd + 2), dtype=torch.float32,
+                     device=device)
+    return splits, ws, ws.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -311,13 +365,15 @@ def paged_attend(
     q_pos: torch.Tensor,     # [B] int32
     sliding_window: Optional[int] = None,
     meta: Optional[torch.Tensor] = None,
+    splits: Optional[int] = None,
 ) -> tuple:
     """Paged decode partials: the CUDA kernel (``csrc/paged_fwd.cu``) for
     CUDA tensors (it launches or raises), the plain twin for CPU tensors.
-    Grid (B, KV): a block serves the H/KV query heads of one KV head and
-    streams only the row's visible pages. ``meta`` is
-    ``paged_decode_meta`` of the same index arguments, when the caller
-    already built it for this step."""
+    Grid (B, KV, S): a block serves the H/KV query heads of one KV head
+    over one of S shares of the row's visible keys, and a second launch
+    merges the shares (``split_count`` picks S; ``splits`` forces it, for
+    tests). ``meta`` is ``paged_decode_meta`` of the same index
+    arguments, when the caller already built it for this step."""
     if q.device.type == "cpu":
         return paged_attend_ref(q, k_pages, v_pages, tables, kv_lens,
                                 kv_off, q_pos, sliding_window)
@@ -339,11 +395,14 @@ def paged_attend(
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
     if B == 0:
         return acc, m, l
+    maxp = tables.shape[1]
+    splits, ws, ws_ptr = _splits_and_workspace(
+        "paged_attend", splits, B, n_kv, maxp, page, B * H, hd, q.device)
     kernels.PAGED.launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), meta.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, H, n_kv, hd, page, tables.shape[1], hd ** -0.5,
-        _DTYPE_CODES[q.dtype], kernels.stream_handle(q.device))
+        l.data_ptr(), ws_ptr, B, H, n_kv, hd, page, maxp, splits,
+        hd ** -0.5, _DTYPE_CODES[q.dtype], kernels.stream_handle(q.device))
     return acc, m, l
 
 
@@ -571,12 +630,16 @@ def ragged_attend(
     sliding_window: Optional[int] = None,
     k_scale: Optional[torch.Tensor] = None,   # [n_pages, KV, page] fp32
     v_scale: Optional[torch.Tensor] = None,   # (int8 pools)
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Unified ragged attention: the CUDA kernel for CUDA tensors (it
     launches or raises), the plain twin for CPU tensors. Grid (NB, KV):
     device work follows the tick's real blocks, never batch x max. With
     ``k_scale``/``v_scale`` the pages are int8 and the int8 kernel
-    (``csrc/ragged_q8_fwd.cu``) runs."""
+    (``csrc/ragged_q8_fwd.cu``) runs on grid (NB, KV, S), S shares of each
+    block's keys merged by a second launch (``split_count`` picks S;
+    ``splits`` forces it, for tests; the float kernel takes no
+    ``splits``)."""
     if q.device.type == "cpu":
         return ragged_attend_ref(q, k_pages, v_pages, block_tables,
                                  block_meta, tq, sliding_window,
@@ -585,6 +648,9 @@ def ragged_attend(
         raise ValueError(f"ragged_attend: no kernel for device {q.device}")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("ragged_attend: pass both k_scale and v_scale")
+    if splits is not None and k_scale is None:
+        raise ValueError("ragged_attend: splits applies to the int8 "
+                         "kernel (k_scale/v_scale) only")
     block_tables, block_meta = _int32(block_tables, block_meta)
     tp, n_heads, hd = q.shape
     n_pages, page, n_kv, _ = k_pages.shape
@@ -602,15 +668,21 @@ def ragged_attend(
         return out
     window = -1 if sliding_window is None else int(sliding_window)
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
+    stream = kernels.stream_handle(q.device)
     if scales is None:
-        kernel = kernels.RAGGED
-    else:
-        kernel = kernels.RAGGED_Q8
-        ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
-    kernel.launch(
-        *ptrs, block_tables.data_ptr(), block_meta.data_ptr(),
-        out.data_ptr(), nb, tq, n_heads, n_kv, hd, page, maxp, window,
-        hd ** -0.5, _DTYPE_CODES[q.dtype], kernels.stream_handle(q.device))
+        kernels.RAGGED.launch(
+            *ptrs, block_tables.data_ptr(), block_meta.data_ptr(),
+            out.data_ptr(), nb, tq, n_heads, n_kv, hd, page, maxp, window,
+            hd ** -0.5, _DTYPE_CODES[q.dtype], stream)
+        return out
+    splits, ws, ws_ptr = _splits_and_workspace(
+        "ragged_attend", splits, nb, n_kv, maxp, page, tp * n_heads, hd,
+        q.device)
+    kernels.RAGGED_Q8.launch(
+        *ptrs, k_scale.data_ptr(), v_scale.data_ptr(),
+        block_tables.data_ptr(), block_meta.data_ptr(), out.data_ptr(),
+        ws_ptr, nb, tq, n_heads, n_kv, hd, page, maxp, window, splits,
+        hd ** -0.5, _DTYPE_CODES[q.dtype], stream)
     return out
 
 
