@@ -4,8 +4,9 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
 
-Phases, each printing one JSON line (any failure raises, so the script
-exits non-zero and never prints its last line):
+Phases, each printing one JSON line that ends with the seconds since the
+start (``at_s``; any failure raises, so the script exits non-zero and
+never prints its last line):
 
   env        torch and CUDA versions, the card's name and power limit
   build      nvcc builds the hand-written kernels from
@@ -16,10 +17,11 @@ exits non-zero and never prints its last line):
              llama-3-8b attention shapes (H=32, KV=8, hd=128, page 128),
              in fp32 and bf16, with each case's tolerance; flash, the
              paged prefill and the int8 ragged kernels also at hd 256 and
-             G = 1, 4, 8; the two split-K kernels (paged_fwd,
-             ragged_q8_fwd) also on 4000-key rows, share-boundary
-             lengths and windows, at S forced to 1, 7 and its maximum and
-             at the wrapper's own S, each launched twice (bit-identical)
+             G = 1, 4, 8; the three split-K kernels (paged_fwd,
+             ragged_fwd, ragged_q8_fwd) also on 4000-key rows,
+             share-boundary lengths and windows, hd 128 and 256, G = 1,
+             4, 8, at S forced to 1, 7 and its maximum and at the
+             wrapper's own S, each launched twice (bit-identical)
   serve      TorchBackend(["xla:llama-3-8b"]) at full width and depth,
              random bf16 weights from a seeded generator: a consensus
              round (three sessioned JSON-constrained rows at temperatures
@@ -66,10 +68,10 @@ exits non-zero and never prints its last line):
   sweep      each kernel's time and bound over the lengths it serves:
              ragged decode ticks (bf16 and int8 pages side by side) and
              the paged decode over resident lengths (with S and the grid
-             of each split-K launch, and S by hand at 823 keys), flash
-             over T, the paged prefill over prefix lengths at chunks of
-             16 and 128 tokens (each beside scaled_dot_product_attention's
-             time)
+             of each split-K launch, and S by hand at 823 keys for all
+             three split-K kernels), flash over T, the paged prefill over
+             prefix lengths at chunks of 16 and 128 tokens (each beside
+             scaled_dot_product_attention's time)
   reference  a 2-layer cut of llama-3-8b in fp32: the same rounds through
              the GPU engine (kernels) and through the same weights on the
              CPU (plain twins) must give identical greedy texts and cached
@@ -87,6 +89,7 @@ JAX or the JAX package.
 """
 
 import dataclasses
+import itertools
 import json
 import os
 import shutil
@@ -95,6 +98,7 @@ import sys
 import tempfile
 import time
 
+START = time.monotonic()
 REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL = "xla:llama-3-8b"
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA data sheet (SXM)
@@ -149,6 +153,10 @@ TEMPS = [1.0, 0.7, 0.0]     # the consensus round's member temperatures
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when the phase ended
+    (``at_s``, seconds since the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.monotonic() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -471,16 +479,17 @@ def split_grid(torch, P, n_blocks, n_kv, maxp, page, splits=None) -> dict:
 
 
 def split_cases(torch, P, dt, dname, g) -> list:
-    """The split-K kernels (paged_fwd, ragged_q8_fwd) on cases the split
-    can get wrong: rows of 4000+ keys over a 40-page table, kv_len on a
-    64-key tile (share) boundary and one past it, a one-key row, a window
-    that leaves most shares of the longest row empty, S forced to 1, 7 and
-    its maximum and the wrapper's own S; hd 128 and 256, G = 4, 1 and 8.
-    paged_fwd: an empty row exactly (0, NEG_INF, 0) after the combine;
-    ragged_q8_fwd: pools quantized with the engine's rule (every vector's
-    max on +-127, all-zero vectors at scale 1.0), an inert block and rows
-    t >= nq exactly 0. Every case launches twice: the outputs must be bit
-    for bit the same."""
+    """The split-K kernels (paged_fwd, ragged_fwd, ragged_q8_fwd) on cases
+    the split can get wrong: rows of 4000+ keys over a 40-page table,
+    kv_len on a 64-key tile (share) boundary and one past it, a one-key
+    row, a window that leaves most shares of the longest row empty, S
+    forced to 1, 7 and its maximum and the wrapper's own S; hd 128 and
+    256, G = 4, 1 and 8. paged_fwd: an empty row exactly (0, NEG_INF, 0)
+    after the combine; ragged_fwd over the float pools, ragged_q8_fwd over
+    the same pools quantized with the engine's rule (every vector's max on
+    +-127, all-zero vectors at scale 1.0): an inert block and rows t >= nq
+    exactly 0. Every case launches twice: the outputs must be bit for bit
+    the same."""
     from quoracle_tpu_torch.models.quant import kv_quant
     dev = "cuda"
     page, maxp, n_pages, B = 128, 40, 97, 4
@@ -532,15 +541,16 @@ def split_cases(torch, P, dt, dname, g) -> list:
                 q8, sc = kv_quant(x[:, :, :KV].contiguous())
                 quant += [q8, sc.transpose(1, 2).contiguous()]
             kq, ks, vq, vs = quant
-            for tq in tqs:
+            ragged = (("ragged_fwd", kf, vf, {}),
+                      ("ragged_q8_fwd", kq, vq, dict(k_scale=ks, v_scale=vs)))
+            for (name, kp, vp, sc), tq in itertools.product(ragged, tqs):
                 bt, bm = ragged_tick(torch, ticks[8 if tq > 1 else 1], tq,
                                      maxp, perm, dev)
                 nb = bm.shape[0]
                 qq = torch.randn(nb * tq, H, hd, generator=g,
                                  device=dev).to(dt)
                 for window in (None, 200):
-                    a = (qq, kq, vq, bt, bm, tq, window)
-                    sc = dict(k_scale=ks, v_scale=vs)
+                    a = (qq, kp, vp, bt, bm, tq, window)
                     ref = P.ragged_attend_ref(*a, **sc)
                     for splits in (1, 7, None, s_max):
                         got = twice(
@@ -550,7 +560,7 @@ def split_cases(torch, P, dt, dname, g) -> list:
                              **split_grid(torch, P, nb, KV, maxp, page,
                                           splits)},
                             lambda got, what: check(
-                                torch, "ragged_q8_fwd", got, ref, what))
+                                torch, name, got, ref, what))
                         zero = all(
                             bool(torch.all(got[i * tq + int(n):(i + 1) * tq]
                                            == 0))
@@ -1247,11 +1257,9 @@ def ragged_entry(torch, P, kernel, kept: dict, launches: int) -> dict:
                       "tables": list(bt.shape), "tq": tq,
                       "live_blocks": int((bm[:, 2] > 0).sum()),
                       "dtype": dtype_name(q), "bytes": nbytes,
-                      "flops": flops}}
-        if scaled:                  # the int8 kernel runs split-K
-            ticks[key]["shape"].update(split_grid(
-                torch, P, bt.shape[0], kp.shape[2], bt.shape[1],
-                kp.shape[1]))
+                      "flops": flops,
+                      **split_grid(torch, P, bt.shape[0], kp.shape[2],
+                                   bt.shape[1], kp.shape[1])}}
     return {"name": kernel.name, "route": "cuda", "source": kernel.source,
             "replaces": kernel.replaces, "launches": launches,
             **ticks["decode"], "chunk": ticks["chunk"]}
@@ -1355,10 +1363,10 @@ def phase_sweep(torch, F, P) -> dict:
     bf16 pages and over the same pages quantized to int8 (the int8
     kernel's time and bound beside ragged_fwd's) and the direct tier's
     paged decode over the same lengths (3 live rows in 4 slots), with each
-    split-K launch's S and grid and, at 823 resident keys, both split-K
-    kernels at S forced to 1-32; flash prefill chunks (B=1, 64 keys more
-    than queries) over T, and paged prefill chunks of 16 and 128 tokens
-    over prefix lengths, each beside its bound and
+    split-K launch's S and grid and, at 823 resident keys, the three
+    split-K kernels at S forced to 1-32; flash prefill chunks (B=1, 64
+    keys more than queries) over T, and paged prefill chunks of 16 and 128
+    tokens over prefix lengths, each beside its bound and
     scaled_dot_product_attention's time on the same work."""
     from quoracle_tpu_torch.models.quant import kv_quant
     dev = "cuda"
@@ -1392,6 +1400,7 @@ def phase_sweep(torch, F, P) -> dict:
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": cuda_ms(torch, ragged_library(
                          torch, q, kp, vp, bt, bm, 1, None)),
+                     **split_grid(torch, P, slots, KV, maxp, page),
                      "ragged_q8_fwd": {
                          "ms": cuda_ms(torch, lambda: P.ragged_attend(
                              q, kq, vq, bt, bm, 1, None, **q8)),
@@ -1435,6 +1444,12 @@ def phase_sweep(torch, F, P) -> dict:
                     "kernel": "splits", "resident": resident,
                     "paged_fwd_ms": cuda_ms(torch, lambda: P.paged_attend(
                         qd, kp, vp, tables, *ints, splits=S)),
+                    "ragged_fwd_ms": cuda_ms(
+                        torch, lambda: P.ragged_attend(
+                            q, kp, vp, bt, bm, 1, None, splits=S)),
+                    "ragged_fwd_chunk_ms": cuda_ms(
+                        torch, lambda: P.ragged_attend(
+                            qc, kp, vp, cbt, cbm, 8, None, splits=S)),
                     "ragged_q8_fwd_ms": cuda_ms(
                         torch, lambda: P.ragged_attend(
                             q, kq, vq, bt, bm, 1, None, **q8, splits=S)),
@@ -1443,8 +1458,8 @@ def phase_sweep(torch, F, P) -> dict:
                             qc, kq, vq, cbt, cbm, 8, None, **q8,
                             splits=S)),
                     "paged_fwd": split_grid(torch, P, 4, KV, maxp, page, S),
-                    "ragged_q8_fwd": split_grid(torch, P, slots, KV, maxp,
-                                                page, S)})
+                    "ragged": split_grid(torch, P, slots, KV, maxp, page,
+                                         S)})
     for T in (256, 512, 1024, 2048):
         q = torch.randn(1, T, H, hd, generator=g, device=dev).bfloat16()
         k = torch.randn(1, T + 64, KV, hd, generator=g,

@@ -1,23 +1,21 @@
-// Scalar fp32 attention core of the port's CUDA kernels: ragged_fwd.cu
-// in both dtypes, flash_fwd.cu and paged_prefill_fwd.cu in fp32 (their
-// bf16 paths run on the tensor cores, tc_attention.cuh; paged_fwd.cu and
-// ragged_q8_fwd.cu run on the split-K core, split_kv.cuh).
+// Scalar fp32 attention core of the port's fp32 prefill kernels:
+// flash_fwd.cu and paged_prefill_fwd.cu in fp32, 32 query rows a block
+// (their bf16 paths run on the tensor cores, tc_attention.cuh; the decode
+// kernels paged_fwd.cu, ragged_fwd.cu and ragged_q8_fwd.cu run on the
+// split-K core, split_kv.cuh, which takes NEG_INF, THREADS, to_float and
+// dot4 from here).
 //
 // One block owns up to ROWS query rows that attend to the same key head.
 // Keys stream through shared memory in tiles of BK rows; each tile runs
 // the online softmax of the Pallas kernels it replaces: scores in fp32,
 // masked entries set to NEG_INF (finite), probabilities re-masked to exact
 // zeros so a fully masked row keeps l == 0 and writes 0, not NaN.
-// Everything is held in fp32 in shared memory whatever the input type, so
-// the fp32 and bf16 instantiations share one code path and the fp32 one
-// can be held tightly against the plain PyTorch version.
+// Everything is held in fp32 in shared memory, so the kernels can be held
+// tightly (1e-5) against the plain PyTorch version.
 //
-// A block has few warps (4) and, at 70-175 KB of shared memory, few
+// A block has few warps (4) and, at 93-175 KB of shared memory, few
 // neighbours on its SM, so little latency hiding: the inner loops read
-// shared memory as 16-byte vectors (four FMAs per load instead of one)
-// and ROWS is a template argument sized to the block's real rows (a
-// decode block of llama-3-8b has 4), so no cycles go to rows that do not
-// exist.
+// shared memory as 16-byte vectors (four FMAs per load instead of one).
 //
 // Layout of the dynamic shared memory (floats; every row 16-byte aligned):
 //   q [ROWS][HD + 4]   query rows, pre-scaled by hd^-0.5
@@ -26,8 +24,8 @@
 //   v [BK][HD]         value tile (read along columns: no pad needed)
 //   s [ROWS][BK + 4]   scores, then probabilities, of the tile
 //   m, l, corr [ROWS]  running max, running denominator, rescale
-// HD = 128 needs 70 KB (ROWS 4) or 93 KB (ROWS 32); HD = 256 up to 175 KB,
-// below the 227 KB a block may opt into.
+// At ROWS 32, HD = 128 needs 93 KB and HD = 256 175 KB, below the 227 KB
+// a block may opt into.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,43 +62,32 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // Copy `rows` rows of HD elements into shared fp32 rows of `stride`
-// floats, row r multiplied by row_scale(r) (one fp32 product per element:
-// an int8 row times its scale gives exactly the fp32 values of the plain
-// twin's q.float() * scale). row_ptr(r) gives the global address of row
-// r, or nullptr for a row that is filled with zeros (past the valid keys:
-// a zero value row times a zero probability stays 0, where stale memory
-// could hold a NaN); row_scale(r) must then still return a finite value.
-// Each thread first issues a batch of 8 independent 16-byte global reads
-// (and the rows' scales), then converts and stores them as 16-byte
-// shared writes, so the batch's memory latency is paid once, not once per
-// read. Rows must start 16-byte aligned (the wrappers check contiguity,
-// and HD * sizeof(T) is a multiple of 16).
-template <typename T, int HD, typename RowPtr, typename RowScale>
-__device__ __forceinline__ void load_rows_scaled(float* dst, int stride,
-                                                 int rows, RowPtr row_ptr,
-                                                 RowScale row_scale) {
-  constexpr int VEC = 16 / sizeof(T);      // 16 int8, 8 bf16 or 4 fp32
+// floats, each element multiplied by `scale`. row_ptr(r) gives the global
+// address of row r, or nullptr for a row that is filled with zeros (past
+// the valid keys: a zero value row times a zero probability stays 0,
+// where stale memory could hold a NaN). Each thread first issues a batch
+// of 8 independent 16-byte global reads, then converts and stores them as
+// 16-byte shared writes, so the batch's memory latency is paid once, not
+// once per read. Rows must start 16-byte aligned (the wrappers check
+// contiguity, and HD * sizeof(T) is a multiple of 16).
+template <typename T, int HD, typename RowPtr>
+__device__ __forceinline__ void load_rows(float* dst, int stride, int rows,
+                                          RowPtr row_ptr, float scale) {
+  constexpr int VEC = 16 / sizeof(T);      // 8 bf16 or 4 fp32
   constexpr int CHUNKS = HD / VEC;
   constexpr int BATCH = 8;
   const int total = rows * CHUNKS;
   for (int base = 0; base < total; base += THREADS * BATCH) {
     uint4 raw[BATCH];
-    float sc[BATCH];
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       const int i = base + threadIdx.x + u * THREADS;
       raw[u] = make_uint4(0u, 0u, 0u, 0u);  // all-zero bits: 0 in every T
-      sc[u] = 0.f;
       if (i < total) {
         const int r = i / CHUNKS;
         const T* src = row_ptr(r);
-        sc[u] = row_scale(r);
         if (src != nullptr)
           raw[u] = *reinterpret_cast<const uint4*>(src + (i - r * CHUNKS) * VEC);
       }
@@ -113,24 +100,15 @@ __device__ __forceinline__ void load_rows_scaled(float* dst, int stride,
         float4* d = reinterpret_cast<float4*>(dst + r * stride +
                                               (i - r * CHUNKS) * VEC);
         const T* vals = reinterpret_cast<const T*>(&raw[u]);
-        const float s = sc[u];
 #pragma unroll
         for (int e = 0; e < VEC / 4; ++e)
-          d[e] = make_float4(to_float(vals[4 * e]) * s,
-                             to_float(vals[4 * e + 1]) * s,
-                             to_float(vals[4 * e + 2]) * s,
-                             to_float(vals[4 * e + 3]) * s);
+          d[e] = make_float4(to_float(vals[4 * e]) * scale,
+                             to_float(vals[4 * e + 1]) * scale,
+                             to_float(vals[4 * e + 2]) * scale,
+                             to_float(vals[4 * e + 3]) * scale);
       }
     }
   }
-}
-
-// load_rows_scaled with one scale for every row.
-template <typename T, int HD, typename RowPtr>
-__device__ __forceinline__ void load_rows(float* dst, int stride, int rows,
-                                          RowPtr row_ptr, float scale) {
-  load_rows_scaled<T, HD>(dst, stride, rows, row_ptr,
-                          [scale](int) { return scale; });
 }
 
 template <int HD, int ROWS>
@@ -268,7 +246,7 @@ __device__ __forceinline__ void write_rows(const float* sm, int R,
     for (int r = 0; r < ROWS; ++r) {
       if (r < R) {
         const float den = l[r];
-        store(out_row(r) + d, den > 0.f ? acc[c][r] / den : 0.f);
+        out_row(r)[d] = den > 0.f ? acc[c][r] / den : 0.f;
       }
     }
   }

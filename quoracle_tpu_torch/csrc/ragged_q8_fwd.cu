@@ -31,13 +31,14 @@
 // round trip after another: latency-bound, far above that bound.
 //
 // What the design does about it: split_kv.cuh's split-K core with int8
-// pages. The grid is (NB, KV, S): a block serves the tq * G score rows of
-// one KV head (4 in decode, 32 in a chunk block; a page read once per KV
-// head) over one share of the block's visible keys, and the S shares'
-// partials merge, and normalize, in a second launch. The int8 K/V rows
-// and the stage's 64 scales per tensor stream through a cp.async ring;
-// decode blocks run the barrier-free 4-row loop, chunk blocks the 32-row
-// one. Inert blocks read no page.
+// pages, the block of ragged_fwd.cu plus the scales (skv::ragged_block).
+// The grid is (NB, KV, S): a block serves the tq * G score rows of one KV
+// head (4 in decode, 32 in a chunk block; a page read once per KV head)
+// over one share of the block's visible keys, and the S shares' partials
+// merge, and normalize, in a second launch. The int8 K/V rows and the
+// stage's 64 scales per tensor stream through a cp.async ring; decode
+// blocks run the barrier-free 4-row loop, chunk blocks the 32-row one.
+// Inert blocks read no page.
 #include "split_kv.cuh"
 
 using namespace qtt;
@@ -56,43 +57,10 @@ ragged_q8_fwd_kernel(const T* __restrict__ q,
                      int n_kv, int page, int maxp, int window, float scale,
                      skv::Out out) {
   extern __shared__ __align__(16) unsigned char sm[];
-  const int i = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int G = n_h / n_kv;
-  const int kv_len = meta[i * 3 + 0];
-  const int qpos0 = meta[i * 3 + 1];
-  const int nq = meta[i * 3 + 2];
-  const int cap = maxp * page;
-
-  // row r is query t = r / G at qpos0 + t; its keys are
-  // [max(qpos + 1 - window, 0), min(kv_len, qpos + 1, cap)) when t < nq
-  auto row_range = [=](int r) {
-    const int t = r / G;
-    if (t >= nq) return make_int2(0, 0);
-    const int qpos = qpos0 + t;
-    const int rhi = max(min(min(kv_len, qpos + 1), cap), 0);
-    const int rlo = window >= 0 ? max(qpos + 1 - window, 0) : 0;
-    return make_int2(min(rlo, rhi), rhi);
-  };
-  // the union over the block's queries: first query's start, last's end
-  // (inert blocks: empty, so they read no page)
-  int lo = 0, hi = 0;
-  if (nq > 0) {
-    lo = row_range(0).x;
-    hi = row_range((nq - 1) * G).y;
-    lo = min(lo, hi);
-  }
-  skv::run_share<T, int8_t, HD, ROWS, true>(
-      sm, tables + (size_t)i * maxp, tq * G, lo, hi, row_range,
-      [=](int r) {
-        const int t = r / G;
-        return q + ((size_t)(i * tq + t) * n_h + kvh * G + (r - t * G)) * HD;
-      },
-      [=](int r) {
-        const int t = r / G;
-        return (size_t)(i * tq + t) * n_h + kvh * G + (r - t * G);
-      },
-      k_pages, v_pages, k_scale, v_scale, n_kv, kvh, page, scale, out);
+  skv::ragged_block<T, int8_t, HD, ROWS>(sm, q, k_pages, v_pages, k_scale,
+                                         v_scale, tables, meta, tq, n_h,
+                                         n_kv, page, maxp, window, scale,
+                                         out);
 }
 
 template <typename T, int HD, int ROWS>

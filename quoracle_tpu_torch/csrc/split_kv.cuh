@@ -1,5 +1,6 @@
 // Split-K decode core of the port's paged decode kernels: paged_fwd.cu
-// (the direct tier) and ragged_q8_fwd.cu (int8 pools), in every dtype.
+// (the direct tier), ragged_fwd.cu (the unified tier) and ragged_q8_fwd.cu
+// (the unified tier over int8 pools), in every dtype.
 //
 // A block owns up to ROWS score rows that attend to one KV head of one
 // page table (G query heads of one decode query, or tq queries x G heads
@@ -487,6 +488,54 @@ __device__ __forceinline__ void run_share(
           emit<HD, NORMALIZE>(out, out_row(rb + r), lane * C::VPL + j,
                               acc[r][j], m[r], l[r]);
   }
+}
+
+// One block of a ragged kernel's flat tick (ragged_fwd.cu, and
+// ragged_q8_fwd.cu with int8 pages and their scales): block blockIdx.x of
+// tq query tokens, meta (kv_len, qpos0, nq), its rows' page table, and
+// the tq * G score rows of KV head blockIdx.y, row r = query r / G, head
+// kvh * G + r % G. Row r sees keys [max(qpos + 1 - window, 0),
+// min(kv_len, qpos + 1, maxp * page)) when t < nq, nothing otherwise;
+// the block's range is the first query's start to the last live query's
+// end (inert blocks: empty, so they read no page). Output normalized.
+template <typename T, typename P, int HD, int ROWS>
+__device__ __forceinline__ void ragged_block(
+    unsigned char* sm, const T* __restrict__ q,
+    const P* __restrict__ k_pages, const P* __restrict__ v_pages,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int* __restrict__ tables, const int* __restrict__ meta, int tq,
+    int n_h, int n_kv, int page, int maxp, int window, float scale,
+    const Out& out) {
+  const int i = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int G = n_h / n_kv;
+  const int kv_len = meta[i * 3 + 0];
+  const int qpos0 = meta[i * 3 + 1];
+  const int nq = meta[i * 3 + 2];
+  const int cap = maxp * page;
+
+  auto row_range = [=](int r) {
+    const int t = r / G;
+    if (t >= nq) return make_int2(0, 0);
+    const int qpos = qpos0 + t;
+    const int rhi = max(min(min(kv_len, qpos + 1), cap), 0);
+    const int rlo = window >= 0 ? max(qpos + 1 - window, 0) : 0;
+    return make_int2(min(rlo, rhi), rhi);
+  };
+  int lo = 0, hi = 0;
+  if (nq > 0) {
+    lo = row_range(0).x;
+    hi = row_range((nq - 1) * G).y;
+    lo = min(lo, hi);
+  }
+  auto out_row = [=](int r) {
+    const int t = r / G;
+    return (size_t)(i * tq + t) * n_h + kvh * G + (r - t * G);
+  };
+  run_share<T, P, HD, ROWS, true>(
+      sm, tables + (size_t)i * maxp, tq * G, lo, hi, row_range,
+      [=](int r) { return q + out_row(r) * HD; }, out_row, k_pages, v_pages,
+      k_scale, v_scale, n_kv, kvh, page, scale, out);
 }
 
 // The second launch when S > 1: one block per output row merges its S

@@ -86,7 +86,7 @@ FLASH = Kernel(
 RAGGED = Kernel(
     "ragged_fwd", "quoracle_tpu_torch/csrc/ragged_fwd.cu",
     "quoracle_tpu/ops/paged_attention.py:642",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P])
+    [_P] * 7 + [_I] * 9 + [_F, _I, _P])
 RAGGED_Q8 = Kernel(
     "ragged_q8_fwd", "quoracle_tpu_torch/csrc/ragged_q8_fwd.cu",
     "quoracle_tpu/ops/paged_attention.py:739",

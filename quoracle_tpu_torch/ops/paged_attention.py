@@ -51,8 +51,9 @@ from quoracle_tpu_torch.ops import kernels
 from quoracle_tpu_torch.ops.attention import NEG_INF
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SCORE_ROWS = 32         # tq * (H / KV) rows per CUDA block (fp32 and
-                            # the decode kernels: common.cuh's scalar core)
+MAX_SCORE_ROWS = 32         # tq * (H / KV) rows per CUDA block (fp32
+                            # prefill on common.cuh's scalar core, the
+                            # decode kernels on split_kv.cuh)
 TC_SCORE_ROWS = 64          # rows per block of the bf16 prefill kernels
                             # (tc_attention.cuh: 4 warps x 16 mma rows)
 KEY_TILE = 64               # keys per shared-memory tile (page % 64 == 0)
@@ -74,12 +75,13 @@ def prefill_block(n_heads: int, n_kv: int, dtype) -> tuple[int, int]:
 def split_count(n_blocks: int, n_kv: int, maxp: int, page: int,
                 n_sms: int) -> int:
     """Share count S of the split-K decode kernels (``csrc/split_kv.cuh``:
-    ``paged_fwd``, ``ragged_q8_fwd``), from the grid alone: enough shares
-    that the (n_blocks, n_kv, S) grid puts ``SHARE_BLOCKS_PER_SM`` blocks
-    on each of the card's ``n_sms`` SMs, at most one share per 64-key
-    tile of a full page table (``ceil(maxp * page / KEY_TILE)``), at
-    least 1. The rows' lengths live on the card and are never read here:
-    a host sync per layer would cost more than the kernel."""
+    ``paged_fwd``, ``ragged_fwd``, ``ragged_q8_fwd``), from the grid
+    alone: enough shares that the (n_blocks, n_kv, S) grid puts
+    ``SHARE_BLOCKS_PER_SM`` blocks on each of the card's ``n_sms`` SMs, at
+    most one share per 64-key tile of a full page table (``ceil(maxp *
+    page / KEY_TILE)``), at least 1. The rows' lengths live on the card
+    and are never read here: a host sync per layer would cost more than
+    the kernel."""
     want = -(-SHARE_BLOCKS_PER_SM * n_sms // max(1, n_blocks * n_kv))
     return max(1, min(max_splits(maxp, page), want))
 
@@ -633,13 +635,13 @@ def ragged_attend(
     splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Unified ragged attention: the CUDA kernel for CUDA tensors (it
-    launches or raises), the plain twin for CPU tensors. Grid (NB, KV):
-    device work follows the tick's real blocks, never batch x max. With
-    ``k_scale``/``v_scale`` the pages are int8 and the int8 kernel
-    (``csrc/ragged_q8_fwd.cu``) runs on grid (NB, KV, S), S shares of each
-    block's keys merged by a second launch (``split_count`` picks S;
-    ``splits`` forces it, for tests; the float kernel takes no
-    ``splits``)."""
+    launches or raises), the plain twin for CPU tensors whatever
+    ``splits`` is. Float pages run ``csrc/ragged_fwd.cu``; with
+    ``k_scale``/``v_scale`` the pages are int8 and ``csrc/ragged_q8_fwd.cu``
+    runs. Both run on grid (NB, KV, S): device work follows the tick's
+    real blocks, never batch x max, and S shares of each block's keys are
+    merged by a second launch (``split_count`` picks S; ``splits`` forces
+    it, for tests)."""
     if q.device.type == "cpu":
         return ragged_attend_ref(q, k_pages, v_pages, block_tables,
                                  block_meta, tq, sliding_window,
@@ -648,9 +650,6 @@ def ragged_attend(
         raise ValueError(f"ragged_attend: no kernel for device {q.device}")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("ragged_attend: pass both k_scale and v_scale")
-    if splits is not None and k_scale is None:
-        raise ValueError("ragged_attend: splits applies to the int8 "
-                         "kernel (k_scale/v_scale) only")
     block_tables, block_meta = _int32(block_tables, block_meta)
     tp, n_heads, hd = q.shape
     n_pages, page, n_kv, _ = k_pages.shape
@@ -667,22 +666,17 @@ def ragged_attend(
     if nb == 0:
         return out
     window = -1 if sliding_window is None else int(sliding_window)
-    ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
-    stream = kernels.stream_handle(q.device)
-    if scales is None:
-        kernels.RAGGED.launch(
-            *ptrs, block_tables.data_ptr(), block_meta.data_ptr(),
-            out.data_ptr(), nb, tq, n_heads, n_kv, hd, page, maxp, window,
-            hd ** -0.5, _DTYPE_CODES[q.dtype], stream)
-        return out
     splits, ws, ws_ptr = _splits_and_workspace(
         "ragged_attend", splits, nb, n_kv, maxp, page, tp * n_heads, hd,
         q.device)
-    kernels.RAGGED_Q8.launch(
-        *ptrs, k_scale.data_ptr(), v_scale.data_ptr(),
+    kernel, scale_ptrs = ((kernels.RAGGED, []) if scales is None else
+                          (kernels.RAGGED_Q8,
+                           [k_scale.data_ptr(), v_scale.data_ptr()]))
+    kernel.launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scale_ptrs,
         block_tables.data_ptr(), block_meta.data_ptr(), out.data_ptr(),
         ws_ptr, nb, tq, n_heads, n_kv, hd, page, maxp, window, splits,
-        hd ** -0.5, _DTYPE_CODES[q.dtype], stream)
+        hd ** -0.5, _DTYPE_CODES[q.dtype], kernels.stream_handle(q.device))
     return out
 
 

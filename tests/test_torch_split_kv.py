@@ -1,7 +1,7 @@
 """The split-K decode core's share rule and combine (``csrc/split_kv.cuh``,
-run on the card by ``paged_fwd`` and ``ragged_q8_fwd``), emulated in plain
-PyTorch on the CPU and held against the port's twins and the JAX Pallas
-kernels in interpret mode.
+run on the card by ``paged_fwd``, ``ragged_fwd`` and ``ragged_q8_fwd``),
+emulated in plain PyTorch on the CPU and held against the port's twins and
+the JAX Pallas kernels in interpret mode.
 
 The emulation splits each block's visible keys [lo, hi) as the kernel
 does: whole 64-key tiles from floor(lo / 64) * 64, share s of S taking
@@ -207,12 +207,14 @@ def test_combine_without_the_mask_breaks_an_empty_row():
 
 
 # ---------------------------------------------------------------------------
-# ragged_q8_fwd: unified ragged attention over int8 pages
+# ragged_fwd and ragged_q8_fwd: unified ragged attention over float pages
+# and over int8 pages
 # ---------------------------------------------------------------------------
 
 def ragged_range(kv_len, qpos0, nq, window, maxp, page):
-    """The kernel's [lo, hi) of one block (ragged_q8_fwd.cu): the first
-    query's window start to the last query's end; inert blocks empty."""
+    """The kernels' [lo, hi) of one block (split_kv.cuh, ragged_block):
+    the first query's window start to the last query's end; inert blocks
+    empty."""
     if nq == 0:
         return 0, 0
     hi = max(min(kv_len, qpos0 + nq, maxp * page), 0)
@@ -221,17 +223,19 @@ def ragged_range(kv_len, qpos0, nq, window, maxp, page):
 
 
 def ragged_split(q, kq, vq, btab, bmeta, ks, vs, tq, window, S):
-    """ragged_q8_fwd's S shares, combine and normalization, emulated:
-    [NB * tq, H, hd] fp32."""
+    """The ragged kernels' S shares, combine and normalization, emulated:
+    [NB * tq, H, hd] fp32; float pages (ragged_fwd) when ``ks`` and ``vs``
+    are None, else int8 pages with their scales (ragged_q8_fwd)."""
     nb, maxp = btab.shape
     _, H, hd = q.shape
     _, page, KV, _ = kq.shape
     G = H // KV
     t = btab.long()
-    k = kq[t].reshape(nb, maxp * page, KV, hd).float() * \
-        gather_scales(ks, btab)[..., None]
-    v = vq[t].reshape(nb, maxp * page, KV, hd).float() * \
-        gather_scales(vs, btab)[..., None]
+    k = kq[t].reshape(nb, maxp * page, KV, hd).float()
+    v = vq[t].reshape(nb, maxp * page, KV, hd).float()
+    if ks is not None:
+        k = k * gather_scales(ks, btab)[..., None]
+        v = v * gather_scales(vs, btab)[..., None]
     qb = (q.float() * hd ** -0.5).reshape(nb, tq, KV, G, hd)
     scores = torch.einsum("btkgd,bskd->bkgts", qb, k)     # [NB,KV,G,tq,S]
     s_idx = torch.arange(maxp * page)
@@ -273,7 +277,10 @@ RAGGED_CASES = {
 }
 
 
-def _ragged_q8_inputs(c, seed=22, hd=32, page=64, maxp=12):
+def _ragged_inputs(c, quantized, seed=22, hd=32, page=64, maxp=12):
+    """(q, k pages, v pages, tables, meta, k_scale, v_scale) of a case:
+    float pages and no scales, or the same pages quantized to int8 with
+    the engine's rule."""
     rng = np.random.default_rng(seed)
     rows, tq = c["rows"], c["tq"]
     nb = sum(-(-n // tq) if n else 1 for _, n in rows)
@@ -284,8 +291,12 @@ def _ragged_q8_inputs(c, seed=22, hd=32, page=64, maxp=12):
     kv[0][3, :, 0] = 0.0                        # zero vectors: scale 1.0
     pools = []
     for x in kv:
-        qv, s = jq.kv_quant(jnp.asarray(x))
-        pools += [np.asarray(qv), np.asarray(s).transpose(0, 2, 1).copy()]
+        if quantized:
+            qv, s = jq.kv_quant(jnp.asarray(x))
+            pools += [np.asarray(qv),
+                      np.asarray(s).transpose(0, 2, 1).copy()]
+        else:
+            pools += [x, None]
     perm = rng.permutation(np.arange(1, n_pages))
     btab = np.zeros((nb, maxp), np.int32)
     bmeta = np.zeros((nb, 3), np.int32)
@@ -299,24 +310,39 @@ def _ragged_q8_inputs(c, seed=22, hd=32, page=64, maxp=12):
     return q, kq, vq, btab, bmeta, ks, vs
 
 
-@pytest.mark.parametrize("S", [1, 2, 3, 7, "max"])
-@pytest.mark.parametrize("name", sorted(RAGGED_CASES))
-def test_ragged_q8_split_combine_matches_twin_and_jax(name, S):
+def _check_ragged_split(name, S, quantized):
+    """The emulated split of a case against ``ragged_attend_ref`` and the
+    JAX ``ragged_attend(interpret=True)`` (with the scales when
+    ``quantized``) at 1e-5; inert blocks and rows t >= nq exactly 0."""
     c = RAGGED_CASES[name]
-    q, kq, vq, btab, bmeta, ks, vs = _ragged_q8_inputs(c)
+    q, kq, vq, btab, bmeta, ks, vs = _ragged_inputs(c, quantized)
     tq, w = c["tq"], c["window"]
     S = tpa.max_splits(btab.shape[1], kq.shape[1]) if S == "max" else S
     ta = [_t(a) for a in (q, kq, vq, btab, bmeta)]
-    got = ragged_split(*ta, _t(ks), _t(vs), tq, w, S)
-    ref = tpa.ragged_attend_ref(*ta, tq, w, k_scale=_t(ks), v_scale=_t(vs))
+    sc = {} if ks is None else dict(k_scale=_t(ks), v_scale=_t(vs))
+    got = ragged_split(*ta, sc.get("k_scale"), sc.get("v_scale"), tq, w, S)
+    ref = tpa.ragged_attend_ref(*ta, tq, w, **sc)
     jkrn = np.asarray(jpa.ragged_attend(
         *[jnp.asarray(a) for a in (q, kq, vq, btab, bmeta)], tq=tq,
-        sliding_window=w, interpret=True, k_scale=jnp.asarray(ks),
-        v_scale=jnp.asarray(vs)))
+        sliding_window=w, interpret=True,
+        **{k: jnp.asarray(v.numpy()) for k, v in sc.items()}))
     np.testing.assert_allclose(got.numpy(), ref.numpy(), **TOL)
     np.testing.assert_allclose(got.numpy(), jkrn, **TOL)
     for i, (_, _, nq) in enumerate(bmeta):   # inert blocks, rows t >= nq
         assert torch.all(got[i * tq + nq:(i + 1) * tq] == 0)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 7, "max"])
+@pytest.mark.parametrize("name", sorted(RAGGED_CASES))
+def test_ragged_q8_split_combine_matches_twin_and_jax(name, S):
+    _check_ragged_split(name, S, quantized=True)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 7, "max"])
+@pytest.mark.parametrize("name", sorted(RAGGED_CASES))
+def test_ragged_split_combine_matches_twin_and_jax(name, S):
+    """ragged_fwd: the same cases over float pages, no scales."""
+    _check_ragged_split(name, S, quantized=False)
 
 
 # ---------------------------------------------------------------------------
@@ -365,3 +391,15 @@ def test_cpu_tensors_take_the_twin_whatever_the_splits():
         got = tpa.paged_attend(*args, c["window"], splits=S)
         for g, r in zip(got, tpa.paged_attend_ref(*args, c["window"])):
             assert torch.equal(g, r)
+
+
+def test_cpu_float_ragged_takes_the_twin_whatever_the_splits():
+    """ragged_attend(splits=) over float pages on CPU tensors returns the
+    twin's result bit for bit (splits applies to every ragged kernel)."""
+    c = RAGGED_CASES["chunks_tq8"]
+    q, kp, vp, btab, bmeta, _, _ = _ragged_inputs(c, quantized=False)
+    args = [_t(a) for a in (q, kp, vp, btab, bmeta)]
+    ref = tpa.ragged_attend_ref(*args, c["tq"], c["window"])
+    for S in (1, 5):
+        got = tpa.ragged_attend(*args, c["tq"], c["window"], splits=S)
+        assert torch.equal(got, ref)
