@@ -54,6 +54,25 @@ never prints its last line):
              chunk and decode ticks are kept for the mainpath phase, and
              round 2's prefill ms and ms per decode step are printed for
              int8 unified, int8 gather and bf16 unified.
+  decide     two decides of the port's ConsensusEngine over TorchBackend
+             for the north-star pool, llama-3-8b (the serve phase's engine,
+             also the embedder's weights), mistral-7b and gemma-7b at full
+             width and depth, random bf16 weights from seeded generators
+             (seed + i, as the backend draws them): one agent (session
+             agent-decide), allowed actions {"wait"}, the system prompt of
+             build_system_prompt for that set, the default schedule (4
+             refinement rounds, temperatures 1.0 falling to 0.2, JSON
+             grammar on), 256 new tokens a member and round; the second
+             decide is the agent's next step and must resume (cached
+             tokens > 0). Both must end "ok" with a decision. The launch
+             counts are zeroed before the decides: ragged_fwd must run,
+             the paged and int8 kernels must not. Then backend.embed of
+             the system prompt (256-token chunks) and the decisions'
+             texts: flash must run, every vector unit norm. Prints init
+             seconds per member, peak memory, each decide's rounds,
+             latency, prefill and decode ms, cached tokens, round seconds
+             (the first builds three vocabularies' grammar tables, timed
+             apart) and each member's tier, and the embed ms
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -76,13 +95,23 @@ never prints its last line):
              the GPU engine (kernels) and through the same weights on the
              CPU (plain twins) must give identical greedy texts and cached
              counts, on the unified, direct and gather tiers, and with
-             int8 weights and pages on the unified and gather tiers
+             int8 weights and pages on the unified and gather tiers; then
+             the decide phase's two decides, greedy (the port engine's
+             temperature_for_round pointed at 0.0 for this phase only: a
+             decide never samples at 0 by itself), one refinement round at
+             most and 12 new tokens, over 2-layer fp32 cuts of all three
+             members: identical outcomes (status, decision, rounds, cached
+             tokens, every member's texts) on the GPU and the CPU, and the
+             embedder's vectors within 1e-5 at the 8, 64 and 256-token
+             buckets
 
 then the card's nvidia-smi line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. ``--only kernels`` stops after the
 kernels phase (a quick check of a kernel edit; no last line); ``--only
 sweep`` runs the sweep phase alone after the build (kernel times at the
-main path's lengths without the serving phases; no last line). Every
+main path's lengths without the serving phases; no last line); ``--only
+decide`` runs the decide phase (llama-3-8b built anew) and the reference
+decide after the build (no last line). Every
 comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
 False, and cudnn's too). The script imports torch and the port, never
 JAX or the JAX package.
@@ -150,6 +179,16 @@ NEG_INF = -1e30
 MAX_TOKENS = 32             # new tokens per row in the serve phase
 N_RULES = 30                # system-prompt length of the serve phase
 TEMPS = [1.0, 0.7, 0.0]     # the consensus round's member temperatures
+# the north-star pool of the decide phase; llama-3-8b (MODEL) comes first,
+# so it is the embedder's model
+DECIDE_POOL = [MODEL, "xla:mistral-7b", "xla:gemma-7b"]
+# new tokens per member and round: with random weights a member's answer
+# closes its JSON object (and so parses) or wanders through keys and
+# strings, and a round needs one answer that parses. At 48 tokens, 1 of
+# the 6 answers of the two decides closed (an H100 run); the share closed
+# within each budget is estimated by quoracle_tpu_torch/tools/
+# json_closure.py
+DECIDE_MAX_TOKENS = 256
 
 
 def emit(obj) -> None:
@@ -1136,6 +1175,212 @@ def phase_serve_int8(torch, R, P, kernels, dfa, backend, serve_report):
     return report, kept, launches
 
 
+def wait_only_system_prompt() -> str:
+    """The port's system prompt for an agent allowed only ``wait``."""
+    from quoracle_tpu_torch.actions.schema import ACTIONS
+    from quoracle_tpu_torch.consensus.prompt_builder import (
+        build_system_prompt,
+    )
+    return build_system_prompt(
+        forbidden_actions=tuple(a for a in ACTIONS if a != "wait"))
+
+
+def next_step(outcome, messages: list, pool: list) -> dict:
+    """The agent's next step: each member's history plus its own answer
+    of the decide (the text its session holds; the decision's JSON if it
+    gave none) and the action's result."""
+    out = {}
+    for m in pool:
+        raw = next((p.raw_text for p in outcome.proposals
+                    if p.model_spec == m), None)
+        if raw is None:
+            raw = next((f.raw_text for f in outcome.failures
+                        if f.model_spec == m and f.raw_text), None)
+        if raw is None:
+            d = outcome.decision
+            raw = json.dumps({"action": d.action, "params": d.params})
+        out[m] = list(messages) + [
+            {"role": "assistant", "content": raw},
+            {"role": "user", "content": "result: waited; no new events "
+                                        "arrived. Decide the next step."}]
+    return out
+
+
+def run_decides(R, CE, backend, pool: list, max_tokens: int,
+                max_refinement_rounds: int = 4) -> tuple:
+    """Two decides of one agent (session ``agent-decide``) through the
+    port's ConsensusEngine over ``backend``, allowed actions {"wait"}, on
+    the default schedule: the first from the system prompt and a task,
+    the second the agent's next step. Returns the two outcomes and, per
+    decide, the seconds of each round (``backend.query`` call), each
+    member's tier per round, and the seconds spent building JSON grammar
+    tables."""
+    messages = [{"role": "system", "content": wait_only_system_prompt()},
+                {"role": "user", "content": "Task: keep the build green. "
+                                            "Decide the next step."}]
+    rec = {"round_s": [], "tiers": {m: [] for m in pool}, "grammar_s": 0.0}
+    orig_query = backend.query
+
+    def timed_query(requests):
+        t0 = time.monotonic()
+        try:
+            return orig_query(requests)
+        finally:
+            rec["round_s"].append(time.monotonic() - t0)
+
+    def tier_spy(spec, name, fn):
+        def run(*a, **kw):
+            rec["tiers"][spec].append(name)
+            return fn(*a, **kw)
+        return run
+
+    def grammar_spy(fn):
+        def run(*a, **kw):
+            t0 = time.monotonic()
+            try:
+                return fn(*a, **kw)
+            finally:
+                rec["grammar_s"] += time.monotonic() - t0
+        return run
+
+    for spec in pool:
+        eng = backend.engines[spec]
+        for attr, name in (("_run_unified", "unified"),
+                           ("_run_split", "direct_or_gather"),
+                           ("_run_dense", "dense")):
+            setattr(eng, attr, tier_spy(spec, name, getattr(eng, attr)))
+        eng._json_table_device = grammar_spy(eng._json_table_device)
+    backend.query = timed_query
+    engine = CE.ConsensusEngine(backend, CE.ConsensusConfig(
+        model_pool=list(pool), max_refinement_rounds=max_refinement_rounds,
+        session_key="agent-decide", allowed_actions={"wait"},
+        max_tokens=max_tokens))
+    records, outcomes = [], []
+    try:
+        for step in range(2):
+            rec.update(round_s=[], tiers={m: [] for m in pool},
+                       grammar_s=0.0)
+            outcomes.append(engine.decide(
+                {m: list(messages) for m in pool} if step == 0
+                else next_step(outcomes[0], messages, pool)))
+            records.append({k: (dict(v) if isinstance(v, dict) else v)
+                            for k, v in rec.items()})
+    finally:
+        del backend.query
+        for spec in pool:
+            eng = backend.engines[spec]
+            for attr in ("_run_unified", "_run_split", "_run_dense",
+                         "_json_table_device"):
+                delattr(eng, attr)
+    return outcomes, records
+
+
+def decide_summary(out, rec) -> dict:
+    """What a decide did, for the phase's JSON line."""
+    return {"status": out.status, "rounds_used": out.rounds_used,
+            "latency_ms": out.latency_ms, "prefill_ms": out.prefill_ms,
+            "decode_ms": out.decode_ms, "cached_tokens": out.cached_tokens,
+            "prompt_tokens": out.prompt_tokens,
+            "completion_tokens": out.completion_tokens,
+            "embed_texts": out.embed_texts,
+            "member_latency_ms": out.member_latency_ms,
+            "round_s": rec["round_s"], "grammar_build_s": rec["grammar_s"],
+            "tiers": rec["tiers"],
+            "decision": (None if out.decision is None else {
+                "action": out.decision.action, "kind": out.decision.kind,
+                "params": out.decision.params,
+                "confidence": out.decision.confidence}),
+            "failures": [[f.model_spec, f.kind, f.error[:80],
+                          f.raw_text[:120]] for f in out.failures],
+            "texts": {p.model_spec: p.raw_text[:80] for p in out.proposals}}
+
+
+def decide_texts(out) -> list:
+    """The decision's texts: its JSON, its reasoning, and the members'
+    answers."""
+    d = out.decision
+    return ([json.dumps({"action": d.action, "params": d.params}),
+             d.reasoning or "(no reasoning)"]
+            + [p.raw_text for p in out.proposals])
+
+
+def phase_decide(torch, R, kernels, backend):
+    """Two decides of the port's ConsensusEngine over the north-star pool
+    at full width and depth (llama-3-8b the serve phase's engine, the
+    other two drawn here with the backend's seeding, seed + i; the
+    embedder shares llama's weights), on the unified tier; then the
+    embedder on the system prompt (256-token chunks: flash) and the
+    decision's texts."""
+    from quoracle_tpu_torch.consensus import engine as CE
+    from quoracle_tpu_torch.models.config import get_model_config
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.tokenizer import get_tokenizer
+    from quoracle_tpu_torch.models.transformer import init_params
+    import numpy as np
+    torch.cuda.reset_peak_memory_stats()
+    engines = {MODEL: backend.engines[MODEL]}
+    init_s = {}
+    for i, spec in enumerate(DECIDE_POOL):
+        if spec in engines:
+            continue
+        t0 = time.monotonic()
+        cfg = get_model_config(spec)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(i)
+        engines[spec] = GenerateEngine(
+            cfg, init_params(cfg, gen, device="cuda"), get_tokenizer(spec),
+            seed=i, device="cuda")
+        torch.cuda.synchronize()
+        init_s[spec] = time.monotonic() - t0
+    pool_backend = R.TorchBackend(DECIDE_POOL, device="cuda", engines=engines)
+    if pool_backend.embedder.params is not engines[MODEL].params:
+        raise AssertionError("the embedder does not share llama's weights")
+
+    kernels.reset_launch_counts()
+    outcomes, records = run_decides(R, CE, pool_backend, DECIDE_POOL,
+                                    DECIDE_MAX_TOKENS)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    decides = [decide_summary(o, r) for o, r in zip(outcomes, records)]
+    report = {"phase": "decide", "pool": DECIDE_POOL, "init_s": init_s,
+              "max_tokens": DECIDE_MAX_TOKENS, "decides": decides,
+              "launches": launches}
+    bad = [d for d in decides if d["status"] != "ok" or d["decision"] is None]
+    if bad or outcomes[1].cached_tokens <= 0 or not (
+            launches["ragged_fwd"] > 0 and launches["paged_fwd"]
+            == launches["paged_prefill_fwd"] == launches["ragged_q8_fwd"]
+            == 0):
+        emit(report)
+        raise AssertionError("the decide phase failed its checks")
+
+    system = wait_only_system_prompt()
+    texts = [system] + decide_texts(outcomes[0]) + decide_texts(outcomes[1])
+    n_system = len(engines[MODEL].tokenizer.encode(system))
+    if n_system <= 256:
+        raise AssertionError(f"system prompt of {n_system} tokens: no "
+                             f"256-token chunk")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    vecs = pool_backend.embed(texts)
+    torch.cuda.synchronize()
+    embed_ms = (time.monotonic() - t0) * 1e3
+    embed_launches = kernels.launch_counts()
+    norms = [float(np.linalg.norm(v)) for v in vecs]
+    report["embed"] = {"texts": len(texts), "system_prompt_tokens": n_system,
+                       "ms": embed_ms, "launches": embed_launches,
+                       "max_norm_err": max(abs(n - 1.0) for n in norms)}
+    report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if embed_launches["flash_fwd"] <= 0 or report["embed"]["max_norm_err"] \
+            > 1e-5:
+        emit(report)
+        raise AssertionError("the embedder missed flash or a unit norm")
+    pool_backend.drop_session("agent-decide")
+    del pool_backend, engines
+    torch.cuda.empty_cache()
+    return report, launches
+
+
 def paged_library(torch, kernel, q, kp, vp, tables, ints, window,
                   k_scale=None, v_scale=None):
     """scaled_dot_product_attention on a paged kernel's work: each row's
@@ -1585,6 +1830,108 @@ def phase_reference(torch, R) -> dict:
     if bad:
         emit(report)
         raise AssertionError(f"GPU and CPU engines disagree on {bad}")
+    report["decide"] = reference_decide(torch, R)
+    return report
+
+
+def decide_view(out) -> dict:
+    """What two devices' decides must agree on: status, decision, rounds,
+    cached tokens and every member's texts."""
+    return {"status": out.status, "rounds_used": out.rounds_used,
+            "decision": (None if out.decision is None
+                         else dataclasses.asdict(out.decision)),
+            "cached_tokens": out.cached_tokens,
+            "completion_tokens": out.completion_tokens,
+            "proposals": [[p.model_spec, p.raw_text] for p in out.proposals],
+            "failures": [[f.model_spec, f.kind, f.error, f.raw_text]
+                         for f in out.failures],
+            "refinement_history": out.refinement_history}
+
+
+def text_of_tokens(tok, lo: int, hi: int) -> str:
+    """A deterministic text of lo..hi tokens (one embedder T bucket)."""
+    words = []
+    while len(tok.encode(" ".join(words))) < lo:
+        words.append(f"step{len(words)} waits")
+    text = " ".join(words)
+    if not lo <= len(tok.encode(text)) <= hi:
+        raise AssertionError(f"no text of {lo}..{hi} tokens")
+    return text
+
+
+def reference_decide(torch, R) -> dict:
+    """The decide phase's two decides, greedy and small (one refinement
+    round at most, 12 new tokens), through 2-layer fp32 cuts of the three
+    members on the GPU (kernels) and on the CPU (plain twins), one set of
+    weights, the unified tier on both: identical outcomes. Then the
+    embedder (llama's cut) on one text per T bucket, 8, 64 and 256 tokens
+    (flash on the card): vectors within 1e-5. A decide never samples at
+    temperature 0 by itself, so the port's engine module's
+    ``temperature_for_round`` points at 0.0 for this phase only."""
+    import copy
+    import numpy as np
+    from quoracle_tpu_torch.consensus import engine as CE
+    from quoracle_tpu_torch.models import config as C
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.tokenizer import get_tokenizer
+    from quoracle_tpu_torch.models.transformer import init_params
+    pool = []
+    for spec in DECIDE_POOL:
+        base = C.get_model_config(spec)
+        pool.append("xla:" + C.register_model(dataclasses.replace(
+            base, name=f"{base.name}-2layer", n_layers=2)).name)
+    tok = get_tokenizer(pool[0])
+    texts = {T: text_of_tokens(tok, lo, T)
+             for T, lo in ((8, 1), (64, 33), (256, 129))}
+    params = {}
+    for i, spec in enumerate(pool):
+        cfg = C.get_model_config(spec)
+        cpu = init_params(cfg, torch.Generator().manual_seed(i + 1),
+                          device="cpu", dtype=torch.float32)
+        params[spec] = {"cuda": copy.deepcopy(cpu).to("cuda"), "cpu": cpu}
+    runs = {}
+    orig = CE.temperature_for_round
+    CE.temperature_for_round = lambda *a, **kw: 0.0
+    try:
+        for dev in ("cuda", "cpu"):
+            engines = {}
+            for i, spec in enumerate(pool):
+                eng = GenerateEngine(C.get_model_config(spec),
+                                     params[spec][dev], get_tokenizer(spec),
+                                     seed=i, device=dev)
+                eng.unified_min_tokens = 0    # the CPU default is gather
+                engines[spec] = eng
+            backend = R.TorchBackend(pool, device=dev, engines=engines)
+            t0 = time.monotonic()
+            outcomes, records = run_decides(R, CE, backend, pool,
+                                            max_tokens=12,
+                                            max_refinement_rounds=1)
+            runs[dev] = {"s": time.monotonic() - t0,
+                         "views": [decide_view(o) for o in outcomes],
+                         "tiers": [r["tiers"] for r in records],
+                         "vecs": {T: backend.embed([t])[0]
+                                  for T, t in texts.items()}}
+            del backend, engines
+    finally:
+        CE.temperature_for_round = orig
+    del params
+    torch.cuda.empty_cache()
+    g, c = runs["cuda"], runs["cpu"]
+    errs = {T: float(np.abs(g["vecs"][T] - c["vecs"][T]).max())
+            for T in texts}
+    report = {"pool": pool, "identical": g["views"] == c["views"],
+              "gpu_s": g["s"], "cpu_s": c["s"],
+              "tiers": g["tiers"],
+              "decides": [{k: v[k] for k in ("status", "rounds_used",
+                                             "cached_tokens")}
+                          for v in g["views"]],
+              "decisions": [v["decision"] and v["decision"]["action"]
+                            for v in g["views"]],
+              "embed_max_abs_err": errs}
+    if not report["identical"] or max(errs.values()) > 1e-5:
+        report.update(gpu_views=g["views"], cpu_views=c["views"])
+        emit({"phase": "reference", "decide": report})
+        raise AssertionError("GPU and CPU decides or embeddings disagree")
     return report
 
 
@@ -1606,10 +1953,12 @@ def ptxas_entries(log: str) -> list:
 
 def main(argv) -> int:
     only = None
-    if argv[1:2] == ["--only"] and argv[2:3] in (["kernels"], ["sweep"]):
+    if argv[1:2] == ["--only"] and argv[2:3] in (["kernels"], ["sweep"],
+                                                 ["decide"]):
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
-        print(f"usage: {argv[0]} [--only kernels|sweep]", file=sys.stderr)
+        print(f"usage: {argv[0]} [--only kernels|sweep|decide]",
+              file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -1647,6 +1996,12 @@ def main(argv) -> int:
     if only == "sweep":
         emit(phase_sweep(torch, F, P))
         return 0
+    if only == "decide":
+        decide_report, _ = phase_decide(torch, R, kernels,
+                                        R.TorchBackend([MODEL], seed=0))
+        emit(decide_report)
+        emit({"phase": "reference", "decide": reference_decide(torch, R)})
+        return 0
     cases = phase_kernels(torch, F, P)
     emit({"phase": "kernels",
           "kernels": [{"name": k.name, "source": k.source,
@@ -1666,10 +2021,15 @@ def main(argv) -> int:
     int8_report, kept["ragged_q8_fwd"], int8_launches = phase_serve_int8(
         torch, R, P, kernels, dfa, backend, report)
     emit(int8_report)
+    decide_report, decide_launches = phase_decide(torch, R, kernels, backend)
+    emit(decide_report)
     launches = {**launches,
                 **{k: paged_launches[k] for k in PAGED_KERNELS},
                 "ragged_q8_fwd": int8_launches["ragged_q8_fwd"]}
     entries = phase_mainpath(torch, F, P, kernels, kept, launches)
+    for e in entries:       # the decide path's own counts, beside them
+        e["decide_launches"] = decide_launches[e["name"]]
+        e["embed_launches"] = decide_report["embed"]["launches"][e["name"]]
     emit({"phase": "mainpath", "kernels": entries})
     emit(phase_trace(torch, R, backend, hist))
     del backend, kept, paged_kept

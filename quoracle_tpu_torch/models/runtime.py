@@ -1,30 +1,41 @@
-"""The serving backend of the PyTorch port (port of the baton path of
+"""ModelBackend, the seam between the consensus layer and model execution,
+and its two implementations in the PyTorch port (port of
 ``quoracle_tpu/models/runtime.py``).
 
-``TorchBackend.query`` receives a whole consensus round, groups its rows
-per pool member and serves each member's rows with ONE
-``GenerateEngine.generate`` call on the member's device. Rows are built
+``ModelBackend`` is the contract the port's consensus engine types
+against. ``TorchBackend.query`` receives a whole consensus round, groups
+its rows per pool member and serves each member's rows with ONE
+``GenerateEngine.generate`` call on the member's device; ``embed`` runs
+the on-device ``EmbeddingEncoder`` (models/embeddings.py). Rows are built
 exactly as the JAX ``TPUBackend`` builds them (chat template, session
 splice, per-row overflow error, output budget), so both packages send the
-same token ids to their engines. Left for later slices: the continuous
-batcher and QoS, the cross-caller baton batcher thread, speculative
-decoding, KV tiers, VLM rows and the embedder.
+same token ids to their engines. ``MockBackend`` is the scripted test
+backend. Left for later slices: the continuous batcher and QoS, the
+cross-caller baton batcher thread, speculative decoding, KV tiers and VLM
+rows.
 """
 
 from __future__ import annotations
 
+import abc
 import dataclasses
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from quoracle_tpu_torch.models.config import OUTPUT_FLOOR, get_model_config
+from quoracle_tpu_torch.models.embeddings import (
+    EmbeddingEncoder, HashingEmbedder,
+)
 from quoracle_tpu_torch.models.generate import (
     ContextOverflowError, GenerateEngine, resolve_device,
     splice_session_prompt,
 )
-from quoracle_tpu_torch.models.tokenizer import get_tokenizer
+from quoracle_tpu_torch.models.tokenizer import (
+    _stringify_content, get_tokenizer,
+)
 from quoracle_tpu_torch.models.transformer import init_params
 
 
@@ -79,7 +90,76 @@ class QueryResult:
         return self.error is None
 
 
-class TorchBackend:
+class ModelBackend(abc.ABC):
+    """What the consensus layer depends on. All methods are synchronous and
+    thread-safe."""
+
+    @abc.abstractmethod
+    def query(self, requests: Sequence[QueryRequest]) -> list[QueryResult]: ...
+
+    @abc.abstractmethod
+    def embed(self, texts: Sequence[str]) -> list[np.ndarray]: ...
+
+    @abc.abstractmethod
+    def count_tokens(self, model_spec: str, text: str) -> int: ...
+
+    def count_message_tokens(self, model_spec: str, messages: Sequence[dict]) -> int:
+        total = 0
+        for m in messages:
+            content = m.get("content", "")
+            if not isinstance(content, str):
+                content = _stringify_content(content)
+            total += self.count_tokens(model_spec, content) + 4  # role overhead
+        return total
+
+    @abc.abstractmethod
+    def context_window(self, model_spec: str) -> int: ...
+
+    @abc.abstractmethod
+    def output_limit(self, model_spec: str) -> int: ...
+
+    def drop_session(self, session_id: str,
+                     model_specs: Optional[Sequence[str]] = None) -> None:
+        """Release resident KV state for a conversation (called on agent
+        termination / pool switch). ``model_specs`` limits the drop to those
+        members' engines. No-op for backends without KV residency."""
+
+    def attach_bus(self, bus) -> None:
+        """Optional: give the backend an event bus to broadcast serving
+        telemetry on. No-op for backends without serving internals."""
+
+    def watchdog_sources(self) -> list:
+        """(name, progress_fn) pairs for a stall watchdog. Empty for
+        backends without decode loops to watch."""
+        return []
+
+    def scheduler_stats(self) -> dict:
+        """Per-member continuous-batcher health snapshots. Empty for
+        backends without a scheduler."""
+        return {}
+
+    def qos_stats(self) -> dict:
+        """Serving-QoS snapshot. ``enabled`` False for backends without
+        QoS wiring."""
+        return {"enabled": False}
+
+    def spec_stats(self) -> dict:
+        """Speculative-serving snapshot. ``enabled`` False for backends
+        without draft models."""
+        return {"enabled": False}
+
+    def kv_stats(self) -> dict:
+        """Tiered-KV snapshot. ``enabled`` False for backends without
+        tiering."""
+        return {"enabled": False}
+
+    def prefetch_sessions(self, session_id: str) -> int:
+        """Warm hibernated KV for a conversation before it runs. Returns
+        engines warmed. No-op for backends without tiering."""
+        return 0
+
+
+class TorchBackend(ModelBackend):
     """Serves a pool of catalog models, one ``GenerateEngine`` each, on
     one device. ``device=None`` means the GPU and raises without one; the
     CPU serves only when asked (``device="cpu"``, the tests). Weights are
@@ -87,10 +167,18 @@ class TorchBackend:
     the device (checkpoint loading is a later slice); ``engines`` hands in
     prebuilt engines instead. ``quantize_weights`` and ``quantize_kv``
     (int8 serving, models/quant.py) apply to every engine the backend
-    builds, as in the JAX backend."""
+    builds, as in the JAX backend.
+
+    The embedder is built as the JAX backend builds it: ``embedder`` if
+    given; else an ``EmbeddingEncoder`` over ``embed_model`` (default: the
+    pool's first member), sharing that member's weights and tokenizer when
+    it has an engine here, else over random weights drawn on the device
+    from a generator seeded ``seed + 101``."""
 
     def __init__(self, pool: Sequence[str], *, seed: int = 0, device=None,
+                 embed_model: Optional[str] = None,
                  engines: Optional[dict[str, GenerateEngine]] = None,
+                 embedder=None,
                  quantize_weights: bool = False, quantize_kv: bool = False):
         self.device = resolve_device(device)
         self.pool = list(pool)
@@ -108,6 +196,20 @@ class TorchBackend:
                 cfg, params, get_tokenizer(spec), seed=seed + i,
                 device=self.device, quantize_weights=self.quantize_weights,
                 quantize_kv=self.quantize_kv)
+        if embedder is not None:
+            self.embedder = embedder
+        else:
+            espec = embed_model or self.pool[0]
+            if espec in self.engines:
+                e = self.engines[espec]
+                eparams, ecfg, etok = e.params, e.cfg, e.tokenizer
+            else:
+                ecfg = get_model_config(espec)
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(seed + 101)
+                eparams = init_params(ecfg, gen, device=self.device)
+                etok = get_tokenizer(espec)
+            self.embedder = EmbeddingEncoder(ecfg, eparams, etok)
 
     def query(self, requests: Sequence[QueryRequest]) -> list[QueryResult]:
         """Group rows by pool member; one batched generate per member,
@@ -222,6 +324,9 @@ class TorchBackend:
                 latency_ms=latency_ms, prefill_ms=prefill_ms,
                 decode_ms=decode_ms, cached_tokens=g.n_cached_tokens)
 
+    def embed(self, texts: Sequence[str]) -> list[np.ndarray]:
+        return self.embedder.embed(texts)
+
     def drop_session(self, session_id: str,
                      model_specs: Optional[Sequence[str]] = None) -> None:
         """Release a conversation's resident KV on every engine (or only
@@ -239,3 +344,73 @@ class TorchBackend:
 
     def output_limit(self, model_spec: str) -> int:
         return get_model_config(model_spec).output_limit
+
+
+# ---------------------------------------------------------------------------
+# Mock backend (tests)
+# ---------------------------------------------------------------------------
+
+class MockBackend(ModelBackend):
+    """Deterministic scripted backend.
+
+    ``respond`` maps a QueryRequest to response text; default echoes a valid
+    wait-action JSON so agent loops terminate. Per-model scripts drive
+    disagreement/malformed/invalid scenarios (``"__error__"`` scripts a
+    backend failure); every call is recorded in ``calls`` for assertion.
+    The embedder defaults to ``HashingEmbedder``.
+
+    The JAX package's MockBackend also fires a fault-injection point per
+    member and opens a tracer span per member; the port has neither the
+    chaos plane nor the tracer yet, so this copy leaves both out.
+    """
+
+    DEFAULT_POOL = ["mock:consensus-model-1", "mock:consensus-model-2",
+                    "mock:consensus-model-3"]
+
+    def __init__(self, respond: Optional[Callable[[QueryRequest], str]] = None,
+                 scripts: Optional[dict[str, list[str]]] = None,
+                 embedder=None, context_window_tokens: int = 128_000,
+                 output_limit_tokens: int = 4096,
+                 latency_ms: float = 0.0):
+        self._respond = respond
+        self._scripts = {k: list(v) for k, v in (scripts or {}).items()}
+        self._embedder = embedder or HashingEmbedder()
+        self._window = context_window_tokens
+        self._output_limit = output_limit_tokens
+        self._latency_ms = latency_ms
+        self.calls: list[QueryRequest] = []
+
+    def query(self, requests: Sequence[QueryRequest]) -> list[QueryResult]:
+        out = []
+        for r in requests:
+            self.calls.append(r)
+            script = self._scripts.get(r.model_spec)
+            if script:
+                text = script.pop(0)
+            elif self._respond is not None:
+                text = self._respond(r)
+            else:
+                text = ('{"action": "wait", "params": {"duration": 1}, '
+                        '"reasoning": "mock default"}')
+            if text == "__error__":
+                out.append(QueryResult(model_spec=r.model_spec,
+                                       error="scripted failure"))
+                continue
+            n_in = self.count_message_tokens(r.model_spec, r.messages)
+            out.append(QueryResult(
+                model_spec=r.model_spec, text=text,
+                usage=Usage(n_in, max(1, len(text) // 4), 0.0),
+                latency_ms=self._latency_ms))
+        return out
+
+    def embed(self, texts: Sequence[str]) -> list[np.ndarray]:
+        return self._embedder.embed(texts)
+
+    def count_tokens(self, model_spec: str, text: str) -> int:
+        return max(1, len(text) // 4)
+
+    def context_window(self, model_spec: str) -> int:
+        return self._window
+
+    def output_limit(self, model_spec: str) -> int:
+        return self._output_limit

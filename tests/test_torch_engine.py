@@ -23,6 +23,8 @@ from quoracle_tpu.models import tokenizer as jtok
 from quoracle_tpu_torch.models import generate as tgen
 from quoracle_tpu_torch.models import runtime as trt
 from quoracle_tpu_torch.models import tokenizer as ttok
+from quoracle_tpu_torch.models.embeddings import EmbeddingEncoder
+from quoracle_tpu_torch.models.transformer import Transformer
 
 # tier-1 runs several xdist workers on a few cores: torch's own thread
 # pool would oversubscribe them and spin between the small ops here
@@ -171,11 +173,27 @@ def test_backend_query_texts_identical(tiny):
 
 def test_entry_points_default_to_the_gpu_and_raise_without_one():
     """No device means the card; with no card the port refuses instead of
-    quietly serving on the CPU."""
+    quietly serving on the CPU. The embedder (``TorchBackend.embed``,
+    ``EmbeddingEncoder``) runs where its weights live, never elsewhere."""
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trt.TorchBackend(["xla:tiny"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trt.TorchBackend(["xla:tiny"], embed_model="xla:tiny-gemma")
     _, tcfg = both_configs("tiny")
     _, model = shared_params("tiny")
+    tok = ttok.get_tokenizer("xla:tiny")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tgen.GenerateEngine(tcfg, model, ttok.get_tokenizer("xla:tiny"))
+        tgen.GenerateEngine(tcfg, model, tok)
+    eng = tgen.GenerateEngine(tcfg, model, tok, device="cpu")
+    b = trt.TorchBackend(["xla:tiny"], device="cpu",
+                         engines={"xla:tiny": eng})
+    assert b.embedder.device == torch.device("cpu")
+    assert b.embed(["hello"])[0].shape == (tcfg.dim,)
+    # weights on another device: the encoder computes there, and reading
+    # a result back off the meta device fails rather than falling back
+    meta = Transformer.empty(tcfg, "meta", torch.float32)
+    enc = EmbeddingEncoder(tcfg, meta, tok)
+    assert enc.device == torch.device("meta")
+    with pytest.raises(NotImplementedError):
+        enc.embed(["hello"])
