@@ -26,7 +26,8 @@ never prints its last line):
              random bf16 weights from a seeded generator: a consensus
              round (three sessioned JSON-constrained rows at temperatures
              1.0/0.7/0.0), one long sessionless row as its own query, then
-             the resumed round, on the unified tier (the card's default).
+             the resumed round, on the unified tier (the card's default),
+             prefix sharing at its default (round 1 runs in two waves).
              The launch counts are zeroed just before and read just after:
              flash and ragged must have run. The inputs of the first flash
              call and of the resumed round's first ragged chunk and decode
@@ -38,9 +39,9 @@ never prints its last line):
              the ragged kernel must not), then the gather tier on the same
              engine (pinned by _force_gather_decode), then the gather tier
              under pool exhaustion (a session pool too small for the
-             rounds' stores, set by session_max_bytes: the rounds must
-             still answer, through the dense prefill and decode, with no
-             paged kernel launched). The direct round 2's first inputs of
+             rounds' stores, set by session_max_bytes, prefix sharing
+             off: the rounds must still answer, through the dense prefill
+             and decode, with no paged kernel launched). The direct round 2's first inputs of
              both paged kernels are kept, and the three tiers' round-2
              prefill and decode times are printed side by side.
   serve_int8 int8 serving (quantize_weights and quantize_kv) from the
@@ -48,8 +49,8 @@ never prints its last line):
              tier, where the int8 ragged kernel must run (and ragged_fwd
              and the paged kernels must not) and flash serves the
              sessionless row; then the rounds again on the gather tier
-             (forced) and under pool exhaustion, with no int8 ragged
-             launch. The int8 pool must hold ~1.94x the bf16 pool's
+             (forced) and under pool exhaustion (sharing off), with no
+             int8 ragged launch. The int8 pool must hold ~1.94x the bf16 pool's
              tokens in the same 2 GiB. The resumed round's first int8
              chunk and decode ticks are kept for the mainpath phase, and
              round 2's prefill ms and ms per decode step are printed for
@@ -70,9 +71,29 @@ never prints its last line):
              the system prompt (256-token chunks) and the decisions'
              texts: flash must run, every vector unit norm. Prints init
              seconds per member, peak memory, each decide's rounds,
-             latency, prefill and decode ms, cached tokens, round seconds
-             (the first builds three vocabularies' grammar tables, timed
-             apart) and each member's tier, and the embed ms
+             latency, prefill and decode ms, cached tokens (and each
+             member's per round), round seconds (the first builds three
+             vocabularies' grammar tables, timed apart) and each member's
+             tier, the embed ms and each member's prefix cache counters
+  prefix     the radix prefix cache on the card, in three parts: (1) the
+             serve traffic's round 1 and resumed round 2 on two fresh
+             llama-3-8b engines over the serve phase's weights, one at
+             the sharing default and one with prefix_sharing = False, in
+             turns: the deferred rows, cached tokens per row (0, then at
+             least 128: rows 1-2 adopt row 0's pages), prefill tokens,
+             prefill, decode and round ms, the pages held, the cache's
+             counters and occupancy, the tier of each call and the
+             launches (zeroed before each round); with sharing, fewer
+             prefill tokens and pool pages; (2) copy-on-write through a
+             2-layer fp32 cut of llama-3-8b on the GPU and the CPU: a
+             session diverges inside a page an adopter shares, the page is
+             copied (cow_copies) and the call runs on gather, the
+             adopter's pages stay bit-identical on the card, and both
+             devices give identical texts, cached counts and counters;
+             (3) a second agent's first decide over the decide pool, same
+             action set and messages: cached tokens of at least 128 on
+             llama-3-8b and gemma-7b, 0 on mistral-7b (windowed models
+             never share); its status and latency are printed
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -111,7 +132,8 @@ kernels phase (a quick check of a kernel edit; no last line); ``--only
 sweep`` runs the sweep phase alone after the build (kernel times at the
 main path's lengths without the serving phases; no last line); ``--only
 decide`` runs the decide phase (llama-3-8b built anew) and the reference
-decide after the build (no last line). Every
+decide after the build (no last line); ``--only prefix`` runs the decide
+phase and then the prefix phase after the build (no last line). Every
 comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
 False, and cudnn's too). The script imports torch and the port, never
 JAX or the JAX package.
@@ -1025,6 +1047,9 @@ def phase_serve_paged(torch, R, P, kernels, dfa, backend, serve_report):
     token_bytes = (2 * base.cfg.n_layers * base.cfg.n_kv_heads
                    * base.cfg.head_dim * 2)
     gather, gather_backend = engine(session_max_bytes=8 * 128 * token_bytes)
+    # sharing would split round 1 into waves, the first of which finds its
+    # pages and runs unified: this case is there for the gather tier
+    gather.prefix_sharing = False
     kernels.reset_launch_counts()
     rounds_g, results_g, _ = run_rounds(
         R, gather_backend, MODEL, TEMPS, MAX_TOKENS, N_RULES,
@@ -1141,6 +1166,7 @@ def phase_serve_int8(torch, R, P, kernels, dfa, backend, serve_report):
     small = GenerateEngine(cfg, eng.params, base.tokenizer, seed=0,
                            device="cuda", session_max_bytes=8 * 128 * tb,
                            **int8)
+    small.prefix_sharing = False       # as serve_paged's exhausted case
     sb = R.TorchBackend([MODEL], device="cuda", engines={MODEL: small})
     kernels.reset_launch_counts()
     rounds_g, results_g, _ = run_rounds(
@@ -1206,33 +1232,54 @@ def next_step(outcome, messages: list, pool: list) -> dict:
     return out
 
 
+TIER_SPIES = (("_run_unified", "unified"), ("_run_split", "direct_or_gather"),
+              ("_run_dense", "dense"), ("_prefix_wave_split", "deferred"))
+
+
+def tier_spy(eng, note) -> None:
+    """Report to ``note`` the tier of each call the engine runs and, as
+    ["deferred", rows], the rows each sessioned generate defers to a
+    second wave: instance attributes over the engine's methods, which
+    ``untier_spy`` removes."""
+    for attr, name in TIER_SPIES:
+        def run(*a, _fn=getattr(eng, attr), _name=name, **kw):
+            out = _fn(*a, **kw)
+            note([_name, out] if _name == "deferred" else _name)
+            return out
+        setattr(eng, attr, run)
+
+
+def untier_spy(eng) -> None:
+    for attr, _ in TIER_SPIES:
+        delattr(eng, attr)
+
+
 def run_decides(R, CE, backend, pool: list, max_tokens: int,
-                max_refinement_rounds: int = 4) -> tuple:
-    """Two decides of one agent (session ``agent-decide``) through the
-    port's ConsensusEngine over ``backend``, allowed actions {"wait"}, on
-    the default schedule: the first from the system prompt and a task,
-    the second the agent's next step. Returns the two outcomes and, per
-    decide, the seconds of each round (``backend.query`` call), each
-    member's tier per round, and the seconds spent building JSON grammar
-    tables."""
+                max_refinement_rounds: int = 4,
+                session_key: str = "agent-decide", steps: int = 2) -> tuple:
+    """Decides of one agent (session ``session_key``) through the port's
+    ConsensusEngine over ``backend``, allowed actions {"wait"}, on the
+    default schedule: the first from the system prompt and a task, the
+    second (``steps`` 2) the agent's next step. Returns the outcomes and,
+    per decide, the seconds of each round (``backend.query`` call), each
+    member's tier and cached tokens per round, and the seconds spent
+    building JSON grammar tables."""
     messages = [{"role": "system", "content": wait_only_system_prompt()},
                 {"role": "user", "content": "Task: keep the build green. "
                                             "Decide the next step."}]
-    rec = {"round_s": [], "tiers": {m: [] for m in pool}, "grammar_s": 0.0}
+    rec = {"round_s": [], "tiers": {m: [] for m in pool}, "cached": [],
+           "grammar_s": 0.0}
     orig_query = backend.query
 
     def timed_query(requests):
         t0 = time.monotonic()
         try:
-            return orig_query(requests)
+            res = orig_query(requests)
+            rec["cached"].append({r.model_spec: r.cached_tokens
+                                  for r in res})
+            return res
         finally:
             rec["round_s"].append(time.monotonic() - t0)
-
-    def tier_spy(spec, name, fn):
-        def run(*a, **kw):
-            rec["tiers"][spec].append(name)
-            return fn(*a, **kw)
-        return run
 
     def grammar_spy(fn):
         def run(*a, **kw):
@@ -1245,20 +1292,21 @@ def run_decides(R, CE, backend, pool: list, max_tokens: int,
 
     for spec in pool:
         eng = backend.engines[spec]
-        for attr, name in (("_run_unified", "unified"),
-                           ("_run_split", "direct_or_gather"),
-                           ("_run_dense", "dense")):
-            setattr(eng, attr, tier_spy(spec, name, getattr(eng, attr)))
+
+        def note(c, spec=spec):
+            if isinstance(c, str):          # a tier, not a wave split
+                rec["tiers"][spec].append(c)
+        tier_spy(eng, note)
         eng._json_table_device = grammar_spy(eng._json_table_device)
     backend.query = timed_query
     engine = CE.ConsensusEngine(backend, CE.ConsensusConfig(
         model_pool=list(pool), max_refinement_rounds=max_refinement_rounds,
-        session_key="agent-decide", allowed_actions={"wait"},
+        session_key=session_key, allowed_actions={"wait"},
         max_tokens=max_tokens))
     records, outcomes = [], []
     try:
-        for step in range(2):
-            rec.update(round_s=[], tiers={m: [] for m in pool},
+        for step in range(steps):
+            rec.update(round_s=[], tiers={m: [] for m in pool}, cached=[],
                        grammar_s=0.0)
             outcomes.append(engine.decide(
                 {m: list(messages) for m in pool} if step == 0
@@ -1269,9 +1317,8 @@ def run_decides(R, CE, backend, pool: list, max_tokens: int,
         del backend.query
         for spec in pool:
             eng = backend.engines[spec]
-            for attr in ("_run_unified", "_run_split", "_run_dense",
-                         "_json_table_device"):
-                delattr(eng, attr)
+            untier_spy(eng)
+            del eng._json_table_device
     return outcomes, records
 
 
@@ -1285,7 +1332,7 @@ def decide_summary(out, rec) -> dict:
             "embed_texts": out.embed_texts,
             "member_latency_ms": out.member_latency_ms,
             "round_s": rec["round_s"], "grammar_build_s": rec["grammar_s"],
-            "tiers": rec["tiers"],
+            "tiers": rec["tiers"], "member_cached_tokens": rec["cached"],
             "decision": (None if out.decision is None else {
                 "action": out.decision.action, "kind": out.decision.kind,
                 "params": out.decision.params,
@@ -1308,9 +1355,12 @@ def phase_decide(torch, R, kernels, backend):
     """Two decides of the port's ConsensusEngine over the north-star pool
     at full width and depth (llama-3-8b the serve phase's engine, the
     other two drawn here with the backend's seeding, seed + i; the
-    embedder shares llama's weights), on the unified tier; then the
-    embedder on the system prompt (256-token chunks: flash) and the
-    decision's texts."""
+    embedder shares llama's weights), on the unified tier (a resumed round
+    whose divergence falls inside a radix-cached page copies it and runs
+    on gather; ``tiers`` shows where); then the embedder on the system
+    prompt (256-token chunks: flash) and the decision's texts. Returns the
+    report, the decides' launch counts and the pool's backend, its agent's
+    sessions still resident."""
     from quoracle_tpu_torch.consensus import engine as CE
     from quoracle_tpu_torch.models.config import get_model_config
     from quoracle_tpu_torch.models.generate import GenerateEngine
@@ -1375,10 +1425,206 @@ def phase_decide(torch, R, kernels, backend):
             > 1e-5:
         emit(report)
         raise AssertionError("the embedder missed flash or a unit norm")
-    pool_backend.drop_session("agent-decide")
-    del pool_backend, engines
+    report["prefix_cache"] = {
+        spec: eng.sessions.prefix_cache.stats()
+        for spec, eng in engines.items()}
+    return report, launches, pool_backend
+
+
+def fanout_round(torch, R, kernels, backend, hist) -> tuple:
+    """One consensus round of the serve traffic on ``backend``'s llama-3-8b
+    engine, counts zeroed just before: its summary with the waves, the
+    tiers, the pages its sessions hold, the prefix cache's counters and
+    occupancy, and the kernel launches."""
+    eng = backend.engines[MODEL]
+    calls: list = []
+    tier_spy(eng, calls.append)
+    kernels.reset_launch_counts()
+    try:
+        summary, res = consensus_round(R, backend, MODEL, hist, TEMPS,
+                                       MAX_TOKENS)
+        torch.cuda.synchronize()
+    finally:
+        untier_spy(eng)
+    st = eng.sessions
+    summary.update(
+        deferred_rows=[c[1] for c in calls if c[0] == "deferred"],
+        tiers=[c for c in calls if isinstance(c, str)],
+        pages_stored=len({p for s in st._sessions.values()
+                          for p in s.pages}),
+        pool_pages_in_use=st.n_pages - 1 - st.free_pages(),
+        prefix_cache=st.prefix_cache.stats(),
+        occupancy=st.prefix_cache.occupancy(),
+        launches=kernels.launch_counts())
+    return summary, res
+
+
+def prefix_fanout(torch, R, kernels, base) -> dict:
+    """Part 1: the serve traffic's round 1 (three new sessions, one system
+    prompt) and resumed round 2 on two fresh engines over the serve
+    phase's weights, one at the sharing default and one with
+    ``prefix_sharing = False``, in turns, each engine's grammar table
+    built beforehand."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    users = ["pick the next action", "decide what to do next",
+             "propose one step"]
+    runs = {}
+    for label, sharing in (("sharing", True), ("no_sharing", False)):
+        eng = GenerateEngine(base.cfg, base.params, base.tokenizer, seed=0,
+                             device="cuda")
+        eng.prefix_sharing = sharing
+        backend = R.TorchBackend([MODEL], device="cuda",
+                                 engines={MODEL: eng})
+        # a sessionless constrained token first: each engine builds its
+        # JSON grammar table (seconds on the host) outside the rounds
+        backend.query([R.QueryRequest(MODEL, chat("warm up", 1),
+                                      temperature=0.0, max_tokens=1,
+                                      constrain_json=True)])
+        runs[label] = {"backend": backend,
+                       "hist": [chat(u, N_RULES) for u in users]}
+    out = {}
+    for rnd in (1, 2):
+        for label, run in runs.items():
+            summary, res = fanout_round(torch, R, kernels, run["backend"],
+                                        run["hist"])
+            out.setdefault(label, []).append({"round": rnd, **summary})
+            run["hist"] = [h + [{"role": "assistant", "content": r.text},
+                                {"role": "user",
+                                 "content": "refine your proposal"}]
+                           for h, r in zip(run["hist"], res)]
+    on, off = out["sharing"][0], out["no_sharing"][0]
+    if not (on["cached_tokens"][0] == 0
+            and min(on["cached_tokens"][1:]) >= 128
+            and on["deferred_rows"] == [[1, 2]]
+            and on["prefill_tokens"] < off["prefill_tokens"]
+            and on["pool_pages_in_use"] < off["pool_pages_in_use"]
+            and on["launches"]["ragged_fwd"] > 0
+            and off["cached_tokens"] == [0, 0, 0]):
+        emit({"phase": "prefix", "fanout": out})
+        raise AssertionError("the fan-out round did not share its prompt")
+    del runs
     torch.cuda.empty_cache()
-    return report, launches
+    return out
+
+
+def prefix_cow(torch, R) -> dict:
+    """Part 2: copy-on-write through a 2-layer fp32 cut of llama-3-8b on
+    the GPU (kernels) and on the CPU (plain twins), one set of weights,
+    unified tier on both, greedy: session a stores a prompt, b adopts its
+    first page, then a diverges at token 100, inside that shared page.
+    The divergent call must copy the page (cow_copies) and run on gather
+    (the swapped page is only partly reused), b's pages must stay
+    bit-identical on the card, and both devices must give the same texts,
+    cached counts and counters."""
+    import copy
+    from quoracle_tpu_torch.models import config as C
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.tokenizer import get_tokenizer
+    from quoracle_tpu_torch.models.transformer import init_params
+    cfg = C.register_model(dataclasses.replace(
+        C.get_model_config(MODEL), name="llama-3-8b-2layer", n_layers=2))
+    tok = get_tokenizer(f"xla:{cfg.name}")
+    pa = tok.encode_chat(chat("task alpha", 8))
+    pb = tok.encode_chat(chat("task beta", 8))
+    pa_div = pa[:100] + tok.encode(" rewritten after condensation, "
+                                   "decide again")
+    cpu = init_params(cfg, torch.Generator().manual_seed(2), device="cpu",
+                      dtype=torch.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng = GenerateEngine(cfg, copy.deepcopy(cpu) if dev == "cuda"
+                             else cpu, tok, seed=0, device=dev)
+        eng.unified_min_tokens = 0          # the CPU default is gather
+        calls: list = []
+        tier_spy(eng, calls.append)
+        t0 = time.monotonic()
+
+        def gen(prompt, sid):
+            (r,) = eng.generate([prompt], temperature=0.0,
+                                max_new_tokens=12, session_ids=[sid])
+            return [r.text, r.n_cached_tokens]
+
+        texts = [gen(pa, "a"), gen(pb, "b")]
+        b_pages = list(eng.sessions.get("b").pages)
+        before = [x[:, b_pages].clone() for x in (eng.sessions.k,
+                                                  eng.sessions.v)]
+        del calls[:]
+        texts.append(gen(pa_div, "a"))
+        cow_tiers = [c for c in calls if isinstance(c, str)]
+        kept = all(torch.equal(x[:, b_pages], y) for x, y in zip(
+            (eng.sessions.k, eng.sessions.v), before))
+        texts.append(gen(pb + tok.encode(" more"), "b"))
+        runs[dev] = {"s": time.monotonic() - t0, "texts": texts,
+                     "cow_tiers": cow_tiers, "b_pages_kept": kept,
+                     "prefix_cache": eng.sessions.prefix_cache.stats()}
+        del eng
+    del cpu
+    torch.cuda.empty_cache()
+    g, c = runs["cuda"], runs["cpu"]
+    report = {"model": cfg.name, "gpu": g, "cpu_s": c["s"],
+              "identical": all(g[k] == c[k] for k in (
+                  "texts", "cow_tiers", "prefix_cache"))}
+    if not (report["identical"] and g["b_pages_kept"]
+            and g["prefix_cache"]["cow_copies"] >= 1
+            and g["cow_tiers"] == ["direct_or_gather"]
+            and g["texts"][1][1] >= 128):
+        report["cpu"] = c
+        emit({"phase": "prefix", "cow": report})
+        raise AssertionError("copy-on-write failed on the card")
+    return report
+
+
+def prefix_second_agent(torch, R, kernels, pool_backend) -> dict:
+    """Part 3: a second agent's first decide over the decide pool, after
+    the decide phase's two decides, with the same action set and
+    messages: the members without a window (llama-3-8b, gemma-7b) adopt
+    the system prompt's cached pages, the windowed one (mistral-7b)
+    adopts none."""
+    from quoracle_tpu_torch.consensus import engine as CE
+    kernels.reset_launch_counts()
+    outcomes, records = run_decides(R, CE, pool_backend, DECIDE_POOL,
+                                    DECIDE_MAX_TOKENS,
+                                    session_key="agent-second", steps=1)
+    torch.cuda.synchronize()
+    summary = decide_summary(outcomes[0], records[0])
+    first = summary["member_cached_tokens"][0]
+    report = {"status": summary["status"],
+              "latency_ms": summary["latency_ms"],
+              "rounds_used": summary["rounds_used"],
+              "prefill_ms": summary["prefill_ms"],
+              "decode_ms": summary["decode_ms"],
+              "prompt_tokens": summary["prompt_tokens"],
+              "member_cached_tokens": summary["member_cached_tokens"],
+              "tiers": summary["tiers"], "launches": kernels.launch_counts(),
+              "prefix_cache": {
+                  spec: eng.sessions.prefix_cache.stats()
+                  for spec, eng in pool_backend.engines.items()}}
+    windowed = {spec: eng.cfg.sliding_window is not None
+                for spec, eng in pool_backend.engines.items()}
+    report["windowed"] = windowed
+    if not (sorted(windowed.values()) == [False, False, True]
+            and all(first[spec] == 0 if w else first[spec] >= 128
+                    for spec, w in windowed.items())):
+        emit({"phase": "prefix", "second_agent": report})
+        raise AssertionError("the second agent's decide did not adopt")
+    return report
+
+
+def phase_prefix(torch, R, kernels, backend, pool_backend) -> dict:
+    """The radix prefix cache and prefix sharing on the card, in three
+    parts, each with its ``at_s``: the fan-out at full width with and
+    without sharing, copy-on-write at a 2-layer fp32 cut against the CPU,
+    and a second agent's first decide over the decide pool."""
+    report = {"phase": "prefix", "model": MODEL}
+    report["fanout"] = prefix_fanout(torch, R, kernels,
+                                     backend.engines[MODEL])
+    report["fanout_at_s"] = time.monotonic() - START
+    report["cow"] = prefix_cow(torch, R)
+    report["cow_at_s"] = time.monotonic() - START
+    report["second_agent"] = prefix_second_agent(torch, R, kernels,
+                                                 pool_backend)
+    report["second_agent_at_s"] = time.monotonic() - START
+    return report
 
 
 def paged_library(torch, kernel, q, kp, vp, tables, ints, window,
@@ -1954,10 +2200,10 @@ def ptxas_entries(log: str) -> list:
 def main(argv) -> int:
     only = None
     if argv[1:2] == ["--only"] and argv[2:3] in (["kernels"], ["sweep"],
-                                                 ["decide"]):
+                                                 ["decide"], ["prefix"]):
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
-        print(f"usage: {argv[0]} [--only kernels|sweep|decide]",
+        print(f"usage: {argv[0]} [--only kernels|sweep|decide|prefix]",
               file=sys.stderr)
         return 2
     import torch
@@ -1996,10 +2242,16 @@ def main(argv) -> int:
     if only == "sweep":
         emit(phase_sweep(torch, F, P))
         return 0
-    if only == "decide":
-        decide_report, _ = phase_decide(torch, R, kernels,
-                                        R.TorchBackend([MODEL], seed=0))
+    if only in ("decide", "prefix"):
+        backend = R.TorchBackend([MODEL], seed=0)
+        decide_report, _, pool_backend = phase_decide(torch, R, kernels,
+                                                      backend)
         emit(decide_report)
+        if only == "prefix":
+            emit(phase_prefix(torch, R, kernels, backend, pool_backend))
+            return 0
+        del pool_backend
+        torch.cuda.empty_cache()
         emit({"phase": "reference", "decide": reference_decide(torch, R)})
         return 0
     cases = phase_kernels(torch, F, P)
@@ -2021,8 +2273,13 @@ def main(argv) -> int:
     int8_report, kept["ragged_q8_fwd"], int8_launches = phase_serve_int8(
         torch, R, P, kernels, dfa, backend, report)
     emit(int8_report)
-    decide_report, decide_launches = phase_decide(torch, R, kernels, backend)
+    decide_report, decide_launches, pool_backend = phase_decide(
+        torch, R, kernels, backend)
     emit(decide_report)
+    prefix_report = phase_prefix(torch, R, kernels, backend, pool_backend)
+    emit(prefix_report)
+    del pool_backend
+    torch.cuda.empty_cache()
     launches = {**launches,
                 **{k: paged_launches[k] for k in PAGED_KERNELS},
                 "ragged_q8_fwd": int8_launches["ragged_q8_fwd"]}
@@ -2030,6 +2287,9 @@ def main(argv) -> int:
     for e in entries:       # the decide path's own counts, beside them
         e["decide_launches"] = decide_launches[e["name"]]
         e["embed_launches"] = decide_report["embed"]["launches"][e["name"]]
+        e["prefix_launches"] = sum(
+            r["launches"][e["name"]]
+            for r in prefix_report["fanout"]["sharing"])
     emit({"phase": "mainpath", "kernels": entries})
     emit(phase_trace(torch, R, backend, hist))
     del backend, kept, paged_kept

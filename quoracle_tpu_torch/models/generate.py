@@ -38,9 +38,16 @@ keeps fp32 scale pools ``[L, n_pages, KV, page]`` beside the pages. An
 int8 pool serves through the unified tier on every device (the int8
 ragged kernel on the card); the gather tier stays its fallback,
 dequantizing into the working cache and requantizing on the way back; the
-direct tier, which has no scale stream, is off. Left for later slices:
-the radix prefix cache and its prefix sharing, KV tiers, speculation, VLM
-rows and meshes.
+direct tier, which has no scale stream, is off.
+
+Prefix sharing (``prefix_sharing``, on by default as in the JAX engine):
+pages are refcounted, and the radix prefix cache (models/prefix_cache.py)
+maps page-aligned token prefixes of stored sessions to their pages. A new
+session adopts the longest cached prefix of its prompt and prefills only
+the rest; a batch of new sessions sharing a prompt runs in two waves, so
+the shared prompt prefills once; a write that would change a shared page
+copies it first. Windowed models never share. Left for later slices: KV
+tiers, speculation, VLM rows and meshes.
 """
 
 from __future__ import annotations
@@ -48,12 +55,14 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+from collections import Counter
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from quoracle_tpu_torch.models.config import ModelConfig
+from quoracle_tpu_torch.models.prefix_cache import RadixPrefixCache
 from quoracle_tpu_torch.models.quant import (
     kv_quant, kv_token_bytes, quantize_params,
 )
@@ -430,6 +439,10 @@ class _Session:
     pages: list[int]
     start_pos: int = 0
     last_used: float = 0.0
+    # adopted-prefix marker (cross-session prefix sharing): the pages
+    # belong to the radix cache and other sessions; _run_paged
+    # refcount-acquires them before using them as this row's dst prefix
+    shared_prefix: bool = False
 
     @property
     def resident_len(self) -> int:
@@ -440,9 +453,11 @@ class SessionStore:
     """Paged session cache: sessions are PAGE LISTS into one device pool
     (``k``/``v`` [L, n_pages, page, KV, hd], set by the engine; int8 pools
     add ``k_scale``/``v_scale`` [L, n_pages, KV, page]). Page 0 is
-    scratch. LRU sessions evict when the free list runs dry. Thread-safe;
-    the engine additionally serializes sessioned steps. (No radix prefix
-    cache, refcounts or KV tiers yet: every page has one owner.)"""
+    scratch. Pages are refcounted: a page shared by several sessions, an
+    in-flight adopter and the radix prefix cache (models/prefix_cache.py)
+    frees only when its last holder releases it. When the free list runs
+    dry, unreferenced cache leaves evict first, then LRU sessions.
+    Thread-safe; the engine additionally serializes sessioned steps."""
 
     def __init__(self, max_tokens: int = 262_144, page: int = PAGE):
         self.page = page
@@ -451,6 +466,13 @@ class SessionStore:
         self.lock = threading.RLock()
         self._sessions: dict[str, _Session] = {}
         self._free: list[int] = list(range(self.n_pages - 1, 0, -1))
+        # page refcounts; an absent key means 1 (every allocated page
+        # starts singly owned)
+        self._refs: dict[int, int] = {}
+        # page-aligned token blocks -> pool pages, holding its own
+        # reference on each: cached prefixes outlive their session. The
+        # engine feeds it at store-back and consults it for new sessions.
+        self.prefix_cache = RadixPrefixCache(self)
         self.k: Optional[torch.Tensor] = None
         self.v: Optional[torch.Tensor] = None
         self.k_scale: Optional[torch.Tensor] = None
@@ -465,34 +487,97 @@ class SessionStore:
 
     def alloc(self, n: int, protect: tuple = (),
               evict: bool = True) -> Optional[list[int]]:
-        """Take n pages from the free list, evicting LRU sessions (never
-        the ``protect`` keys — the batch's own sessions) as needed.
-        Returns None — WITHOUT evicting anything — when the request cannot
-        be satisfied even by evicting every unprotected session.
+        """Take n pages from the free list, evicting as needed: radix-cache
+        leaves first (a cached but unreferenced prefix is recomputable),
+        then LRU sessions (never the ``protect`` keys — the batch's own
+        sessions). Returns None — WITHOUT evicting anything — when the
+        request cannot be satisfied even by evicting every unprotected
+        session, counted exactly per page refcount (``_attainable``).
         ``evict=False`` takes only from the free list (temporary pages
-        must never destroy other agents' resident sessions)."""
+        must never destroy other agents' resident sessions or thrash the
+        prefix cache)."""
         with self.lock:
             if not evict:
                 if n > len(self._free):
                     return None
                 return [self._free.pop() for _ in range(n)]
             victims = [k for k in self._sessions if k not in protect]
-            attainable = len(self._free) + sum(
-                1 for k in victims for p in self._sessions[k].pages if p)
-            if n > attainable:
+            if n > self._attainable(victims):
                 return None
             while len(self._free) < n:
+                if self.prefix_cache.evict(n - len(self._free)):
+                    continue
+                if not victims:
+                    break        # _attainable guarantees this can't happen
                 lru = min(victims, key=lambda k: self._sessions[k].last_used)
                 victims.remove(lru)
+                # (a KV tier would demote the victim host-side here)
                 self._release(self._sessions.pop(lru).pages)
+            if len(self._free) < n:
+                return None      # accounting drift: _attainable overcounted
             return [self._free.pop() for _ in range(n)]
 
+    def _attainable(self, victims: list) -> int:
+        """Exact count of pages reachable by evicting ``victims`` and then
+        stripping freeable prefix-cache leaves: free list + cache pages
+        whose every non-tree reference a victim would release + victim
+        pages (outside the cache) all of whose references victims hold."""
+        released: Counter = Counter()
+        for k in victims:
+            for p in self._sessions[k].pages:
+                if p:
+                    released[p] += 1
+        n_tree = self.prefix_cache.evictable_after(released)
+        extra = sum(1 for p, c in released.items()
+                    if not self.prefix_cache.holds(p)
+                    and c >= self._refs.get(p, 1))
+        return len(self._free) + n_tree + extra
+
     def _release(self, pages: list[int]) -> None:
-        self._free.extend(p for p in pages if p != 0)
+        for p in pages:
+            if p == 0:
+                continue
+            c = self._refs.get(p, 1) - 1
+            if c <= 0:
+                self._refs.pop(p, None)
+                self._free.append(p)
+            else:
+                self._refs[p] = c
 
     def release(self, pages: list[int]) -> None:
         with self.lock:
             self._release(pages)
+
+    def acquire(self, pages: list[int]) -> None:
+        """Add a reference to already-allocated pages (an adopter holds
+        the cached prefix pages alive past their other holders' release)."""
+        with self.lock:
+            for p in pages:
+                if p != 0:
+                    self._refs[p] = self._refs.get(p, 1) + 1
+
+    def match_prefix(self, tokens: Sequence[int],
+                     max_reuse: int) -> Optional[_Session]:
+        """The longest PAGE-ALIGNED radix-cached prefix of ``tokens`` (at
+        most ``max_reuse`` tokens), as a marker session (prefix tokens and
+        page ids, ``shared_prefix=True``), or None under one page.
+        Alignment is a correctness requirement: the adopter's own suffix
+        must never write into a page it shares."""
+        with self.lock:
+            # (a KV tier would page host or disk blocks back in here)
+            pages, matched = self.prefix_cache.match(tokens, max_reuse)
+            if matched < self.page:
+                return None
+            return _Session(tokens=list(tokens[:matched]), pages=pages,
+                            start_pos=0, shared_prefix=True)
+
+    def insert_prefix(self, tokens: Sequence[int],
+                      pages: Sequence[int]) -> int:
+        """Feed a freshly stored session's full pages into the radix cache
+        (the engine calls this at store-back for full-attention sessions
+        with start_pos == 0). Returns the number of new nodes."""
+        with self.lock:
+            return self.prefix_cache.insert(tokens, pages)
 
     def put(self, key: str, sess: _Session) -> None:
         """Replace a session, releasing any of the old session's pages the
@@ -641,6 +726,11 @@ class GenerateEngine:
         # sessioned calls (lookup, allocation, pool writes, store-back)
         # are one atomic unit per engine
         self._paged_lock = threading.Lock()
+        # Cross-session prefix sharing through the radix prefix cache
+        # (SessionStore.match_prefix / insert_prefix): on by default for
+        # full-attention models, as in the JAX engine; the flag gates both
+        # the lookups and the store-back inserts
+        self.prefix_sharing = True
         self._grammar_lock = threading.Lock()
         self._json_cache: dict = {}
         self.last_prefill_tokens = 0   # suffix tokens actually computed
@@ -692,12 +782,101 @@ class GenerateEngine:
         the top-level ``"action"`` value to the given names."""
         if session_ids is not None and any(session_ids):
             with self._paged_lock:
+                later = self._prefix_wave_split(prompts, session_ids)
+                if later:
+                    return self._generate_waves(
+                        later, prompts, temperature, top_p, max_new_tokens,
+                        generator, session_ids, constrain_json,
+                        action_enums)
                 return self._generate_impl(
                     prompts, temperature, top_p, max_new_tokens, generator,
                     session_ids, constrain_json, action_enums)
         return self._generate_impl(prompts, temperature, top_p,
                                    max_new_tokens, generator, None,
                                    constrain_json, action_enums)
+
+    def _prefix_wave_split(self, prompts, session_ids) -> list[int]:
+        """Intra-batch prefix dedup (the consensus fan-out shape: K new
+        sessions arrive in ONE batch sharing the built prompt): rows that
+        would prefill a page-aligned prefix another row of the SAME batch
+        is about to prefill — and that the radix cache does not cover yet
+        — are deferred to a second wave, which then adopts the first
+        wave's freshly cached pages. Returns the deferred row indices
+        ([] = single wave)."""
+        if not self.prefix_sharing or self.cfg.sliding_window is not None:
+            return []
+        st = self.sessions
+        page = st.page
+        first: list[int] = []
+        later: list[int] = []
+        sid_counts = Counter(s for s in session_ids if s)
+        with st.lock:
+            seen: set = set()
+            for i, sid in enumerate(session_ids):
+                if not sid or sid in seen:
+                    continue        # sessionless / duplicate-sid rows
+                seen.add(sid)
+                if sid_counts[sid] > 1:
+                    # deferring the first occurrence would hand the
+                    # session to the duplicate
+                    continue
+                if st._sessions.get(sid) is not None:
+                    continue        # resident: resumes off its own pages
+                cap = len(prompts[i]) - 1
+                best = 0
+                for j in first:
+                    l = min(_lcp(prompts[j], prompts[i]), cap)
+                    best = max(best, (l // page) * page)
+                # defer only when waiting gains >= 1 full page over what
+                # the cache would already serve this row today
+                if (best >= page
+                        and st.prefix_cache.match_len(prompts[i], cap)
+                        < best):
+                    later.append(i)
+                else:
+                    first.append(i)
+        return later
+
+    def _generate_waves(self, later, prompts, temperature, top_p,
+                        max_new_tokens, generator, session_ids,
+                        constrain_json, action_enums) -> list[GenResult]:
+        """Two-wave sessioned generate (the caller holds _paged_lock): wave
+        1 prefills the batch's unique prefixes and stores them (radix
+        inserts included), wave 2 runs the deferred rows, which adopt
+        those pages and prefill only their suffixes. The JAX engine splits
+        its rng key between the waves; here both waves draw from the one
+        generator in turn, which temperature-0 rows never read. The phase
+        fields (last_prefill_tokens, _s, last_decode_s) add up over both
+        waves."""
+        n = len(prompts)
+        later_set = set(later)
+        first_idx = [i for i in range(n) if i not in later_set]
+
+        def pick(seq, idxs):
+            if seq is None or isinstance(seq, (int, float)):
+                return seq
+            return [seq[i] for i in idxs]
+
+        def run(idxs):
+            return self._generate_impl(
+                [prompts[i] for i in idxs], pick(temperature, idxs),
+                pick(top_p, idxs), pick(max_new_tokens, idxs), generator,
+                pick(session_ids, idxs), pick(constrain_json, idxs),
+                pick(action_enums, idxs))
+
+        res1 = run(first_idx)
+        w1 = (self.last_prefill_tokens, self.last_prefill_s,
+              self.last_decode_s)
+        res2 = run(later)
+        self.last_prefill_tokens += w1[0]
+        self.last_prefill_s += w1[1]
+        self.last_decode_s += w1[2]
+        merged: list = [None] * n
+        for j, i in enumerate(first_idx):
+            merged[i] = res1[j]
+        for j, i in enumerate(later):
+            merged[i] = res2[j]
+        return merged
 
     def drop_session(self, session_id: str) -> None:
         """Release a session's pages, serialized with sessioned generate
@@ -755,6 +934,19 @@ class GenerateEngine:
                 paged = True
                 s = self.sessions.get(sid)
                 if s is None:
+                    # a NEW session whose prompt starts with a radix-cached
+                    # page-aligned prefix adopts those pages: _run_paged
+                    # acquires them and uses them as the row's dst prefix,
+                    # so only the suffix prefills (windowed models never
+                    # share)
+                    if (self.prefix_sharing
+                            and cfg.sliding_window is None):
+                        cap = len(prompts[i]) - 1
+                        d = (self.sessions.match_prefix(prompts[i], cap)
+                             if cap > 0 else None)
+                        if d is not None:
+                            sess_rows[i] = d
+                            reuse_abs[i] = len(d.tokens)
                     continue
                 # >= 1 suffix token must run to produce last-position logits
                 p = min(_lcp(s.tokens, prompts[i]), len(prompts[i]) - 1)
@@ -918,15 +1110,22 @@ class GenerateEngine:
         page list back (ints only — no KV bytes move through the host).
         The caller holds ``_paged_lock``.
 
-        Tier choice (the JAX ``_run_paged`` without prefix sharing):
-        unified and direct decode each need their gate and no
-        ``_force_gather_decode``, and the direct tier an unquantized pool; both read every row's prompt from pages,
-        so rows without a stored session borrow TEMP pages from the free
-        list, and when there are none both are off. Unified and the direct
-        prefill also need every resumed row to write through its own
-        pages: a declined store (pool exhausted) rules them out. The
-        direct prefill has its own gate and chunk cap. What remains is
-        gather."""
+        Prefix sharing: an adopted radix prefix is acquired before any
+        allocation and becomes the row's dst prefix (the stored session
+        takes over that reference). A shared page the row would rewrite
+        past its identical prefix is swapped for a fresh one
+        (copy-on-write); swapping the partly reused boundary page leaves a
+        dst hole only the gather scatter fills (``partial_swap``).
+
+        Tier choice (the JAX ``_run_paged``): unified and direct decode
+        each need their gate and no ``_force_gather_decode``, and the
+        direct tier an unquantized pool; both read every row's prompt from
+        pages, so rows without a stored session borrow TEMP pages from the
+        free list, and when there are none both are off. Unified and the
+        direct prefill also need every resumed row to write through its
+        own pages (a declined store rules them out) and no
+        ``partial_swap``. The direct prefill has its own gate and chunk
+        cap. What remains is gather."""
         n = len(prompts)
         st = self.sessions
         page = st.page
@@ -944,7 +1143,17 @@ class GenerateEngine:
                       and max_prompt >= self.direct_decode_min_tokens)
         unified_ok = (not self._force_gather_decode
                       and max_prompt >= self.unified_min_tokens)
+        adopted_release: list[list[int]] = [[] for _ in range(n)]
+        partial_swap = False
         with st.lock:   # one allocation transaction for the batch
+            # acquire every adopted prefix FIRST: an alloc below may evict
+            # its other holders, and the pages must outlive this call's
+            # steps
+            for i in range(n):
+                s = sess_rows[i]
+                if s is not None and s.shared_prefix:
+                    st.acquire(s.pages)
+                    adopted_release[i] = list(s.pages)
             for i in range(n):
                 s = sess_rows[i]
                 if s is not None:
@@ -959,22 +1168,58 @@ class GenerateEngine:
                 # dead either way, and put_raw must not leak them
                 stored = st._sessions.get(store_sids[i])
                 old = list(stored.pages) if stored is not None else []
+                if stored is None and s is not None and s.shared_prefix:
+                    # the adopted prefix becomes the dst prefix (rewritten
+                    # with the gathered, byte-identical values) and the
+                    # stored session owns the reference acquired above
+                    old = list(s.pages)
+                    adopted_release[i] = []
                 # resident pages past the table width can't be rewritten
                 # this call: release them after the batch
                 spills[i], old = old[maxp:], old[:maxp]
+                # SHARED pages are writable only inside the row's
+                # identical-prefix region; a gather scatter writes every
+                # dst slot. Shared pages past ``need`` leave dst (our
+                # reference released), shared ones before it are swapped
+                # for fresh pages (copy-on-write)
                 pre_buf = reuse_abs[i] - kv_off_host[i]
+                safe_full = pre_buf // page
                 need_tokens = min(pre_buf + len(suffixes[i])
                                   + int(limits[i]), maxp * page)
-                n_extra = max(0, -(-need_tokens // page) - len(old))
+                need = -(-need_tokens // page)
+                tail_shared = [pg for j, pg in enumerate(old)
+                               if j >= need and st._refs.get(pg, 1) > 1]
+                if tail_shared:
+                    old = [pg for j, pg in enumerate(old)
+                           if not (j >= need and st._refs.get(pg, 1) > 1)]
+                shared_beyond = [j for j, pg in enumerate(old)
+                                 if safe_full <= j < need
+                                 and st._refs.get(pg, 1) > 1]
+                # the direct prefill and the unified tick write only chunk
+                # positions >= pre_buf: a swapped, partly reused boundary
+                # page needs the gather scatter
+                if any(j == safe_full and pre_buf % page
+                       for j in shared_beyond):
+                    partial_swap = True
+                if shared_beyond:
+                    st.prefix_cache.note_cow(len(shared_beyond))
+                n_extra = max(0, need - len(old)) + len(shared_beyond)
                 if n_extra:
                     extra = st.alloc(n_extra, protect=protect)
                     if extra is None:
                         # pool exhausted even after eviction: serve the
-                        # row without storing (old session stays valid)
+                        # row without storing (old session stays valid);
+                        # an adoption reverts to read-only use
                         store_sids[i] = None
                         spills[i] = []
+                        if s is not None and s.shared_prefix:
+                            adopted_release[i] = list(s.pages)
                         continue
+                    for j in shared_beyond:
+                        st._release([old[j]])   # our ref; others keep
+                        old[j] = extra.pop()
                     old = old + extra
+                st._release(tail_shared)        # our refs; others keep
                 dst_lists[i] = old
                 dst[i, :len(old)] = old
             if use_direct or unified_ok:
@@ -999,9 +1244,11 @@ class GenerateEngine:
                         temp_lists[i] = None
 
         # every resumed row must read its prefix from the SAME pages the
-        # unified kernel / direct prefill write (nothing relocates it)
-        own_pages = all(sess_rows[i] is None or dst_lists[i] is not None
-                        for i in range(n))
+        # unified kernel / direct prefill write (nothing relocates it),
+        # and no swapped boundary page may leave a hole in dst
+        own_pages = not partial_swap and all(
+            sess_rows[i] is None or dst_lists[i] is not None
+            for i in range(n))
         T = tokens.shape[1]
         use_direct_pre = (use_direct and own_pages
                           and not self._force_gather_prefill
@@ -1044,11 +1291,15 @@ class GenerateEngine:
                 start += drop * page
             st.put_raw(sid, _Session(tokens=toks, pages=pages,
                                      start_pos=start))
+            # every FULL page of a conversation stored from position 0
+            # becomes adoptable (windowed sessions never share)
+            if self.prefix_sharing and start == 0 and W is None:
+                st.insert_prefix(toks, pages)
         # temp pages (sessionless rows on the page-reading tiers) die with
-        # the call
-        for tmp in temp_lists:
-            if tmp:
-                st.release(tmp)
+        # the call; adoptions no stored session took over release now
+        for pages in temp_lists + adopted_release:
+            if pages:
+                st.release(pages)
         return out, n_emitted, jstate_f, t_prefill, now
 
     def _run_split(self, n, suffixes, src, dst, tokens, pre_arr, off_arr,

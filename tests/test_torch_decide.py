@@ -11,9 +11,9 @@ weights (tests/_torch_parity.py):
   (b) the same JAX engine over the port's ``TorchBackend(device="cpu")``;
   (c) the port's ``ConsensusEngine`` over the port's ``TorchBackend``.
 
-Both packages' engines are forced onto the unified ragged tier and the
-JAX engines run without the radix prefix cache, which the port does not
-have yet. A decide never samples at temperature 0 by itself
+Both packages' engines are forced onto the unified ragged tier, and
+these decides run without the radix prefix cache on either side; one
+more test runs two agents' decides with sharing at its default. A decide never samples at temperature 0 by itself
 (consensus/temperature.py descends from 1.0 to 0.2), so the runs are made
 greedy by pointing both engine modules' ``temperature_for_round`` at 0.0.
 The three must agree on status, decision, rounds, cached tokens, every
@@ -55,21 +55,21 @@ MESSAGES = [{"role": "system", "content": SYSTEM},
 MAX_TOKENS = 32
 
 
-def _jax_backend():
+def _jax_backend(sharing=False):
     engines = {}
     for spec in POOL:
         jcfg, _ = both_configs(spec.split(":")[1])
         params, _ = shared_params(spec.split(":")[1], seed=7)
         e = jgen.GenerateEngine(jcfg, params, jtok.get_tokenizer(spec))
         e.unified_min_tokens = 0       # the unified ragged tier
-        e.prefix_sharing = False       # the port has no radix cache yet
+        e.prefix_sharing = sharing     # as the port's engines below
         engines[spec] = e
     e0 = engines[POOL[0]]
     return jrt.TPUBackend(POOL, engines=engines, embedder=jemb.EmbeddingEncoder(
         e0.cfg, e0.params, e0.tokenizer))
 
 
-def _torch_backend():
+def _torch_backend(sharing=False):
     engines = {}
     for spec in POOL:
         _, tcfg = both_configs(spec.split(":")[1])
@@ -77,6 +77,9 @@ def _torch_backend():
         e = tgen.GenerateEngine(tcfg, model, ttok.get_tokenizer(spec),
                                 device="cpu")
         e.unified_min_tokens = 0       # on the CPU the default is gather
+        # the two-decide tests pin the unshared tier; the sharing default
+        # is test_second_agent_adopts_the_prompt_at_the_default's
+        e.prefix_sharing = sharing
         engines[spec] = e
     return trt.TorchBackend(POOL, device="cpu", engines=engines)
 
@@ -133,6 +136,49 @@ def test_greedy_decides_identical_in_both_packages(greedy):
         assert len(texts) == len(POOL) and all(texts)
         if out.decision is not None:
             assert out.decision.action == "wait"
+
+
+def _two_agents(ce, backend):
+    """One decide each by two agents (two session keys) with the same
+    action set and messages (a system prompt of more than a page), in
+    turn. Returns the outcomes and, per agent, each member's cached tokens
+    in each round."""
+    system = SYSTEM + " " + " ".join(
+        f"Rule {i}: keep step {i} short." for i in range(8))
+    messages = [{"role": "system", "content": system}, MESSAGES[1]]
+    cached: list = []
+    orig = backend.query
+
+    def query(requests):
+        res = orig(requests)
+        cached[-1].append({r.model_spec: r.cached_tokens for r in res})
+        return res
+    backend.query = query
+    outs = []
+    for agent in ("agent-one", "agent-two"):
+        cached.append([])
+        outs.append(ce.ConsensusEngine(backend, ce.ConsensusConfig(
+            model_pool=list(POOL), max_refinement_rounds=2,
+            session_key=agent, allowed_actions={"wait"},
+            max_tokens=MAX_TOKENS)).decide({m: list(messages)
+                                            for m in POOL}))
+    return outs, cached
+
+
+def test_second_agent_adopts_the_prompt_at_the_default(greedy):
+    """Both packages at their sharing default: the second agent's first
+    decide adopts the radix-cached pages of the prompt the first agent's
+    decide prefilled, on every member (neither tiny member has a window),
+    and both packages agree on the outcomes, the audit records and each
+    member's cached tokens."""
+    jouts, jcached = _two_agents(jce, _jax_backend(sharing=True))
+    touts, tcached = _two_agents(tce, _torch_backend(sharing=True))
+    assert [outcome_view(o) for o in touts] == [outcome_view(o)
+                                                for o in jouts]
+    assert tcached == jcached
+    assert all(n == 0 for n in tcached[0][0].values())
+    assert all(n >= 128 for n in tcached[1][0].values()), tcached
+    assert touts[1].cached_tokens > touts[0].cached_tokens
 
 
 def test_sampled_decide_on_the_port():

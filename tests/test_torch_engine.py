@@ -4,8 +4,9 @@ against the JAX package's, on the CPU.
 The same fp32 weights (tests/_torch_parity.py) serve in a JAX
 ``GenerateEngine`` with the unified ragged path forced on and the radix
 prefix cache off (the seam tests/test_ragged_attention.py uses) and in
-the port's engine on ``device="cpu"``, unified forced on the same way
-(tests/test_torch_paged_kv.py covers the direct and gather tiers). At temperature 0 the token ids
+the port's engine on ``device="cpu"``, unified forced on and the cache
+off the same way (tests/test_torch_paged_kv.py covers the direct and
+gather tiers, tests/test_torch_prefix_cache.py the sharing default). At temperature 0 the token ids
 must be IDENTICAL: sessionless rows (dense path), sessioned round 1 and
 the resumed round 2 (unified ragged path, equal cached-token counts),
 grammar-constrained JSON rows, and a sliding-window model whose session
@@ -39,10 +40,12 @@ def _engines(name):
     spec = f"xla:{name}"
     je = jgen.GenerateEngine(jcfg, params, jtok.get_tokenizer(spec), **KW)
     je.unified_min_tokens = 0       # force the unified ragged path
-    je.prefix_sharing = False       # the port has no radix cache yet
     te = tgen.GenerateEngine(tcfg, model, ttok.get_tokenizer(spec),
                              device="cpu", **KW)
     te.unified_min_tokens = 0       # on the CPU, AUTO leaves unified off
+    # these tests pin the unshared tiers (tests/test_torch_prefix_cache.py
+    # holds both packages at their sharing default)
+    je.prefix_sharing = te.prefix_sharing = False
     return je, te
 
 

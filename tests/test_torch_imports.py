@@ -19,6 +19,7 @@ for name in names:
 for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.ops.paged_attention",
              "quoracle_tpu_torch.models.quant",
+             "quoracle_tpu_torch.models.prefix_cache",
              "quoracle_tpu_torch.utils.cache",
              "quoracle_tpu_torch.models.embeddings",
              "quoracle_tpu_torch.actions.schema",

@@ -352,11 +352,13 @@ def _engine_pair(session_max_bytes=2 << 30, **attrs):
     params, model = shared_params("tiny", seed=7)
     je = jgen.GenerateEngine(jcfg, params, jtok.get_tokenizer("xla:tiny"),
                              session_max_bytes=session_max_bytes, **KW)
-    je.prefix_sharing = False           # the port has no radix cache yet
     te = tgen.GenerateEngine(tcfg, model, ttok.get_tokenizer("xla:tiny"),
                              session_max_bytes=session_max_bytes,
                              device="cpu", **KW)
     for eng in (je, te):
+        # these tests pin the unshared tiers (tests/test_torch_prefix_cache
+        # .py holds both packages at their sharing default)
+        eng.prefix_sharing = False
         for k, v in attrs.items():
             setattr(eng, k, v)
     assert te.sessions.n_pages == je.sessions.n_pages
