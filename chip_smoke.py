@@ -56,7 +56,8 @@ never prints its last line):
              round 2's prefill ms and ms per decode step are printed for
              int8 unified, int8 gather and bf16 unified.
   decide     two decides of the port's ConsensusEngine over TorchBackend
-             for the north-star pool, llama-3-8b (the serve phase's engine,
+             (members served concurrently, the backend's default) for
+             the north-star pool, llama-3-8b (the serve phase's engine,
              also the embedder's weights), mistral-7b and gemma-7b at full
              width and depth, random bf16 weights from seeded generators
              (seed + i, as the backend draws them): one agent (session
@@ -94,6 +95,23 @@ never prints its last line):
              action set and messages: cached tokens of at least 128 on
              llama-3-8b and gemma-7b, 0 on mistral-7b (windowed models
              never share); its status and latency are printed
+  batch      the JAX backend's default dispatch on the card: three
+             agents (three threads, the serve traffic's JSON rows, 32 new
+             tokens) send round 1 and the resumed round 2 to llama-3-8b;
+             a wrapper around engine.generate (here, not in the package)
+             holds the first call until the others have queued, and the
+             member's baton batcher must merge them (fewer generate calls
+             than rows, one session per agent, every text a JSON prefix);
+             three more agents send the same two rounds in turn, and the
+             resumed rounds' wall ms are printed side by side. A row with
+             deadline_ms=0 must come back deadline_exceeded without a
+             generate call, and a row whose deadline lapses while another
+             caller holds the member must be dropped from the batch that
+             serves its neighbour. Then one greedy JSON row per member
+             of the decide pool (fresh sessions each run) with overlap on
+             and off, in turns after a warm-up: round wall ms, each
+             member's prefill and decode ms, and equal launches and
+             texts in every run
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -105,6 +123,22 @@ never prints its last line):
              under torch.profiler: wall time, device busy time (the union
              of kernel intervals), idle share, launches, and the kernels
              that take the most device time
+  calib      the paged-tier calibration (tools/calibrate_paged.py's
+             sweep: 1024, 4096 and 16384 resident tokens, 3 timed rounds
+             of 32 new tokens a path after a warm-up) at llama-3-8b in
+             bf16 over the serve phase's weights, a fresh engine a size
+             (tools/bench_longctx.py; the unified, direct_full,
+             direct_decode and gather paths, each with its launches,
+             p50, the rounds' spread, peak memory and reused tokens),
+             then one more round per path from the same prompt whose
+             temperature-0 tokens are compared with gather's (a
+             divergence is recorded, not failed); the gates go to
+             build/paged_gates.json, a new engine loads them through
+             QUORACLE_PAGED_CALIB, and at each size a resumed round must
+             take the tier they name. At 16384 the inputs of one call of
+             flash (gather), ragged (unified: decode and chunk ticks),
+             paged_fwd and paged_prefill_fwd (direct_full) are kept and
+             each kernel is held against its twin and timed beside SDPA
   sweep      each kernel's time and bound over the lengths it serves:
              ragged decode ticks (bf16 and int8 pages side by side) and
              the paged decode over resident lengths (with S and the grid
@@ -121,19 +155,26 @@ never prints its last line):
              temperature_for_round pointed at 0.0 for this phase only: a
              decide never samples at 0 by itself), one refinement round at
              most and 12 new tokens, over 2-layer fp32 cuts of all three
-             members: identical outcomes (status, decision, rounds, cached
-             tokens, every member's texts) on the GPU and the CPU, and the
-             embedder's vectors within 1e-5 at the 8, 64 and 256-token
-             buckets
+             members, served in turn: identical outcomes (status,
+             decision, rounds, cached tokens, every member's texts) on
+             the GPU and the CPU, and the embedder's vectors within 1e-5
+             at the 8, 64 and 256-token buckets
 
-then the card's nvidia-smi line, the kernels JSON line and, last,
-``{"ok": true, "device": {...}}``. ``--only kernels`` stops after the
-kernels phase (a quick check of a kernel edit; no last line); ``--only
+in that order but for batch, which runs after prefix, and calib, after
+trace; then the card's nvidia-smi line, the kernels JSON line and, last,
+``{"ok": true, "device": {...}}``. The script points
+QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
+never writes, for the whole run (the calib phase's loading engine
+aside), so that no gates file on the machine changes a phase's tiers.
+``--only kernels`` stops after the kernels phase (a quick check of a
+kernel edit; no last line); ``--only
 sweep`` runs the sweep phase alone after the build (kernel times at the
 main path's lengths without the serving phases; no last line); ``--only
 decide`` runs the decide phase (llama-3-8b built anew) and the reference
 decide after the build (no last line); ``--only prefix`` runs the decide
-phase and then the prefix phase after the build (no last line). Every
+phase and then the prefix phase after the build (no last line);
+``--only calib`` and ``--only batch`` run that phase after the build,
+over weights drawn here (no last line). Every
 comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
 False, and cudnn's too). The script imports torch and the port, never
 JAX or the JAX package.
@@ -147,7 +188,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 START = time.monotonic()
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -211,6 +254,16 @@ DECIDE_POOL = [MODEL, "xla:mistral-7b", "xla:gemma-7b"]
 # within each budget is estimated by quoracle_tpu_torch/tools/
 # json_closure.py
 DECIDE_MAX_TOKENS = 256
+# the calib phase: tools/calibrate_paged.py's default sweep, timed rounds
+# a path and new tokens a round; its gates go to GATES_FILE. Every other
+# phase runs with QUORACLE_PAGED_CALIB pinned to PINNED_GATES, a path the
+# script owns and never writes (so: no file, the engine's defaults), so
+# that no gates file left on the machine changes the tiers it serves on
+CALIB_SIZES = (1024, 4096, 16384)
+CALIB_ROUNDS = 3
+CALIB_NEW_TOKENS = 32
+GATES_FILE = os.path.join(REPO, "build", "paged_gates.json")
+PINNED_GATES = os.path.join(REPO, "build", "chip_smoke_pinned_gates.json")
 
 
 def emit(obj) -> None:
@@ -1232,8 +1285,20 @@ def next_step(outcome, messages: list, pool: list) -> dict:
     return out
 
 
-TIER_SPIES = (("_run_unified", "unified"), ("_run_split", "direct_or_gather"),
-              ("_run_dense", "dense"), ("_prefix_wave_split", "deferred"))
+TIER_SPIES = ("_run_unified", "_run_split", "_run_dense", "_prefix_wave_split")
+
+
+def spied_note(attr: str, a: tuple, out):
+    """What ``tier_spy`` reports for one call: the tier by the
+    calibration's path names (``_run_split``'s from its use_direct and
+    use_direct_pre, its last two positional arguments), "dense", or
+    ["deferred", rows]."""
+    if attr == "_run_split":
+        use_direct, use_direct_pre = a[-2:]
+        return ("direct_full" if use_direct_pre else
+                "direct_decode" if use_direct else "gather")
+    return {"_run_unified": "unified", "_run_dense": "dense"}.get(
+        attr, ["deferred", out])
 
 
 def tier_spy(eng, note) -> None:
@@ -1241,16 +1306,16 @@ def tier_spy(eng, note) -> None:
     ["deferred", rows], the rows each sessioned generate defers to a
     second wave: instance attributes over the engine's methods, which
     ``untier_spy`` removes."""
-    for attr, name in TIER_SPIES:
-        def run(*a, _fn=getattr(eng, attr), _name=name, **kw):
+    for attr in TIER_SPIES:
+        def run(*a, _fn=getattr(eng, attr), _attr=attr, **kw):
             out = _fn(*a, **kw)
-            note([_name, out] if _name == "deferred" else _name)
+            note(spied_note(_attr, a, out))
             return out
         setattr(eng, attr, run)
 
 
 def untier_spy(eng) -> None:
-    for attr, _ in TIER_SPIES:
+    for attr in TIER_SPIES:
         delattr(eng, attr)
 
 
@@ -1281,13 +1346,18 @@ def run_decides(R, CE, backend, pool: list, max_tokens: int,
         finally:
             rec["round_s"].append(time.monotonic() - t0)
 
+    grammar_lock = threading.Lock()
+
     def grammar_spy(fn):
+        # members build their tables on their own threads (overlap): the
+        # sum is thread-seconds, not wall seconds
         def run(*a, **kw):
             t0 = time.monotonic()
             try:
                 return fn(*a, **kw)
             finally:
-                rec["grammar_s"] += time.monotonic() - t0
+                with grammar_lock:
+                    rec["grammar_s"] += time.monotonic() - t0
         return run
 
     for spec in pool:
@@ -1351,23 +1421,15 @@ def decide_texts(out) -> list:
             + [p.raw_text for p in out.proposals])
 
 
-def phase_decide(torch, R, kernels, backend):
-    """Two decides of the port's ConsensusEngine over the north-star pool
-    at full width and depth (llama-3-8b the serve phase's engine, the
-    other two drawn here with the backend's seeding, seed + i; the
-    embedder shares llama's weights), on the unified tier (a resumed round
-    whose divergence falls inside a radix-cached page copies it and runs
-    on gather; ``tiers`` shows where); then the embedder on the system
-    prompt (256-token chunks: flash) and the decision's texts. Returns the
-    report, the decides' launch counts and the pool's backend, its agent's
-    sessions still resident."""
-    from quoracle_tpu_torch.consensus import engine as CE
+def decide_pool_backend(torch, R, backend) -> tuple:
+    """The decide pool's backend (overlap at its default, on): llama-3-8b
+    the serve phase's engine, the other members drawn here with the
+    backend's seeding (seed + i). Returns it and each new member's init
+    seconds."""
     from quoracle_tpu_torch.models.config import get_model_config
     from quoracle_tpu_torch.models.generate import GenerateEngine
     from quoracle_tpu_torch.models.tokenizer import get_tokenizer
     from quoracle_tpu_torch.models.transformer import init_params
-    import numpy as np
-    torch.cuda.reset_peak_memory_stats()
     engines = {MODEL: backend.engines[MODEL]}
     init_s = {}
     for i, spec in enumerate(DECIDE_POOL):
@@ -1382,7 +1444,25 @@ def phase_decide(torch, R, kernels, backend):
             seed=i, device="cuda")
         torch.cuda.synchronize()
         init_s[spec] = time.monotonic() - t0
-    pool_backend = R.TorchBackend(DECIDE_POOL, device="cuda", engines=engines)
+    return (R.TorchBackend(DECIDE_POOL, device="cuda", engines=engines),
+            init_s)
+
+
+def phase_decide(torch, R, kernels, backend):
+    """Two decides of the port's ConsensusEngine over the north-star pool
+    at full width and depth (llama-3-8b the serve phase's engine, the
+    other two drawn here with the backend's seeding, seed + i; the
+    embedder shares llama's weights), on the unified tier (a resumed round
+    whose divergence falls inside a radix-cached page copies it and runs
+    on gather; ``tiers`` shows where); then the embedder on the system
+    prompt (256-token chunks: flash) and the decision's texts. Returns the
+    report, the decides' launch counts and the pool's backend, its agent's
+    sessions still resident."""
+    from quoracle_tpu_torch.consensus import engine as CE
+    import numpy as np
+    torch.cuda.reset_peak_memory_stats()
+    pool_backend, init_s = decide_pool_backend(torch, R, backend)
+    engines = pool_backend.engines
     if pool_backend.embedder.params is not engines[MODEL].params:
         raise AssertionError("the embedder does not share llama's weights")
 
@@ -1566,7 +1646,7 @@ def prefix_cow(torch, R) -> dict:
                   "texts", "cow_tiers", "prefix_cache"))}
     if not (report["identical"] and g["b_pages_kept"]
             and g["prefix_cache"]["cow_copies"] >= 1
-            and g["cow_tiers"] == ["direct_or_gather"]
+            and g["cow_tiers"] == ["gather"]
             and g["texts"][1][1] >= 128):
         report["cpu"] = c
         emit({"phase": "prefix", "cow": report})
@@ -1624,6 +1704,466 @@ def phase_prefix(torch, R, kernels, backend, pool_backend) -> dict:
     report["second_agent"] = prefix_second_agent(torch, R, kernels,
                                                  pool_backend)
     report["second_agent_at_s"] = time.monotonic() - START
+    return report
+
+
+# ---------------------------------------------------------------------------
+# calib: the paged-tier calibration at long context
+# ---------------------------------------------------------------------------
+
+def long_recorders(torch, F, P, kept: dict, cur: dict) -> dict:
+    """Stand-ins for the four attention wrappers that keep (cloned) the
+    first call's inputs of each kernel while ``cur["path"]`` is the path
+    that launches it: ragged_fwd's decode and chunk ticks on unified,
+    paged_fwd and paged_prefill_fwd on direct_full, flash_fwd on gather.
+    Returns the originals, for ``setattr`` back."""
+    orig = {"ragged_attend": P.ragged_attend, "paged_attend": P.paged_attend,
+            "paged_prefill_attend": P.paged_prefill_attend,
+            "flash_attend": F.flash_attend}
+
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    def keep(key, path, a, kw):
+        if cur["path"] == path and key not in kept:
+            kept[key] = ([clone(x) for x in a],
+                         {n: clone(x) for n, x in kw.items()})
+
+    def ragged(q, k_pages, v_pages, tables, meta, tq, sliding_window=None,
+               **kw):
+        a = (q, k_pages, v_pages, tables, meta, tq, sliding_window)
+        keep("chunk" if tq > 1 else "decode", "unified", a, kw)
+        return orig["ragged_attend"](*a, **kw)
+
+    def paged(*a, **kw):
+        keep("paged_attend", "direct_full", a, kw)
+        return orig["paged_attend"](*a, **kw)
+
+    def paged_prefill(*a, **kw):
+        keep("paged_prefill_attend", "direct_full", a, kw)
+        return orig["paged_prefill_attend"](*a, **kw)
+
+    def flash(*a, **kw):
+        keep("flash_fwd", "gather", a, kw)
+        return orig["flash_attend"](*a, **kw)
+    P.ragged_attend, P.paged_attend = ragged, paged
+    P.paged_prefill_attend, F.flash_attend = paged_prefill, flash
+    return orig
+
+
+def restore_wrappers(F, P, orig: dict) -> None:
+    F.flash_attend = orig.pop("flash_attend")
+    for name, fn in orig.items():
+        setattr(P, name, fn)
+
+
+def calib_size(torch, F, P, kernels, BL, CP, resident: int, params,
+               keep) -> tuple:
+    """One size of the sweep on a fresh engine over ``params``: the
+    harness's measure (its launches counted), then one more round per
+    path from the base prompt plus one suffix, each on its own new
+    session (adopting the base prompt's cached pages), so that the four
+    paths' temperature-0 tokens can be compared; ``keep`` (a dict) keeps
+    the kernels' inputs during those rounds. Returns the size's report
+    and its params."""
+    from quoracle_tpu_torch.models.config import get_model_config
+    cfg = get_model_config(MODEL)
+    pool = BL.session_bytes(cfg, resident, CALIB_ROUNDS, CALIB_NEW_TOKENS)
+    t0 = time.monotonic()
+    eng, tok = BL.build_engine(resident, CALIB_ROUNDS, CALIB_NEW_TOKENS,
+                               MODEL, session_max_bytes=pool, params=params,
+                               device="cuda")
+    params = eng.params
+    kernels.reset_launch_counts()
+    res = BL.measure_paths(eng, tok, resident, CALIB_ROUNDS,
+                           CALIB_NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    agree_prompt = BL.base_prompt(tok, resident) + tok.encode(
+        " continue with the same step.")
+    cur = {"path": None}
+    orig = (long_recorders(torch, F, P, keep, cur) if keep is not None
+            else None)
+    same: dict = {}
+    tiers: list = []
+    tier_spy(eng, lambda c: isinstance(c, str) and tiers.append(c))
+    try:
+        for path in BL.PATHS:
+            BL._set_path(eng, path)
+            cur["path"] = path
+            (r,) = eng.generate([agree_prompt], temperature=0.0,
+                                max_new_tokens=CALIB_NEW_TOKENS,
+                                session_ids=[f"agree-{path}"])
+            same[path] = (list(r.token_ids), r.n_cached_tokens)
+            eng.drop_session(f"agree-{path}")
+        torch.cuda.synchronize()
+    finally:
+        untier_spy(eng)
+        if orig is not None:
+            restore_wrappers(F, P, orig)
+    ref = same["gather"][0]
+    paths = {}
+    for path, v in res.items():
+        timed = v["round_ms"][1:]
+        toks = same[path][0]
+        first = next((i for i, (a, b) in enumerate(zip(toks, ref))
+                      if a != b), None)
+        paths[path] = {
+            "p50_round_ms": v["p50_round_ms"],
+            "spread_ms": max(timed) - min(timed),
+            "round_ms": v["round_ms"], "peak_gb": v["peak_hbm_gb"],
+            "reused_tokens": v["reused_tokens"],
+            "same_prompt_cached_tokens": same[path][1],
+            "tokens_agree_with_gather": toks == ref,
+            "first_divergence": first}
+    report = {"pool_gib": pool / (1 << 30), "max_seq": eng.max_seq,
+              "seconds": time.monotonic() - t0, "launches": launches,
+              "same_prompt_tiers": tiers, "paths": paths}
+    if not (tiers == list(BL.PATHS) and min(
+            launches[k] for k in ("ragged_fwd", "paged_fwd",
+                                  "paged_prefill_fwd", "flash_fwd")) > 0
+            and launches["ragged_q8_fwd"] == 0):
+        emit({"phase": "calib", "resident": resident, **report})
+        raise AssertionError("a path missed its tier or its kernel")
+    del eng, tok
+    CP.free_device("cuda")
+    return report, params
+
+
+def gated_path(gates, max_prompt: int) -> str:
+    """The path a calibration file's gates name for a resumed bf16 call
+    whose longest prompt has ``max_prompt`` tokens (the engine's
+    ``_run_paged`` rule, for rows that own their pages and a suffix chunk
+    under ``prefill_max_chunk``; AUTO unified is on for the card)."""
+    unified = (0 if gates.unified_min_resident is None
+               else gates.unified_min_resident)
+    if max_prompt >= unified:
+        return "unified"
+    if max_prompt >= gates.decode_min_resident:
+        return ("direct_full" if max_prompt >= gates.prefill_min_resident
+                else "direct_decode")
+    return "gather"
+
+
+def calib_tiers(torch, BL, params) -> dict:
+    """One engine that loads GATES_FILE through QUORACLE_PAGED_CALIB (the
+    normal loader): at each size a session built under those gates, then
+    one resumed round, whose tier must be the one the gates name."""
+    prev = os.environ["QUORACLE_PAGED_CALIB"]
+    os.environ["QUORACLE_PAGED_CALIB"] = GATES_FILE
+    try:
+        eng, tok = BL.build_engine(max(CALIB_SIZES), CALIB_ROUNDS,
+                                   CALIB_NEW_TOKENS, MODEL, params=params,
+                                   device="cuda")
+    finally:
+        os.environ["QUORACLE_PAGED_CALIB"] = prev
+    if eng.paged_gates.source != GATES_FILE:
+        raise AssertionError(f"gates not loaded: {eng.paged_gates}")
+    out = {"gates": dataclasses.asdict(eng.paged_gates),
+           "unified_min_tokens": eng.unified_min_tokens}
+    for resident in CALIB_SIZES:
+        conv = BL.build_session(eng, tok, resident, CALIB_NEW_TOKENS,
+                                sid="tiers")
+        nxt = conv + tok.encode(" continue gated 0.")
+        calls: list = []
+        tier_spy(eng, lambda c: isinstance(c, str) and calls.append(c))
+        try:
+            (r,) = eng.generate([nxt], temperature=0.0,
+                                max_new_tokens=CALIB_NEW_TOKENS,
+                                session_ids=["tiers"])
+        finally:
+            untier_spy(eng)
+        want = gated_path(eng.paged_gates, len(nxt))
+        out[str(resident)] = {"prompt_tokens": len(nxt), "gated": want,
+                              "took": calls,
+                              "cached_tokens": r.n_cached_tokens}
+        if calls != [want]:
+            emit({"phase": "calib", "tier_check": out})
+            raise AssertionError(f"resident {resident}: the round took "
+                                 f"{calls}, the gates name {want}")
+    eng.drop_session("tiers")
+    del eng, tok
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_calib(torch, F, P, kernels, params=None) -> dict:
+    """The port's calibration at long context, llama-3-8b at full width
+    and depth in bf16 over ``params`` (the serve phase's weights; None:
+    drawn from seed 0): the sweep over CALIB_SIZES on a fresh engine a
+    size, the gates it decides written to GATES_FILE (never the default
+    path) and loaded back, and the four kernels of the sweep's paths held
+    against their twins on inputs kept at the largest size."""
+    from quoracle_tpu_torch.tools import bench_longctx as BL
+    from quoracle_tpu_torch.tools import calibrate_paged as CP
+    from quoracle_tpu_torch.utils.calibration import save_paged_gates
+    report = {"phase": "calib", "model": MODEL, "rounds": CALIB_ROUNDS,
+              "new_tokens": CALIB_NEW_TOKENS, "sizes": {}}
+    by_size, kept = {}, {}
+    for resident in CALIB_SIZES:
+        size, params = calib_size(
+            torch, F, P, kernels, BL, CP, resident, params,
+            kept if resident == max(CALIB_SIZES) else None)
+        report["sizes"][str(resident)] = size
+        by_size[resident] = {p: {"p50_round_ms": v["p50_round_ms"]}
+                             for p, v in size["paths"].items()}
+        emit({"phase": "calib_size", "resident": resident, **size})
+    gates = CP.decide_gates(by_size)
+    save_paged_gates(GATES_FILE, **gates,
+                     device_kind=torch.cuda.get_device_name(0),
+                     note=CP.gate_note(by_size))
+    report["gates"] = gates
+    report["gates_file"] = os.path.relpath(GATES_FILE, REPO)
+    report["tier_check"] = calib_tiers(torch, BL, params)
+    entries = [
+        flash_entry(torch, F, kernels, kept["flash_fwd"], 1),
+        ragged_entry(torch, P, kernels.RAGGED, kept, 1),
+        *paged_entries(torch, P, kernels, kept,
+                       {"paged_fwd": 1, "paged_prefill_fwd": 1})]
+    for e in entries:       # one kept call each, not a launch count
+        del e["launches"]
+    report["long_kernels"] = {"resident": max(CALIB_SIZES),
+                              "kernels": entries}
+    del kept
+    torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# batch: cross-caller baton batching, members served concurrently, deadlines
+# ---------------------------------------------------------------------------
+
+class HeldGenerate:
+    """Wraps a member engine's ``generate`` (in this script, not in the
+    package): records each call's batch size and, while armed, holds the
+    next call until its rows and the rows queued in the member's batcher
+    number ``rows`` (and ``until()`` holds), so that the callers of a
+    round that are not in this call are queued behind it and merge, never
+    left to timing."""
+
+    def __init__(self, backend, spec=MODEL):
+        self.engine = backend.engines[spec]
+        self.batcher = backend._batchers[spec]
+        self.sizes: list[int] = []
+        self.armed = None
+        orig = self.engine.generate
+
+        def generate(prompts, **kw):
+            self.sizes.append(len(prompts))
+            arm, self.armed = self.armed, None
+            if arm is not None:
+                rows, until = arm
+                t_end = time.monotonic() + 60
+                while not (len(prompts) + self.pending_rows() >= rows
+                           and until()):
+                    if time.monotonic() > t_end:
+                        raise AssertionError("the held generate timed out")
+                    time.sleep(0.001)
+            return orig(prompts, **kw)
+        self.engine.generate = generate
+
+    def pending_rows(self) -> int:
+        with self.batcher._plock:
+            return sum(len(sub) for sub, _ in self.batcher._pending)
+
+    def arm(self, rows: int, until=lambda: True) -> None:
+        self.armed = (rows, until)
+
+    def remove(self) -> None:
+        del self.engine.generate
+
+
+def agents_round(R, backend, hists, sids, concurrent: bool, spy=None):
+    """One round of the serve traffic's JSON rows, one agent (session)
+    each: from one thread per agent at once (the first generate held
+    until the others have queued), or in turn. Returns the wall ms, the
+    results and each call's ms."""
+    def one(k):
+        t0 = time.monotonic()
+        (r,) = backend.query([R.QueryRequest(
+            MODEL, hists[k], temperature=TEMPS[k], max_tokens=MAX_TOKENS,
+            session_id=sids[k], constrain_json=True)])
+        if not r.ok:
+            raise AssertionError(f"row error: {r.error}")
+        return r, (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    if concurrent:
+        spy.arm(len(hists))
+        with ThreadPoolExecutor(max_workers=len(hists)) as ex:
+            out = [f.result(timeout=600) for f in
+                   [ex.submit(one, k) for k in range(len(hists))]]
+    else:
+        out = [one(k) for k in range(len(hists))]
+    return (time.monotonic() - t0) * 1e3, [r for r, _ in out], \
+        [ms for _, ms in out]
+
+
+def batch_coalescing(torch, R, dfa, base) -> tuple:
+    """Three agents on a fresh llama-3-8b engine over the serve phase's
+    weights: round 1 and the resumed round 2 from three threads (merged),
+    then three more agents' same two rounds in turn; the resumed rounds
+    timed side by side. Returns the report, the backend and its spy."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    eng = GenerateEngine(base.cfg, base.params, base.tokenizer, seed=0,
+                         device="cuda")
+    backend = R.TorchBackend([MODEL], device="cuda", engines={MODEL: eng})
+    spy = HeldGenerate(backend)
+    # the JSON grammar table first (seconds on the host), outside the
+    # timed rounds
+    backend.query([R.QueryRequest(MODEL, chat("warm up", 1),
+                                  temperature=0.0, max_tokens=1,
+                                  constrain_json=True)])
+    users = ["pick the next action", "decide what to do next",
+             "propose one step"]
+    out = {}
+    for label, concurrent in (("concurrent", True), ("in_turn", False)):
+        sids = [f"{label}-{k}" for k in range(3)]
+        hists = [chat(u, N_RULES) for u in users]
+        rounds = []
+        for rnd in (1, 2):
+            n0 = len(spy.sizes)
+            torch.cuda.synchronize()
+            wall, res, ms = agents_round(R, backend, hists, sids,
+                                         concurrent, spy)
+            check_json([res], dfa)
+            rounds.append({"round": rnd, "wall_ms": wall, "call_ms": ms,
+                           "batch_sizes": spy.sizes[n0:],
+                           "prefill_ms": [r.prefill_ms for r in res],
+                           "decode_ms": [r.decode_ms for r in res],
+                           "cached_tokens": [r.cached_tokens for r in res],
+                           "new_tokens": [r.usage.completion_tokens
+                                          for r in res]})
+            hists = [h + [{"role": "assistant", "content": r.text},
+                          {"role": "user", "content": "refine your proposal"}]
+                     for h, r in zip(hists, res)]
+        out[label] = {"rounds": rounds,
+                      "sessions": [eng.sessions.get(s) is not None
+                                   for s in sids]}
+    for rnd in out["concurrent"]["rounds"]:
+        sizes = rnd["batch_sizes"]
+        if not (len(sizes) < 3 and sum(sizes) == 3):
+            raise AssertionError(f"three agents were not merged: {out}")
+    if not all(out["concurrent"]["sessions"] + out["in_turn"]["sessions"]):
+        raise AssertionError(f"a session was not stored: {out}")
+    out["resumed_round_ms"] = {
+        "concurrent": out["concurrent"]["rounds"][1]["wall_ms"],
+        "in_turn": out["in_turn"]["rounds"][1]["wall_ms"]}
+    return out, backend, spy
+
+
+def batch_deadlines(R, backend, spy) -> dict:
+    """A row with deadline_ms=0 never reaches generate; a row whose
+    deadline lapses while another caller holds the baton is dropped from
+    the batch, which runs without it."""
+    hist = chat("pick the next action", N_RULES)
+    n0 = len(spy.sizes)
+    (r0,) = backend.query([R.QueryRequest(MODEL, hist, temperature=0.0,
+                                          max_tokens=4, deadline_ms=0)])
+    build = {"error": r0.error, "generate_calls": len(spy.sizes) - n0}
+    if not (r0.error or "").startswith("deadline_exceeded:") or \
+            build["generate_calls"] != 0:
+        raise AssertionError(f"build-time deadline: {build}")
+
+    def late_lapsed():
+        with spy.batcher._plock:
+            rows = [r for sub, _ in spy.batcher._pending for r in sub]
+        return any(r["deadline_s"] is not None
+                   and time.monotonic() > r["deadline_s"] for r in rows)
+    n0 = len(spy.sizes)
+    spy.arm(3, late_lapsed)
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        holder = ex.submit(backend.query, [R.QueryRequest(
+            MODEL, hist, temperature=0.0, max_tokens=4,
+            session_id="deadline-holder")])
+        t_end = time.monotonic() + 60
+        while spy.armed is not None:       # the holder is inside generate
+            if time.monotonic() > t_end:
+                raise AssertionError("the holder never reached generate")
+            time.sleep(0.001)
+        late = ex.submit(backend.query, [
+            R.QueryRequest(MODEL, hist, temperature=0.0, max_tokens=4,
+                           session_id="deadline-late", deadline_ms=2000),
+            R.QueryRequest(MODEL, hist, temperature=0.0, max_tokens=4,
+                           session_id="deadline-next")])
+        (h,) = holder.result(timeout=600)
+        lr, nr = late.result(timeout=600)
+    serve = {"late_error": lr.error, "next_ok": nr.ok, "holder_ok": h.ok,
+             "batch_sizes": spy.sizes[n0:]}
+    if not ((lr.error or "").startswith("deadline_exceeded:") and nr.ok
+            and h.ok and serve["batch_sizes"] == [1, 1]):
+        raise AssertionError(f"serve-time deadline: {serve}")
+    return {"build_time": build, "serve_time": serve}
+
+
+def batch_overlap(torch, R, kernels, pool_backend) -> dict:
+    """One consensus-shaped round over the decide pool (one greedy JSON
+    row a member, the decide's system prompt and action set, 32 new
+    tokens, fresh sessions each run, dropped after it) with the members
+    served concurrently (overlap) and in turn, alternating, twice each,
+    after a warm-up run that builds the grammar tables and caches the
+    prompt's pages: round wall ms, each member's prefill and decode ms,
+    and the launches of each run, which must be equal."""
+    messages = [{"role": "system", "content": wait_only_system_prompt()},
+                {"role": "user", "content": "Task: keep the build green. "
+                                            "Decide the next step."}]
+    runs = []
+    for k, overlap in enumerate((False, True, False, True, False)):
+        pool_backend.overlap = overlap
+        sid = f"overlap-{k}"
+        reqs = [R.QueryRequest(m, messages, temperature=0.0,
+                               max_tokens=MAX_TOKENS, session_id=sid,
+                               constrain_json=True, action_enum=("wait",))
+                for m in DECIDE_POOL]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        res = pool_backend.query(reqs)
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+        if not all(r.ok for r in res):
+            raise AssertionError(f"overlap row error: {res}")
+        runs.append({"overlap": overlap, "warm_up": k == 0,
+                     "wall_ms": wall,
+                     "launches": kernels.launch_counts(),
+                     "members": {r.model_spec: {
+                         "prefill_ms": r.prefill_ms,
+                         "decode_ms": r.decode_ms,
+                         "latency_ms": r.latency_ms,
+                         "cached_tokens": r.cached_tokens,
+                         "new_tokens": r.usage.completion_tokens}
+                         for r in res},
+                     "texts": [r.text for r in res]})
+        pool_backend.drop_session(sid)
+    pool_backend.overlap = True
+    timed = runs[1:]
+    if not all(r["launches"] == timed[0]["launches"]
+               and r["texts"] == timed[0]["texts"] for r in timed):
+        raise AssertionError(f"overlap changed the launches or the texts: "
+                             f"{[(r['launches'], r['texts']) for r in timed]}")
+    for r in runs:
+        r["texts"] = [t[:48] for t in r["texts"]]
+    return {"runs": runs,
+            "wall_ms": {"overlap": [r["wall_ms"] for r in timed
+                                    if r["overlap"]],
+                        "in_turn": [r["wall_ms"] for r in timed
+                                    if not r["overlap"]]}}
+
+
+def phase_batch(torch, R, kernels, dfa, backend, pool_backend) -> dict:
+    """The JAX backend's default dispatch on the card: three agents'
+    rounds merged by llama-3-8b's baton batcher against the same rounds
+    in turn, the decide pool's members served concurrently against in
+    turn (equal launches), and the two deadline checks."""
+    report = {"phase": "batch", "model": MODEL}
+    kernels.reset_launch_counts()
+    report["coalescing"], b, spy = batch_coalescing(
+        torch, R, dfa, backend.engines[MODEL])
+    report["coalescing_launches"] = kernels.launch_counts()
+    report["deadlines"] = batch_deadlines(R, b, spy)
+    spy.remove()
+    del b, spy
+    torch.cuda.empty_cache()
+    report["overlap"] = batch_overlap(torch, R, kernels, pool_backend)
     return report
 
 
@@ -1756,11 +2296,10 @@ def ragged_entry(torch, P, kernel, kept: dict, launches: int) -> dict:
             **ticks["decode"], "chunk": ticks["chunk"]}
 
 
-def phase_mainpath(torch, F, P, kernels, kept, launches) -> list:
-    """Each kernel on the inputs the main path gave it: error against the
-    twin, device times, and the bound from these inputs."""
-    entries = []
-    a, kw = kept["flash_fwd"]
+def flash_entry(torch, F, kernels, kept, launches: int) -> dict:
+    """flash_fwd on kept inputs: error against the twin, device times,
+    and the bound from these inputs."""
+    a, kw = kept
     q, k, v, qp, kv_len = a
     window, off = kw.get("sliding_window"), kw.get("kv_pos_offset")
     got = F.flash_attend(*a, **kw)
@@ -1770,10 +2309,10 @@ def phase_mainpath(torch, F, P, kernels, kept, launches) -> list:
     err = row["max_abs_err"]
     nbytes, flops = flash_work(q, k, qp, kv_len, window, off)
     b_ms, b_by = bound(nbytes, flops, dtype_name(q))
-    entries.append({
+    return {
         "name": "flash_fwd", "route": "cuda",
         "source": kernels.FLASH.source, "replaces": kernels.FLASH.replaces,
-        "launches": launches["flash_fwd"], "max_abs_err": err,
+        "launches": launches, "max_abs_err": err,
         "ms": cuda_ms(torch, lambda: F.flash_attend(*a, **kw)),
         "plain_ms": cuda_ms(torch, lambda: F.flash_attend_ref(*a, **kw)),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -1782,8 +2321,14 @@ def phase_mainpath(torch, F, P, kernels, kept, launches) -> list:
         "bar_used": row["bar_used"],
         "shape": {"q": list(q.shape), "k": list(k.shape),
                   "dtype": dtype_name(q), "bytes": nbytes,
-                  "flops": flops}})
+                  "flops": flops}}
 
+
+def phase_mainpath(torch, F, P, kernels, kept, launches) -> list:
+    """Each kernel on the inputs the main path gave it: error against the
+    twin, device times, and the bound from these inputs."""
+    entries = [flash_entry(torch, F, kernels, kept["flash_fwd"],
+                           launches["flash_fwd"])]
     for kernel in (kernels.RAGGED, kernels.RAGGED_Q8):
         entries.append(ragged_entry(torch, P, kernel, kept[kernel.name],
                                     launches[kernel.name]))
@@ -2109,7 +2654,8 @@ def reference_decide(torch, R) -> dict:
     """The decide phase's two decides, greedy and small (one refinement
     round at most, 12 new tokens), through 2-layer fp32 cuts of the three
     members on the GPU (kernels) and on the CPU (plain twins), one set of
-    weights, the unified tier on both: identical outcomes. Then the
+    weights, the unified tier on both, members served in turn:
+    identical outcomes. Then the
     embedder (llama's cut) on one text per T bucket, 8, 64 and 256 tokens
     (flash on the card): vectors within 1e-5. A decide never samples at
     temperature 0 by itself, so the port's engine module's
@@ -2147,7 +2693,12 @@ def reference_decide(torch, R) -> dict:
                                      seed=i, device=dev)
                 eng.unified_min_tokens = 0    # the CPU default is gather
                 engines[spec] = eng
-            backend = R.TorchBackend(pool, device=dev, engines=engines)
+            # members in turn: this phase compares the devices, and the
+            # decide phase drives the overlap default; three members
+            # building their grammar tables at once on host threads took
+            # 42 s here against 12 s in turn (an H100 run)
+            backend = R.TorchBackend(pool, device=dev, engines=engines,
+                                     overlap=False)
             t0 = time.monotonic()
             outcomes, records = run_decides(R, CE, backend, pool,
                                             max_tokens=12,
@@ -2199,11 +2750,11 @@ def ptxas_entries(log: str) -> list:
 
 def main(argv) -> int:
     only = None
-    if argv[1:2] == ["--only"] and argv[2:3] in (["kernels"], ["sweep"],
-                                                 ["decide"], ["prefix"]):
+    phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch")
+    if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
-        print(f"usage: {argv[0]} [--only kernels|sweep|decide|prefix]",
+        print(f"usage: {argv[0]} [--only {'|'.join(phases)}]",
               file=sys.stderr)
         return 2
     import torch
@@ -2216,6 +2767,11 @@ def main(argv) -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    os.makedirs(os.path.dirname(GATES_FILE), exist_ok=True)
+    for path in (GATES_FILE, PINNED_GATES):
+        if os.path.exists(path):
+            os.remove(path)
+    os.environ["QUORACLE_PAGED_CALIB"] = PINNED_GATES
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from quoracle_tpu_torch.models import runtime as R
@@ -2241,6 +2797,15 @@ def main(argv) -> int:
 
     if only == "sweep":
         emit(phase_sweep(torch, F, P))
+        return 0
+    if only == "calib":
+        emit(phase_calib(torch, F, P, kernels))
+        return 0
+    if only == "batch":
+        backend = R.TorchBackend([MODEL], seed=0)
+        pool_backend, _ = decide_pool_backend(torch, R, backend)
+        emit(phase_batch(torch, R, kernels, CharDFA(max_depth=4), backend,
+                         pool_backend))
         return 0
     if only in ("decide", "prefix"):
         backend = R.TorchBackend([MODEL], seed=0)
@@ -2278,6 +2843,7 @@ def main(argv) -> int:
     emit(decide_report)
     prefix_report = phase_prefix(torch, R, kernels, backend, pool_backend)
     emit(prefix_report)
+    emit(phase_batch(torch, R, kernels, dfa, backend, pool_backend))
     del pool_backend
     torch.cuda.empty_cache()
     launches = {**launches,
@@ -2292,7 +2858,11 @@ def main(argv) -> int:
             for r in prefix_report["fanout"]["sharing"])
     emit({"phase": "mainpath", "kernels": entries})
     emit(phase_trace(torch, R, backend, hist))
+    params = backend.engines[MODEL].params
     del backend, kept, paged_kept
+    torch.cuda.empty_cache()
+    emit(phase_calib(torch, F, P, kernels, params))
+    del params
     torch.cuda.empty_cache()
 
     emit(phase_sweep(torch, F, P))

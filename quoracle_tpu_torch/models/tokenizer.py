@@ -16,6 +16,7 @@ from __future__ import annotations
 import abc
 import heapq
 import os
+import threading
 from functools import lru_cache
 from typing import Sequence
 
@@ -237,6 +238,9 @@ class NativeBPETokenizer(Tokenizer):
 
 
 _TOK_CACHE: dict[tuple, Tokenizer] = {}
+# backends and engines may be built from several threads; one tokenizer
+# per key, so every engine of a model shares its (stateless) instance
+_TOK_LOCK = threading.Lock()
 
 
 def get_tokenizer(model_name: str) -> Tokenizer:
@@ -255,10 +259,10 @@ def get_tokenizer(model_name: str) -> Tokenizer:
             f"model {model_name!r} names checkpoint {ckpt!r}: checkpoint "
             f"tokenizers are not ported yet (random-init models only)")
     key = (model_name, bos, eos, vocab)
-    cached = _TOK_CACHE.get(key)
-    if cached is not None:
-        return cached
-    tok = NativeBPETokenizer.for_vocab(vocab)
-    tok.bos_id, tok.eos_id = bos, eos
-    _TOK_CACHE[key] = tok
-    return tok
+    with _TOK_LOCK:
+        cached = _TOK_CACHE.get(key)
+        if cached is None:
+            cached = NativeBPETokenizer.for_vocab(vocab)
+            cached.bos_id, cached.eos_id = bos, eos
+            _TOK_CACHE[key] = cached
+    return cached

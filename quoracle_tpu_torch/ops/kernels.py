@@ -58,7 +58,10 @@ _F = ctypes.c_float
 
 
 class Kernel:
-    """One C entry point of the kernel library and its launch count."""
+    """One C entry point of the kernel library and its launch count. The
+    count is taken under a lock: pool members launch from several host
+    threads at once (``TorchBackend(overlap=True)``), and an unlocked
+    ``+= 1`` can lose counts between them."""
 
     def __init__(self, name: str, source: str, replaces: str,
                  argtypes: list):
@@ -67,6 +70,7 @@ class Kernel:
         self.replaces = replaces      # the TPU kernel it ports, file:line
         self.argtypes = argtypes
         self.launches = 0
+        self._count_lock = threading.Lock()
 
     def launch(self, *args) -> None:
         """Call the entry point; raise if the kernel did not launch."""
@@ -76,7 +80,8 @@ class Kernel:
             raise RuntimeError(
                 f"{self.name}: CUDA kernel launch failed with error {err} "
                 f"({error_string(err)})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 FLASH = Kernel(
@@ -108,7 +113,8 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        with k._count_lock:
+            k.launches = 0
 
 
 def _sources_digest(nvcc: str) -> str:

@@ -35,7 +35,11 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.consensus.prompt_builder",
              "quoracle_tpu_torch.governance.capabilities",
              "quoracle_tpu_torch.infra.injection",
-             "quoracle_tpu_torch.tools.json_closure"):
+             "quoracle_tpu_torch.tools.json_closure",
+             "quoracle_tpu_torch.serving.qos",
+             "quoracle_tpu_torch.serving.admission",
+             "quoracle_tpu_torch.tools.bench_longctx",
+             "quoracle_tpu_torch.tools.calibrate_paged"):
     assert name in names, name
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join({repo!r}, "chip_smoke.py"))
@@ -54,5 +58,5 @@ def test_port_and_chip_smoke_import_no_jax():
         env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 39, out.stdout          # every module was imported
+    assert int(n) >= 45, out.stdout          # every module was imported
     assert bad.strip() == "[]", out.stdout
