@@ -112,6 +112,37 @@ never prints its last line):
              and off, in turns after a warm-up: round wall ms, each
              member's prefill and decode ms, and equal launches and
              texts in every run
+  continuous continuous batching with QoS admission (models/scheduler.py
+             under TorchBackend(continuous=True, qos=...)), in four
+             parts: (1) a 2-layer fp32 cut of llama-3-8b: four rows (one
+             unconstrained, one JSON, two JSON with different action
+             enums) through the loop at chunk 4 and at chunk 32 give the
+             temperature-0 tokens of one-shot generate, the owned
+             sessions are dropped and ragged_fwd runs; (2) llama-3-8b in
+             bf16 over the serve phase's weights: agent A's JSON row of
+             256 new tokens, and agent B's 8-token row sent once A's loop
+             has stepped twice, through the loop and then (B sent at the
+             same ragged launch count) through the baton batcher: both
+             rows' ms, A's chunks and ms a chunk, the rows of each step
+             (timing recorded, not failed); then the serve traffic's two
+             rounds through the loop (JSON prefixes, round 2 resumed,
+             ragged_fwd and never a paged kernel); (3) QoS: one slot held
+             by a long BATCH row while six BATCH rows and then an
+             INTERACTIVE row queue, and the INTERACTIVE row must be
+             admitted first of them (the policy's pops, served counts and
+             per-class admit waits); a BATCH row past max_queue_depth=2
+             comes back admission_rejected with retry_after_ms; a row of
+             deadline_ms=0 fails at build and never reaches the loop, a
+             row whose deadline lapses in the queue fails at admit and is
+             never retired; qos_stats with the card's memory headroom;
+             (4) one decide of the decide phase's agent over the decide
+             pool with continuous=True and qos=True (its engines), which
+             must end "ok" with a decision, then backend.embed (flash),
+             beside the decide phase's baton decides, each member's loop
+             steps, and one greedy JSON row a member (32 new tokens) with
+             all three loops running against each member's row with its
+             loop alone, twice each in turns. No batcher- thread may
+             outlive close()
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -160,8 +191,8 @@ never prints its last line):
              the GPU and the CPU, and the embedder's vectors within 1e-5
              at the 8, 64 and 256-token buckets
 
-in that order but for batch, which runs after prefix, and calib, after
-trace; then the card's nvidia-smi line, the kernels JSON line and, last,
+in that order but for batch and continuous, which run after prefix, and
+calib, after trace; then the card's nvidia-smi line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
 never writes, for the whole run (the calib phase's loading engine
@@ -173,8 +204,8 @@ main path's lengths without the serving phases; no last line); ``--only
 decide`` runs the decide phase (llama-3-8b built anew) and the reference
 decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
-``--only calib`` and ``--only batch`` run that phase after the build,
-over weights drawn here (no last line). Every
+``--only calib``, ``--only batch`` and ``--only continuous`` run that
+phase after the build, over weights drawn here (no last line). Every
 comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
 False, and cudnn's too). The script imports torch and the port, never
 JAX or the JAX package.
@@ -2167,6 +2198,508 @@ def phase_batch(torch, R, kernels, dfa, backend, pool_backend) -> dict:
     return report
 
 
+# -- the continuous phase ----------------------------------------------------
+
+CONT_CHUNK = 32             # TorchBackend's continuous_chunk default
+LATE_A_TOKENS = 256         # agent A's row in the late-arrival schedule
+LATE_B_TOKENS = 8           # agent B's row
+
+
+class GenerateLog:
+    """Wraps an engine's ``generate`` (in this script, not in the
+    package): records each call's batch size and, once ``hold()`` is
+    called, holds the next call until ``release()``, so that rows are
+    queued behind it and never left to timing."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.sizes: list[int] = []
+        self._hold = None
+        self.entered = threading.Event()
+        orig = engine.generate
+
+        def generate(prompts, **kw):
+            self.sizes.append(len(prompts))
+            gate, self._hold = self._hold, None
+            if gate is not None:
+                self.entered.set()
+                if not gate.wait(120):
+                    raise AssertionError("the held generate timed out")
+            return orig(prompts, **kw)
+        engine.generate = generate
+
+    def hold(self) -> threading.Event:
+        self.entered.clear()
+        self._hold = threading.Event()
+        return self._hold
+
+    def remove(self) -> None:
+        del self.engine.generate
+
+
+def wait_until(pred, what: str, timeout: float = 120.0) -> None:
+    """Poll ``pred`` every 5 ms: a poller takes the GIL from the decode
+    threads it watches, so it stays coarse."""
+    t_end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > t_end:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def first_diff(a: list, b: list):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def continuous_equality(torch, R, kernels) -> dict:
+    """The loop against one-shot ``engine.generate`` at temperature 0, on
+    a 2-layer fp32 cut of llama-3-8b (full width) on the card: an
+    unconstrained row, a JSON row, and two JSON rows with different action
+    enums, all four sharing each chunk, at chunk 4 and at chunk 32. Tokens
+    must be equal, the loop's owned sessions gone after each run, and
+    ragged_fwd must have run in the loop."""
+    from quoracle_tpu_torch.models import config as C
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.scheduler import ContinuousBatcher
+    from quoracle_tpu_torch.models.tokenizer import get_tokenizer
+    from quoracle_tpu_torch.models.transformer import init_params
+    cfg = C.register_model(dataclasses.replace(
+        C.get_model_config(MODEL), name="llama-3-8b-2layer", n_layers=2))
+    spec = f"xla:{cfg.name}"
+    params = init_params(cfg, torch.Generator().manual_seed(1),
+                         device="cpu", dtype=torch.float32).to("cuda")
+    eng = GenerateEngine(cfg, params, get_tokenizer(spec), device="cuda")
+    tok = eng.tokenizer
+    rows = [("state the plan", False, None),
+            ("pick the next action", True, None),
+            ("decide what to do next", True, ("wait",)),
+            ("propose one step", True, ("orient", "todo", "wait"))]
+    prompts = [tok.encode_chat(chat(u, 8)) for u, _, _ in rows]
+    n_new = 40
+    # one-shot rows sessioned too, so both sides serve on the unified
+    # tier: what differs is only the chunk boundary (a 1-token chunk tick
+    # where one-shot runs a decode tick)
+    want = [eng.generate([p], temperature=0.0, max_new_tokens=n_new,
+                         session_ids=[f"one-shot-{i}"], constrain_json=[c],
+                         action_enums=[e])[0]
+            for i, (p, (_, c, e)) in enumerate(zip(prompts, rows))]
+    for i in range(len(rows)):
+        eng.drop_session(f"one-shot-{i}")
+    out = {"model": spec, "dtype": "float32", "new_tokens": n_new,
+           "prompt_tokens": [len(p) for p in prompts], "chunks": {}}
+    for chunk in (4, CONT_CHUNK):
+        sessions0 = len(eng.sessions)
+        log = GenerateLog(eng)
+        kernels.reset_launch_counts()
+        cb = ContinuousBatcher(eng, chunk=chunk)
+        try:
+            futs = [cb.submit(p, temperature=0.0, max_new_tokens=n_new,
+                              constrain_json=c, action_enum=e)
+                    for p, (_, c, e) in zip(prompts, rows)]
+            got = [f.result(timeout=300) for f in futs]
+        finally:
+            cb.close()
+            log.remove()
+        torch.cuda.synchronize()
+        out["chunks"][chunk] = {
+            "equal": [g.token_ids == w.token_ids for g, w in zip(got, want)],
+            "first_diff": [first_diff(g.token_ids, w.token_ids)
+                           for g, w in zip(got, want)],
+            "new_tokens": [g.n_gen_tokens for g in got],
+            "json_state": [g.json_state for g in got],
+            "batch_sizes": log.sizes, "steps": cb.stats()["steps"],
+            "sessions_back": len(eng.sessions) == sessions0,
+            "launches": kernels.launch_counts()}
+    for chunk, r in out["chunks"].items():
+        if not (all(r["equal"]) and r["sessions_back"]
+                and r["launches"]["ragged_fwd"] > 0):
+            emit({"phase": "continuous", "equality": out})
+            raise AssertionError(f"chunk {chunk}: the loop and one-shot "
+                                 f"disagree")
+    return out
+
+
+def late_arrival(torch, R, kernels, eng, mode: str, trigger: dict) -> dict:
+    """Agent A's JSON row of LATE_A_TOKENS new tokens, then agent B's row
+    of LATE_B_TOKENS, sent once A's work has gone two chunks: in
+    ``continuous`` mode once A's loop has stepped twice (and the ragged
+    launches made by then are noted in ``trigger``); in ``baton`` mode
+    once the same number of ragged launches has been made inside A's
+    generate. Returns both rows' latencies, A's chunks and ms per chunk,
+    and the loop's rows per step."""
+    kw = {"continuous": True, "continuous_chunk": CONT_CHUNK, "qos": True} \
+        if mode == "continuous" else {}
+    backend = R.TorchBackend([MODEL], device="cuda", engines={MODEL: eng},
+                             **kw)
+    log = GenerateLog(eng)
+    res = {}
+
+    def send(key, user, n, constrain):
+        t0 = time.monotonic()
+        (r,) = backend.query([R.QueryRequest(
+            MODEL, chat(user, N_RULES), temperature=0.0, max_tokens=n,
+            session_id=f"late-{key}-{mode}", constrain_json=constrain)])
+        res[key] = (r, (time.monotonic() - t0) * 1e3)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        a = threading.Thread(target=send, args=(
+            "A", "write the full plan as JSON", LATE_A_TOKENS, True))
+        a.start()
+        if mode == "continuous":
+            cb = backend._cbatchers[MODEL]
+            wait_until(lambda: cb.stats()["steps"] >= 2, "two loop steps")
+            trigger["ragged_fwd"] = kernels.launch_counts()["ragged_fwd"]
+        else:
+            wait_until(lambda: kernels.launch_counts()["ragged_fwd"]
+                       >= trigger["ragged_fwd"], "A's first two chunks")
+        b_at = kernels.launch_counts()["ragged_fwd"]
+        b = threading.Thread(target=send, args=(
+            "B", "one quick word", LATE_B_TOKENS, False))
+        b.start()
+        for t in (a, b):
+            t.join(600)
+            if t.is_alive():
+                raise AssertionError("a late-arrival row hung")
+        torch.cuda.synchronize()
+        stats = backend.scheduler_stats().get(MODEL)
+    finally:
+        log.remove()
+        backend.close()
+    (ra, a_ms), (rb, b_ms) = res["A"], res["B"]
+    if not (ra.ok and rb.ok):
+        raise AssertionError(f"late arrival {mode}: {ra.error} {rb.error}")
+    out = {"b_ms": b_ms, "a_ms": a_ms,
+           "a_new_tokens": ra.usage.completion_tokens,
+           "b_new_tokens": rb.usage.completion_tokens,
+           "b_sent_at_ragged_launches": b_at,
+           "generate_calls": len(log.sizes), "rows_per_call": log.sizes,
+           "launches": kernels.launch_counts()}
+    if mode == "continuous":
+        out["a_chunks"] = -(-ra.usage.completion_tokens // CONT_CHUNK)
+        out["a_ms_per_chunk"] = a_ms / out["a_chunks"]
+        out["steps"] = stats["steps"]
+    eng.drop_session(f"late-A-{mode}")
+    eng.drop_session(f"late-B-{mode}")
+    return out
+
+
+def continuous_serve(torch, R, kernels, dfa, eng) -> dict:
+    """The serve traffic's three agents, round 1 and the resumed round 2,
+    through llama-3-8b's loop: every text a JSON prefix, round 2 resumes,
+    ragged_fwd runs and the paged kernels never do."""
+    backend = R.TorchBackend([MODEL], device="cuda", engines={MODEL: eng},
+                             continuous=True, continuous_chunk=CONT_CHUNK,
+                             qos=True)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        rounds, results, _ = run_rounds(R, backend, MODEL, TEMPS,
+                                        MAX_TOKENS, N_RULES,
+                                        sessionless=False)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        stats = backend.scheduler_stats()[MODEL]
+    finally:
+        backend.close()
+    check_json(results, dfa)
+    out = {"rounds": rounds, "launches": launches,
+           "loop": {k: stats[k] for k in ("steps", "retired", "failed")}}
+    if min(rounds[1]["cached_tokens"]) <= 0 or not (
+            launches["ragged_fwd"] > 0 and launches["paged_fwd"]
+            == launches["paged_prefill_fwd"] == 0):
+        emit({"phase": "continuous", "serve": out})
+        raise AssertionError("the continuous serve rounds failed a check")
+    for i in range(3):
+        eng.drop_session(f"agent-{i}")
+    return out
+
+
+def continuous_qos(torch, R, kernels, eng) -> dict:
+    """QoS on the card, on llama-3-8b. Order: one slot, a long BATCH row
+    in it (its first chunk held) while six BATCH rows and then one
+    INTERACTIVE row queue; the INTERACTIVE row must be popped first of
+    the queued rows (BATCH weight 1, so the long row's admission spent
+    BATCH's DRR credit; aging floor 600 s). Shed: a BATCH row past
+    max_queue_depth=2 comes back admission_rejected with its retry hint.
+    Deadlines: deadline_ms=0 fails at row build (no generate call, the
+    loop untouched); a row whose deadline lapses in the queue fails at
+    admit and is never retired."""
+    from quoracle_tpu_torch.infra import telemetry as T
+    from quoracle_tpu_torch.models.scheduler import ContinuousBatcher
+    from quoracle_tpu_torch.serving import admission as A
+    from quoracle_tpu_torch.serving import qos as Q
+    from quoracle_tpu_torch.serving.slo import SLOTracker
+    out = {}
+    # -- order
+    pol = Q.WeightedFairPolicy(weights={Q.Priority.BATCH: 1.0},
+                               aging_floor_s=600.0, model=eng.cfg.name)
+    popped = []
+    pop = pol.pop
+
+    def spy_pop():
+        r = pop()
+        if r is not None:
+            popped.append(Q.class_name(r.priority))
+        return r
+    pol.pop = spy_pop
+    waits0 = {c: T.QOS_ADMIT_WAIT_MS.counts(cls=c)[1:]
+              for c in ("interactive", "batch")}
+    log = GenerateLog(eng)
+    cb = ContinuousBatcher(eng, chunk=CONT_CHUNK, max_slots=1, policy=pol,
+                           admission=A.AdmissionController(),
+                           slo=SLOTracker())
+    tok = eng.tokenizer
+    try:
+        gate = log.hold()
+        long = cb.submit(tok.encode_chat(chat("a long batch job", 4)),
+                         temperature=0.0, max_new_tokens=CONT_CHUNK,
+                         priority=Q.Priority.BATCH)
+        if not log.entered.wait(120):
+            raise AssertionError("the long row never reached generate")
+        futs = [cb.submit(tok.encode_chat(chat(f"batch item {i}", 4)),
+                          temperature=0.0, max_new_tokens=4,
+                          priority=Q.Priority.BATCH) for i in range(6)]
+        futs.append(cb.submit(tok.encode_chat(chat("a human waits", 4)),
+                              temperature=0.0, max_new_tokens=4,
+                              priority=Q.Priority.INTERACTIVE))
+        queued = cb.stats()["queued"]
+        gate.set()
+        for f in [long] + futs:
+            f.result(timeout=300)
+    finally:
+        log.remove()
+        cb.close()
+    waits = {}
+    for c, (s0, n0) in waits0.items():
+        _, s1, n1 = T.QOS_ADMIT_WAIT_MS.counts(cls=c)
+        waits[c] = {"rows": n1 - n0, "mean_wait_ms": (s1 - s0) / max(
+            1, n1 - n0)}
+    out["order"] = {"queued_behind_long_row": queued, "popped": popped,
+                    "served": {Q.class_name(k): v
+                               for k, v in pol.served.items()},
+                    "admit_wait": waits, "rows_per_call": log.sizes}
+    if not (queued == 7 and popped[:2] == ["batch", "interactive"]
+            and popped[2:] == ["batch"] * 6):
+        emit({"phase": "continuous", "qos": out})
+        raise AssertionError("INTERACTIVE was not admitted before the "
+                             "queued BATCH rows")
+    # -- shed and deadlines, through the backend
+    backend = R.TorchBackend(
+        [MODEL], device="cuda", engines={MODEL: eng}, continuous=True,
+        continuous_chunk=CONT_CHUNK, continuous_slots=1,
+        qos=Q.QoSConfig(admission=A.AdmissionConfig(max_queue_depth=2)))
+    cb = backend._cbatchers[MODEL]
+    log = GenerateLog(eng)
+    hist = chat("pick the next action", 4)
+    res = {}
+
+    def query(key, reqs):
+        res[key] = backend.query(reqs)
+    try:
+        gate = log.hold()
+        holder = threading.Thread(target=query, args=("holder", [
+            R.QueryRequest(MODEL, hist, temperature=0.0, max_tokens=4,
+                           session_id="qos-holder")]))
+        holder.start()
+        if not log.entered.wait(120):
+            raise AssertionError("the holder never reached generate")
+        shed = threading.Thread(target=query, args=("shed", [
+            R.QueryRequest(MODEL, hist, temperature=0.0, max_tokens=4,
+                           session_id=f"qos-batch-{i}", priority=2)
+            for i in range(3)]))
+        shed.start()
+        wait_until(lambda: cb.stats()["queued"] == 2
+                   and cb.stats()["failed"] == 1, "two queued, one shed")
+        gate.set()
+        for t in (holder, shed):
+            t.join(600)
+        n_calls, st0 = len(log.sizes), cb.stats()
+        res["zero"] = backend.query([R.QueryRequest(
+            MODEL, hist, temperature=0.0, max_tokens=4, deadline_ms=0)])
+        st1 = cb.stats()
+        zero = {"error": res["zero"][0].error,
+                "generate_calls": len(log.sizes) - n_calls,
+                "loop_unchanged": all(st0[k] == st1[k] for k in (
+                    "retired", "failed", "steps"))}
+        # a row whose deadline lapses while the holder's chunk is held
+        gate = log.hold()
+        holder = threading.Thread(target=query, args=("holder2", [
+            R.QueryRequest(MODEL, hist, temperature=0.0, max_tokens=4,
+                           session_id="qos-holder")]))
+        holder.start()
+        if not log.entered.wait(120):
+            raise AssertionError("the second holder never reached generate")
+        late = threading.Thread(target=query, args=("late", [
+            R.QueryRequest(MODEL, hist, temperature=0.0, max_tokens=4,
+                           session_id="qos-late", deadline_ms=1500)]))
+        late.start()
+        wait_until(lambda: cb.stats()["queued"] == 1, "the late row queued")
+        t_lapse = time.monotonic() + 1.6
+        wait_until(lambda: time.monotonic() > t_lapse, "its deadline", 10)
+        st2 = cb.stats()
+        gate.set()
+        for t in (holder, late):
+            t.join(600)
+        st3 = cb.stats()
+        queued_row = {"error": res["late"][0].error,
+                      "retired_delta": st3["retired"] - st2["retired"],
+                      "failed_delta": st3["failed"] - st2["failed"]}
+        qstats = backend.qos_stats()
+    finally:
+        log.remove()
+        backend.close()
+    rej = res["shed"][2].error or ""
+    out["shed"] = {"errors": [r.error for r in res["shed"]],
+                   "holder_ok": res["holder"][0].ok}
+    out["deadline"] = {"at_build": zero, "in_queue": queued_row}
+    out["qos_stats"] = qstats
+    if not (rej.startswith("admission_rejected:")
+            and "retry_after_ms=" in rej
+            and res["shed"][0].ok and res["shed"][1].ok
+            and (zero["error"] or "").startswith("deadline_exceeded:")
+            and zero["generate_calls"] == 0 and zero["loop_unchanged"]
+            and (queued_row["error"] or "").startswith(
+                "deadline_exceeded:")
+            and queued_row["retired_delta"] == 1
+            and queued_row["failed_delta"] == 1
+            and qstats["admission"]["hbm_headroom"] is not None):
+        emit({"phase": "continuous", "qos": out})
+        raise AssertionError("a QoS check failed on the card")
+    return out
+
+
+def continuous_pool(torch, R, kernels, pool_backend) -> dict:
+    """The decide pool under continuous batching (the pool backend's
+    engines, grammar tables already built; one loop a member): one decide
+    of the decide phase's agent set, which must end "ok" with a decision,
+    then the embedder on the system prompt and its texts (flash); then
+    one consensus-shaped greedy round (one JSON row a member, 32 new
+    tokens, fresh sessions) with all three members' loops running, and
+    each member's row with its loop alone, twice each in turns: what
+    three decode threads cost each other."""
+    from quoracle_tpu_torch.consensus import engine as CE
+    cpool = R.TorchBackend(DECIDE_POOL, device="cuda",
+                           engines=pool_backend.engines,
+                           embedder=pool_backend.embedder,
+                           continuous=True, continuous_chunk=CONT_CHUNK,
+                           qos=True)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outcomes, records = run_decides(
+            R, CE, cpool, DECIDE_POOL, DECIDE_MAX_TOKENS,
+            session_key="agent-continuous", steps=1)
+        # a text the embedder's cache has not seen (the decide phase
+        # embedded the bare system prompt), long enough for a 256-token
+        # chunk: flash
+        texts = [wait_only_system_prompt() + "\n(continuous phase)"]
+        if outcomes[0].decision is not None:
+            texts += decide_texts(outcomes[0])
+        vecs = cpool.embed(texts)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        decide = decide_summary(outcomes[0], records[0])
+        steps = {m: st["steps"] for m, st in
+                 cpool.scheduler_stats().items()}
+        messages = [{"role": "system", "content": wait_only_system_prompt()},
+                    {"role": "user", "content": "Task: keep the build "
+                                                "green. Decide the next "
+                                                "step."}]
+        runs = []
+        alone = [[m] for m in DECIDE_POOL]
+        for k, members in enumerate(([DECIDE_POOL] + alone) * 2):
+            sid = f"cont-round-{k}"
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            res = cpool.query([R.QueryRequest(
+                m, messages, temperature=0.0, max_tokens=MAX_TOKENS,
+                session_id=sid, constrain_json=True, action_enum=("wait",))
+                for m in members])
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t0) * 1e3
+            if not all(r.ok for r in res):
+                raise AssertionError(f"continuous pool row error: {res}")
+            runs.append({"members": len(members), "wall_ms": wall,
+                         "latency_ms": {r.model_spec: r.latency_ms
+                                        for r in res},
+                         "new_tokens": {r.model_spec:
+                                        r.usage.completion_tokens
+                                        for r in res}})
+            cpool.drop_session(sid)
+        qstats = cpool.qos_stats()
+    finally:
+        cpool.close()
+    out = {"decide": decide, "loop_steps": steps, "launches": launches,
+           "embed_texts": len(vecs), "rounds": runs,
+           "member_ms": {m: {"all_loops": [r["latency_ms"][m] for r in runs
+                                           if r["members"] > 1],
+                             "alone": [r["latency_ms"][m] for r in runs
+                                       if r["members"] == 1
+                                       and m in r["latency_ms"]]}
+                         for m in DECIDE_POOL},
+           "wall_ms": {"all_loops": [r["wall_ms"] for r in runs
+                                     if r["members"] > 1],
+                       "members_alone_summed": [
+                           sum(r["wall_ms"] for r in runs[i + 1:i + 1
+                                                           + len(alone)])
+                           for i in range(0, len(runs), 1 + len(alone))]},
+           "admission": {k: qstats["admission"][k] for k in (
+               "admitted", "shed", "hbm_headroom")}}
+    if decide["status"] != "ok" or decide["decision"] is None or not (
+            launches["ragged_fwd"] > 0 and launches["flash_fwd"] > 0):
+        emit({"phase": "continuous", "pool": out})
+        raise AssertionError("the continuous decide failed its checks")
+    return out
+
+
+def phase_continuous(torch, R, kernels, dfa, backend, pool_backend,
+                     baton_decide_ms=None) -> dict:
+    """Continuous batching with QoS admission on the card: equality with
+    one-shot generate (fp32 cut), a late arrival under the loop and under
+    the baton batcher, the serve traffic through the loop, the QoS order,
+    shed and deadline checks, and the decide pool under the loop. Every
+    backend it builds is closed, and no ``batcher-`` thread outlives it."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    report = {"phase": "continuous", "model": MODEL, "chunk": CONT_CHUNK}
+    report["equality"] = continuous_equality(torch, R, kernels)
+    torch.cuda.empty_cache()
+    base = backend.engines[MODEL]
+
+    def fresh():
+        return GenerateEngine(base.cfg, base.params, base.tokenizer, seed=0,
+                              device="cuda")
+    eng = fresh()
+    # the JSON grammar table first (seconds on the host), outside the
+    # timed rows
+    eng.generate([eng.tokenizer.encode_chat(chat("warm up", 1))],
+                 temperature=0.0, max_new_tokens=1, constrain_json=[True])
+    trigger: dict = {}
+    late = {"continuous": late_arrival(torch, R, kernels, eng, "continuous",
+                                       trigger)}
+    beng = fresh()
+    # the same grammar table, so the baton run pays no build either
+    beng._json_cache = eng._json_cache
+    late["baton"] = late_arrival(torch, R, kernels, beng, "baton", trigger)
+    del beng
+    torch.cuda.empty_cache()
+    report["late_arrival"] = late
+    report["serve"] = continuous_serve(torch, R, kernels, dfa, eng)
+    report["qos"] = continuous_qos(torch, R, kernels, eng)
+    del eng
+    torch.cuda.empty_cache()
+    report["pool"] = continuous_pool(torch, R, kernels, pool_backend)
+    report["pool"]["baton_decide_ms"] = baton_decide_ms
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("batcher-")]
+    report["batcher_threads_alive"] = alive
+    if alive:
+        emit(report)
+        raise AssertionError(f"batcher threads outlived close(): {alive}")
+    return report
+
+
 def paged_library(torch, kernel, q, kp, vp, tables, ints, window,
                   k_scale=None, v_scale=None):
     """scaled_dot_product_attention on a paged kernel's work: each row's
@@ -2750,7 +3283,8 @@ def ptxas_entries(log: str) -> list:
 
 def main(argv) -> int:
     only = None
-    phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch")
+    phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
+              "continuous")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -2801,11 +3335,12 @@ def main(argv) -> int:
     if only == "calib":
         emit(phase_calib(torch, F, P, kernels))
         return 0
-    if only == "batch":
+    if only in ("batch", "continuous"):
         backend = R.TorchBackend([MODEL], seed=0)
         pool_backend, _ = decide_pool_backend(torch, R, backend)
-        emit(phase_batch(torch, R, kernels, CharDFA(max_depth=4), backend,
-                         pool_backend))
+        phase = phase_batch if only == "batch" else phase_continuous
+        emit(phase(torch, R, kernels, CharDFA(max_depth=4), backend,
+                   pool_backend))
         return 0
     if only in ("decide", "prefix"):
         backend = R.TorchBackend([MODEL], seed=0)
@@ -2844,6 +3379,10 @@ def main(argv) -> int:
     prefix_report = phase_prefix(torch, R, kernels, backend, pool_backend)
     emit(prefix_report)
     emit(phase_batch(torch, R, kernels, dfa, backend, pool_backend))
+    continuous_report = phase_continuous(
+        torch, R, kernels, dfa, backend, pool_backend,
+        baton_decide_ms=[d["latency_ms"] for d in decide_report["decides"]])
+    emit(continuous_report)
     del pool_backend
     torch.cuda.empty_cache()
     launches = {**launches,
@@ -2856,6 +3395,9 @@ def main(argv) -> int:
         e["prefix_launches"] = sum(
             r["launches"][e["name"]]
             for r in prefix_report["fanout"]["sharing"])
+        e["continuous_launches"] = (
+            continuous_report["serve"]["launches"][e["name"]]
+            + continuous_report["pool"]["launches"][e["name"]])
     emit({"phase": "mainpath", "kernels": entries})
     emit(phase_trace(torch, R, backend, hist))
     params = backend.engines[MODEL].params

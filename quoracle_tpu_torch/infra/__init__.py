@@ -1,3 +1,4 @@
 """Infra services of the PyTorch port: the NO_EXECUTE wrapping of
-untrusted content so far (the bus, telemetry and ledgers are not ported
-yet)."""
+untrusted content, the serving metrics (telemetry.py) and the device
+memory headroom signal (resources.py). The bus, tracing and ledgers are
+not ported yet."""

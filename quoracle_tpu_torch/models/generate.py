@@ -773,13 +773,20 @@ class GenerateEngine:
         session_ids: Optional[Sequence[Optional[str]]] = None,
         constrain_json: Optional[Sequence[bool]] = None,
         action_enums: Optional[Sequence[Optional[Sequence[str]]]] = None,
+        initial_json_state: Optional[Sequence[Optional[int]]] = None,
     ) -> list[GenResult]:
         """``session_ids`` (aligned with prompts; None entries opt out)
         enables KV residency: each row reuses the longest token prefix it
         shares with its session and prefills only the suffix; the prompt
         and response KV stay resident for the next round.
         ``action_enums`` (read where constrain_json is True) constrains
-        the top-level ``"action"`` value to the given names."""
+        the top-level ``"action"`` value to the given names.
+        ``initial_json_state`` resumes a constrained row mid-grammar: a
+        state >= 0 (relative to the row's grammar block, as
+        ``GenResult.json_state`` returns it) is where the row's sampling
+        starts; None or -1 starts at the grammar's start state. The
+        continuous batcher (models/scheduler.py) threads it between its
+        chunks."""
         if session_ids is not None and any(session_ids):
             with self._paged_lock:
                 later = self._prefix_wave_split(prompts, session_ids)
@@ -787,13 +794,15 @@ class GenerateEngine:
                     return self._generate_waves(
                         later, prompts, temperature, top_p, max_new_tokens,
                         generator, session_ids, constrain_json,
-                        action_enums)
+                        action_enums, initial_json_state)
                 return self._generate_impl(
                     prompts, temperature, top_p, max_new_tokens, generator,
-                    session_ids, constrain_json, action_enums)
+                    session_ids, constrain_json, action_enums,
+                    initial_json_state)
         return self._generate_impl(prompts, temperature, top_p,
                                    max_new_tokens, generator, None,
-                                   constrain_json, action_enums)
+                                   constrain_json, action_enums,
+                                   initial_json_state)
 
     def _prefix_wave_split(self, prompts, session_ids) -> list[int]:
         """Intra-batch prefix dedup (the consensus fan-out shape: K new
@@ -839,7 +848,8 @@ class GenerateEngine:
 
     def _generate_waves(self, later, prompts, temperature, top_p,
                         max_new_tokens, generator, session_ids,
-                        constrain_json, action_enums) -> list[GenResult]:
+                        constrain_json, action_enums,
+                        initial_json_state) -> list[GenResult]:
         """Two-wave sessioned generate (the caller holds _paged_lock): wave
         1 prefills the batch's unique prefixes and stores them (radix
         inserts included), wave 2 runs the deferred rows, which adopt
@@ -862,7 +872,7 @@ class GenerateEngine:
                 [prompts[i] for i in idxs], pick(temperature, idxs),
                 pick(top_p, idxs), pick(max_new_tokens, idxs), generator,
                 pick(session_ids, idxs), pick(constrain_json, idxs),
-                pick(action_enums, idxs))
+                pick(action_enums, idxs), pick(initial_json_state, idxs))
 
         res1 = run(first_idx)
         w1 = (self.last_prefill_tokens, self.last_prefill_s,
@@ -893,7 +903,7 @@ class GenerateEngine:
 
     def _generate_impl(self, prompts, temperature, top_p, max_new_tokens,
                        generator, session_ids, constrain_json,
-                       action_enums) -> list[GenResult]:
+                       action_enums, initial_json_state) -> list[GenResult]:
         t0 = time.monotonic()
         n = len(prompts)
         if n == 0:
@@ -994,8 +1004,9 @@ class GenerateEngine:
             generator = self._generator
 
         # JSON grammar: flagged rows start in their grammar's start state,
-        # -1 rows sample unconstrained; distinct grammars (action enums)
-        # stack into one table with offset state ids
+        # or resume a mid-stream state, -1 rows sample unconstrained;
+        # distinct grammars (action enums) stack into one table with offset
+        # state ids
         json_table = None
         jstate_np = None
         grammar_bases = None
@@ -1012,7 +1023,15 @@ class GenerateEngine:
             jstate_np = np.full((B,), -1, np.int32)
             for i, flag in enumerate(constrain_json):
                 if flag:
-                    jstate_np[i] = offsets[enums[i]]
+                    # states travel RELATIVE to their grammar's block
+                    # base, so they survive different table stackings
+                    # across calls
+                    init_js = (initial_json_state[i]
+                               if initial_json_state is not None else None)
+                    if init_js is not None and init_js >= 0:
+                        jstate_np[i] = grammar_bases[i] + init_js
+                    else:
+                        jstate_np[i] = offsets[enums[i]]
 
         samp_np = (temp_arr, top_arr, active, limits)
         with self._rng_lock:

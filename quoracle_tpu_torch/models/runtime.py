@@ -13,9 +13,14 @@ rounds that concurrent callers send to the same member merge into ONE
 overflow and deadline errors, output budget), so both packages send the
 same token ids to their engines; a row whose deadline lapses while it
 waits for the baton is dropped with ``DeadlineExceededError``.
+``continuous=True`` serves instead through one ``ContinuousBatcher`` per
+member (models/scheduler.py): rows join and leave a shared decode loop
+every ``continuous_chunk`` tokens. ``qos`` puts that loop behind the
+serving QoS layer, as in the JAX backend: one ``AdmissionController`` and
+one ``SLOTracker`` shared by the members, one ``WeightedFairPolicy`` per
+member (serving/).
 ``embed`` runs the on-device ``EmbeddingEncoder`` (models/embeddings.py).
-``MockBackend`` is the scripted test backend. Left for later slices: the
-continuous batcher and the QoS admission and weighted-fair queues,
+``MockBackend`` is the scripted test backend. Left for later slices:
 speculative decoding, KV tiers and VLM rows.
 """
 
@@ -39,22 +44,29 @@ from quoracle_tpu_torch.models.generate import (
     ContextOverflowError, GenerateEngine, resolve_device,
     splice_session_prompt,
 )
+from quoracle_tpu_torch.models.scheduler import ContinuousBatcher
 from quoracle_tpu_torch.models.tokenizer import (
     _stringify_content, get_tokenizer,
 )
 from quoracle_tpu_torch.models.transformer import init_params
 from quoracle_tpu_torch.serving.admission import (
-    AdmissionError, DeadlineExceededError,
+    AdmissionController, AdmissionError, DeadlineExceededError,
 )
+from quoracle_tpu_torch.serving.qos import QoSConfig, WeightedFairPolicy
+from quoracle_tpu_torch.serving.slo import SLOTracker
 
 
 @dataclasses.dataclass
 class QueryRequest:
     """One model's slice of a consensus round. ``deadline_ms`` (relative
-    to the ``query`` call), ``priority`` and ``tenant`` are read by the
-    backend's row checks and baton batcher; ``task_id`` and ``decide``
-    ride on the built rows; ``trace`` and ``tree`` are kept so the
-    dataclass matches the JAX package's, and nothing reads them yet."""
+    to the ``query`` call) is checked when the row is built and again
+    where it waits: by the baton batcher before it serves, by the
+    continuous batcher at admission (and by its admission controller).
+    ``priority`` orders the baton batcher's per-submission retry and,
+    under ``qos``, the weighted-fair queue and the controller's shed
+    ladder, which also reads ``tenant``; ``task_id`` and ``decide`` ride
+    on the built rows; ``trace`` and ``tree`` are kept so the dataclass
+    matches the JAX package's, and nothing reads them yet."""
     model_spec: str                    # "xla:llama-3-8b"
     messages: list[dict]               # chat messages (system injected)
     temperature: float = 1.0
@@ -301,6 +313,20 @@ class TorchBackend(ModelBackend):
     grammar builds. Each member has a baton batcher (``_MemberBatcher``)
     that merges concurrent callers' rounds into one generate.
 
+    ``continuous`` replaces round-granularity baton batching with
+    DECODE-level continuous batching (models/scheduler.py): each member
+    runs a chunked decode loop on its own ``batcher-<model>`` thread that
+    concurrent agents' rows join and leave at ``continuous_chunk``-token
+    boundaries, up to ``continuous_slots`` rows per step. Many rows share
+    each device step there, so a row's prefill/decode phase split is
+    reported as 0. ``qos`` (True for the defaults, or a
+    serving/qos.QoSConfig) puts each member's loop behind a weighted-fair
+    DRR queue with an aging floor, one AdmissionController shared by the
+    members (it sheds under overload with structured ``retry_after_ms``
+    rejects, its memory signal from infra/resources.py) and one
+    SLOTracker that demotes bulk-class weight while the INTERACTIVE tail
+    is over target. ``close()`` stops the loops.
+
     The embedder is built as the JAX backend builds it: ``embedder`` if
     given; else an ``EmbeddingEncoder`` over ``embed_model`` (default: the
     pool's first member), sharing that member's weights and tokenizer when
@@ -311,6 +337,8 @@ class TorchBackend(ModelBackend):
                  embed_model: Optional[str] = None,
                  engines: Optional[dict[str, GenerateEngine]] = None,
                  embedder=None, overlap: bool = True,
+                 continuous: bool = False, continuous_chunk: int = 32,
+                 continuous_slots: int = 8, qos=None,
                  quantize_weights: bool = False, quantize_kv: bool = False):
         self.device = resolve_device(device)
         self.pool = list(pool)
@@ -332,6 +360,40 @@ class TorchBackend(ModelBackend):
         # one baton batcher per POOL member
         self._batchers = {spec: _MemberBatcher(self.engines[spec])
                           for spec in self.pool}
+        self.continuous = continuous
+        self._cbatchers = {}
+        # Serving QoS: ONE controller + SLO tracker shared across members
+        # (overload and tail burn are system conditions), one
+        # weighted-fair queue per member. qos=True → defaults. (With KV
+        # tiers the JAX backend hands the controller the headroom the
+        # tiers could reclaim: Queue 1 item 7.)
+        self.qos_controller = None
+        self.slo = None
+        qos_policies: dict = {}
+        if qos:
+            qcfg = qos if isinstance(qos, QoSConfig) else QoSConfig()
+            self.slo = SLOTracker(targets_ms=qcfg.slo_targets_ms)
+            self.qos_controller = AdmissionController(
+                config=qcfg.admission, tenants=qcfg.tenants)
+            qos_policies = {
+                spec: WeightedFairPolicy(
+                    weights=qcfg.weights, quantum=qcfg.quantum,
+                    aging_floor_s=qcfg.aging_floor_s,
+                    weight_fn=self.slo.weight_multiplier, model=spec)
+                for spec in self.pool}
+        if continuous:
+            self._cbatchers = {
+                spec: ContinuousBatcher(self.engines[spec],
+                                        chunk=continuous_chunk,
+                                        max_slots=continuous_slots,
+                                        policy=qos_policies.get(spec),
+                                        admission=self.qos_controller,
+                                        slo=self.slo)
+                for spec in self.pool}
+            if self.qos_controller is not None:
+                for spec, pol in qos_policies.items():
+                    self.qos_controller.register_depth_source(
+                        spec, pol.qsize)
         if embedder is not None:
             self.embedder = embedder
         else:
@@ -348,8 +410,29 @@ class TorchBackend(ModelBackend):
             self.embedder = EmbeddingEncoder(ecfg, eparams, etok)
 
     def close(self) -> None:
-        """Nothing to stop: the baton batchers run on their callers'
-        threads (the continuous batchers, when ported, have their own)."""
+        """Stop the continuous batchers' threads (the baton batchers run
+        on their callers' threads). Queued rows fail loudly rather than
+        stranding waiters — ContinuousBatcher.close() semantics."""
+        for cb in self._cbatchers.values():
+            cb.close()
+
+    def watchdog_sources(self) -> list:
+        return [(f"decode-loop:{spec}", cb.progress)
+                for spec, cb in self._cbatchers.items()]
+
+    def scheduler_stats(self) -> dict:
+        return {spec: cb.stats() for spec, cb in self._cbatchers.items()}
+
+    def qos_stats(self) -> dict:
+        if self.qos_controller is None:
+            return {"enabled": False}
+        return {
+            "enabled": True,
+            "admission": self.qos_controller.stats(),
+            "slo": self.slo.stats() if self.slo is not None else None,
+            "queues": {spec: cb.stats().get("qos")
+                       for spec, cb in self._cbatchers.items()},
+        }
 
     def query(self, requests: Sequence[QueryRequest]) -> list[QueryResult]:
         """Group rows by pool member; one batched generate per member
@@ -450,14 +533,49 @@ class TorchBackend(ModelBackend):
     def _dispatch_rows(self, spec: str, rows: list[dict],
                        live_idxs: list[int], results: list,
                        t0: float) -> None:
-        """Serve prepared rows through the member's baton batcher, which
-        may merge them with concurrent callers' rounds; each row's failure
-        becomes its error string, as in the JAX backend."""
+        """Serve prepared rows through the backend's dispatch mode: the
+        member's continuous batcher, or its baton batcher, which may merge
+        them with concurrent callers' rounds; each row's failure becomes
+        its error string, as in the JAX backend."""
+        if self.continuous:
+            self._query_member_continuous(spec, rows, live_idxs, results,
+                                          t0)
+            return
         futs = self._batchers[spec].submit(rows)
+        self._collect(spec, futs, live_idxs, results, t0)
+
+    def _query_member_continuous(self, spec: str, rows: list[dict],
+                                 live_idxs: list[int],
+                                 results: list, t0: float) -> None:
+        """Continuous mode: rows join the member's shared decode loop
+        (models/scheduler.py) at chunk boundaries. (The JAX backend sends
+        image rows, which skip KV sessions, straight to the engine; the
+        port serves no VLM rows yet.)"""
+        cb = self._cbatchers[spec]
+        futs = []
+        for r in rows:
+            futs.append(cb.submit(
+                r["prompt"], temperature=r["temperature"],
+                top_p=r["top_p"], max_new_tokens=r["budget"],
+                session_id=r["session_id"],
+                constrain_json=r["constrain_json"],
+                action_enum=r["action_enum"],
+                priority=r["priority"], tenant=r["tenant"],
+                deadline_s=r["deadline_s"]))
+        self._collect(spec, futs, live_idxs, results, t0)
+
+    def _collect(self, spec: str, futs: list[Future], live_idxs: list[int],
+                 results: list, t0: float) -> None:
+        """Each row's result or failure into its QueryResult, with the
+        JAX backend's error strings. A baton future carries (GenResult,
+        prefill_ms, decode_ms); a continuous one the GenResult alone:
+        many rows share each device step there, so the phases are 0."""
         cfg = self.engines[spec].cfg
         for i, f in zip(live_idxs, futs):
             try:
-                g, prefill_ms, decode_ms = f.result()
+                res = f.result()
+                g, prefill_ms, decode_ms = (res if isinstance(res, tuple)
+                                            else (res, 0.0, 0.0))
             except ContextOverflowError as e:
                 results[i] = QueryResult(model_spec=spec,
                                          error=f"context_overflow: {e}")

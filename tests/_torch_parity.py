@@ -33,6 +33,15 @@ register_variants()
 
 
 def both_configs(name: str):
+    """The two packages' configs of ``name``. A variant is built from
+    "tiny" here rather than read back from the catalogs: a JAX test module
+    (tests/test_paged_kv.py) registers a "tiny-window" of its own (window
+    64) into the JAX catalog whenever it is imported, which may happen
+    after this module in the same process."""
+    if name in VARIANTS:
+        return tuple(dataclasses.replace(mod.get_model_config("tiny"),
+                                         name=name, **VARIANTS[name])
+                     for mod in (jconfig, tconfig))
     return jconfig.get_model_config(name), tconfig.get_model_config(name)
 
 
