@@ -143,6 +143,34 @@ never prints its last line):
              all three loops running against each member's row with its
              loop alone, twice each in turns. No batcher- thread may
              outlive close()
+  spec       speculative serving (models/speculative.py), self-drafts at
+             K 6, in three parts, the launch counts zeroed before the
+             first and read after the last: (1) the decide pool under
+             the loop with QoS and draft_map {llama-3-8b: llama-3-8b}
+             (its engines): one decide that must end "ok" with
+             llama-3-8b's spec rounds above 0 and its speculator in
+             spec_stats(), then on a fresh speculator llama-3-8b's greedy
+             JSON row (32 new tokens) with the other two loops running
+             (an unconstrained row each) and alone, twice each in turns;
+             the pool's other members are
+             then released; (2) a 2-layer fp32 cut of llama-3-8b (full
+             width): an unconstrained and a JSON row of 40 tokens through
+             the loop at chunk 32, speculation off and on, on the
+             unified tier, the forced gather tier and int8 pools: equal
+             tokens, no "error" fallback, ragged_fwd (unified) and
+             ragged_q8_fwd (int8) launched inside verify calls; a
+             hopeless draft (a second cut from another seed) must
+             disengage and re-probe with the tokens still equal; the
+             batch-1 SpeculativeDecoder over a 322-token prompt must
+             equal vanilla and launch flash; (3) llama-3-8b in bf16 at
+             full depth over the serve phase's weights: one JSON row of
+             256 new tokens through the loop, spec off and on, and
+             through the batch-1 decoder: wall ms, ms per committed
+             token, rounds, acceptance, tokens a round, K after every
+             round and the first differing token (recorded, not
+             failed). The first verify tick's ragged inputs (fp32 and
+             bf16 float pages, int8 pages; blocks of nq = K) are held
+             against the twins and timed beside the bound and SDPA
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -191,8 +219,8 @@ never prints its last line):
              the GPU and the CPU, and the embedder's vectors within 1e-5
              at the 8, 64 and 256-token buckets
 
-in that order but for batch and continuous, which run after prefix, and
-calib, after trace; then the card's nvidia-smi line, the kernels JSON line and, last,
+in that order but for batch, continuous and spec, which run after
+prefix, and calib, after trace; then the card's nvidia-smi line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
 never writes, for the whole run (the calib phase's loading engine
@@ -204,14 +232,16 @@ main path's lengths without the serving phases; no last line); ``--only
 decide`` runs the decide phase (llama-3-8b built anew) and the reference
 decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
-``--only calib``, ``--only batch`` and ``--only continuous`` run that
-phase after the build, over weights drawn here (no last line). Every
+``--only calib``, ``--only batch``, ``--only continuous`` and ``--only
+spec`` run that phase after the build, over weights drawn here (no last
+line). Every
 comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
 False, and cudnn's too). The script imports torch and the port, never
 JAX or the JAX package.
 """
 
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -294,6 +324,10 @@ CALIB_SIZES = (1024, 4096, 16384)
 CALIB_ROUNDS = 3
 CALIB_NEW_TOKENS = 32
 GATES_FILE = os.path.join(REPO, "build", "paged_gates.json")
+# new tokens a row in the reference phase's tier rounds: the CPU side
+# (plain twins, int8 weights dequantized on every call) is most of its
+# time, and the whole script must finish inside 1,200 s
+REFERENCE_TOKENS = 6
 PINNED_GATES = os.path.join(REPO, "build", "chip_smoke_pinned_gates.json")
 
 
@@ -1497,6 +1531,14 @@ def phase_decide(torch, R, kernels, backend):
     if pool_backend.embedder.params is not engines[MODEL].params:
         raise AssertionError("the embedder does not share llama's weights")
 
+    # the members' grammar tables for the decides' action set, built in
+    # turn before them: built at first use on the members' threads, three
+    # builds at once cost ~3.5x their sum (the GIL; PERF.md), which
+    # the script's 1,200 s cannot spare
+    t0 = time.monotonic()
+    for spec in DECIDE_POOL:
+        engines[spec]._json_table_device((("wait",),))
+    grammar_prebuild_s = time.monotonic() - t0
     kernels.reset_launch_counts()
     outcomes, records = run_decides(R, CE, pool_backend, DECIDE_POOL,
                                     DECIDE_MAX_TOKENS)
@@ -1504,6 +1546,7 @@ def phase_decide(torch, R, kernels, backend):
     launches = kernels.launch_counts()
     decides = [decide_summary(o, r) for o, r in zip(outcomes, records)]
     report = {"phase": "decide", "pool": DECIDE_POOL, "init_s": init_s,
+              "grammar_prebuild_s": grammar_prebuild_s,
               "max_tokens": DECIDE_MAX_TOKENS, "decides": decides,
               "launches": launches}
     bad = [d for d in decides if d["status"] != "ok" or d["decision"] is None]
@@ -1627,11 +1670,9 @@ def prefix_cow(torch, R) -> dict:
     (the swapped page is only partly reused), b's pages must stay
     bit-identical on the card, and both devices must give the same texts,
     cached counts and counters."""
-    import copy
     from quoracle_tpu_torch.models import config as C
     from quoracle_tpu_torch.models.generate import GenerateEngine
     from quoracle_tpu_torch.models.tokenizer import get_tokenizer
-    from quoracle_tpu_torch.models.transformer import init_params
     cfg = C.register_model(dataclasses.replace(
         C.get_model_config(MODEL), name="llama-3-8b-2layer", n_layers=2))
     tok = get_tokenizer(f"xla:{cfg.name}")
@@ -1639,12 +1680,11 @@ def prefix_cow(torch, R) -> dict:
     pb = tok.encode_chat(chat("task beta", 8))
     pa_div = pa[:100] + tok.encode(" rewritten after condensation, "
                                    "decide again")
-    cpu = init_params(cfg, torch.Generator().manual_seed(2), device="cpu",
-                      dtype=torch.float32)
+    params = dict(zip(("cuda", "cpu"), fp32_cut(torch, cfg, 2,
+                                                 cpu_copy=True)))
     runs = {}
     for dev in ("cuda", "cpu"):
-        eng = GenerateEngine(cfg, copy.deepcopy(cpu) if dev == "cuda"
-                             else cpu, tok, seed=0, device=dev)
+        eng = GenerateEngine(cfg, params[dev], tok, seed=0, device=dev)
         eng.unified_min_tokens = 0          # the CPU default is gather
         calls: list = []
         tier_spy(eng, calls.append)
@@ -1669,7 +1709,7 @@ def prefix_cow(torch, R) -> dict:
                      "cow_tiers": cow_tiers, "b_pages_kept": kept,
                      "prefix_cache": eng.sessions.prefix_cache.stats()}
         del eng
-    del cpu
+    del params
     torch.cuda.empty_cache()
     g, c = runs["cuda"], runs["cpu"]
     report = {"model": cfg.name, "gpu": g, "cpu_s": c["s"],
@@ -2252,6 +2292,23 @@ def first_diff(a: list, b: list):
                 None if len(a) == len(b) else min(len(a), len(b)))
 
 
+def fp32_cut(torch, cfg, seed: int, cpu_copy: bool = False):
+    """Random fp32 weights of ``cfg`` drawn on the card from a generator
+    seeded ``seed`` (a CPU draw of a full-width cut takes ~10 s); with
+    ``cpu_copy``, (card weights, an identical copy on the CPU)."""
+    from quoracle_tpu_torch.models.transformer import (
+        Transformer, init_params,
+    )
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda", dtype=torch.float32)
+    if not cpu_copy:
+        return params
+    cpu = Transformer.empty(cfg, "cpu", torch.float32)
+    cpu.load_state_dict(params.state_dict())
+    return params, cpu
+
+
 def continuous_equality(torch, R, kernels) -> dict:
     """The loop against one-shot ``engine.generate`` at temperature 0, on
     a 2-layer fp32 cut of llama-3-8b (full width) on the card: an
@@ -2263,12 +2320,10 @@ def continuous_equality(torch, R, kernels) -> dict:
     from quoracle_tpu_torch.models.generate import GenerateEngine
     from quoracle_tpu_torch.models.scheduler import ContinuousBatcher
     from quoracle_tpu_torch.models.tokenizer import get_tokenizer
-    from quoracle_tpu_torch.models.transformer import init_params
     cfg = C.register_model(dataclasses.replace(
         C.get_model_config(MODEL), name="llama-3-8b-2layer", n_layers=2))
     spec = f"xla:{cfg.name}"
-    params = init_params(cfg, torch.Generator().manual_seed(1),
-                         device="cpu", dtype=torch.float32).to("cuda")
+    params = fp32_cut(torch, cfg, 1)
     eng = GenerateEngine(cfg, params, get_tokenizer(spec), device="cuda")
     tok = eng.tokenizer
     rows = [("state the plan", False, None),
@@ -2700,6 +2755,421 @@ def phase_continuous(torch, R, kernels, dfa, backend, pool_backend,
     return report
 
 
+# -- the spec phase ----------------------------------------------------------
+
+SPEC_K = 6                  # TorchBackend's draft_k default
+SPEC_CUT_TOKENS = 40        # new tokens a row of the fp32 cut
+SPEC_LONG_TOKENS = 256      # the bf16 JSON row
+CUT_POOL_BYTES = 512 << 20  # session pool of an fp32-cut engine
+
+
+class VerifyLog:
+    """Wraps an engine's ``verify_chunk`` (in this script, not in the
+    package): counts its calls and the kernel launches made inside them
+    (one loop thread drives the engine), and holds ``active`` while one
+    runs, so that ``verify_recorder`` keeps a verify tick's inputs."""
+
+    def __init__(self, engine, kernels):
+        self.engine = engine
+        self.active = False
+        self.calls = 0
+        self.launches = dict.fromkeys(kernels.launch_counts(), 0)
+        orig = engine.verify_chunk
+
+        def verify_chunk(*a, **kw):
+            before = kernels.launch_counts()
+            self.active = True
+            try:
+                return orig(*a, **kw)
+            finally:
+                self.active = False
+                self.calls += 1
+                for k, v in kernels.launch_counts().items():
+                    self.launches[k] += v - before[k]
+        engine.verify_chunk = verify_chunk
+
+    def remove(self) -> None:
+        del self.engine.verify_chunk
+
+
+def verify_recorder(torch, P, kept: dict, key: str, log: VerifyLog):
+    """A stand-in for ``P.ragged_attend`` that keeps (cloned) the inputs
+    of the first ragged call made inside a verify chunk under
+    kept[key]; restore with ``P.ragged_attend = rec.orig``."""
+    orig = P.ragged_attend
+
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    def rec(q, k_pages, v_pages, tables, meta, tq, sliding_window=None,
+            **kw):
+        if log.active and key not in kept:
+            kept[key] = ([clone(x) for x in (q, k_pages, v_pages, tables,
+                                             meta, tq, sliding_window)],
+                         {n: clone(x) for n, x in kw.items()})
+        return orig(q, k_pages, v_pages, tables, meta, tq, sliding_window,
+                    **kw)
+    rec.orig = orig
+    return rec
+
+
+def spec_loop(torch, eng, prompts, cons, n_new, speculator=None) -> tuple:
+    """The rows through one ContinuousBatcher at CONT_CHUNK (with the
+    speculator, or spec off); returns the results and the wall ms."""
+    from quoracle_tpu_torch.models.scheduler import ContinuousBatcher
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    cb = ContinuousBatcher(eng, chunk=CONT_CHUNK, speculator=speculator)
+    try:
+        futs = [cb.submit(p, temperature=0.0, max_new_tokens=n_new,
+                          constrain_json=c) for p, c in zip(prompts, cons)]
+        got = [f.result(timeout=600) for f in futs]
+    finally:
+        cb.close()
+    torch.cuda.synchronize()
+    return got, (time.monotonic() - t0) * 1e3
+
+
+def spec_compare(off, on) -> dict:
+    return {"equal": [a.token_ids == b.token_ids for a, b in zip(off, on)],
+            "first_diff": [first_diff(a.token_ids, b.token_ids)
+                           for a, b in zip(off, on)],
+            "new_tokens": [g.n_gen_tokens for g in on],
+            "spec_rounds": [g.spec_rounds for g in on],
+            "drafted": [g.spec_drafted_tokens for g in on],
+            "accepted": [g.spec_accepted_tokens for g in on]}
+
+
+def spec_errors(stats: dict) -> int:
+    return stats["fallbacks"].get("error", 0)
+
+
+def spec_cut_params(torch, seed: int):
+    """A 2-layer fp32 cut of llama-3-8b (full width), drawn on the card."""
+    from quoracle_tpu_torch.models import config as C
+    cfg = C.register_model(dataclasses.replace(
+        C.get_model_config(MODEL), name="llama-3-8b-2layer", n_layers=2))
+    return cfg, fp32_cut(torch, cfg, seed)
+
+
+def share_grammar(dec, eng) -> None:
+    """Hand the batch-1 decoder the engine's plain-JSON table (same
+    tokenizer and vocab), so it builds none of its own."""
+    eng._json_table_device((None,))
+    dec._grammar_cache[None] = (eng._json_cache[("one", None)].table,
+                                eng._json_cache[("one", None)].start_state,
+                                eng._json_cache[("dev", None)])
+
+
+def spec_fp32_cut(torch, R, P, kernels, base, kept: dict) -> dict:
+    """Speculation on and off through the loop over a 2-layer fp32 cut of
+    llama-3-8b on the card, an unconstrained and a JSON row at temperature
+    0 (self-draft, K 6): on the unified tier, the forced gather tier and
+    int8 pools the tokens must equal spec off. A hopeless draft (a second
+    cut from another seed) must disengage and re-probe with the tokens
+    still equal. Then the batch-1 decoder over a prompt of 300+ tokens
+    must equal vanilla and launch flash. The first verify tick's ragged
+    inputs are kept (float pages, int8 pages)."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.speculative import (
+        BatchedSpeculator, SpeculativeDecoder,
+    )
+    cfg, params = spec_cut_params(torch, 1)
+    tok = base.tokenizer
+
+    def engine(**kw):
+        eng = GenerateEngine(cfg, params, tok, device="cuda",
+                             session_max_bytes=CUT_POOL_BYTES, **kw)
+        eng._json_cache = base._json_cache       # same tokenizer and vocab
+        return eng
+    users = [("state the plan", False), ("pick the next action", True)]
+    prompts = [tok.encode_chat(chat(u, 8)) for u, _ in users]
+    cons = [c for _, c in users]
+    out = {"model": f"xla:{cfg.name}", "dtype": "float32", "k": SPEC_K,
+           "new_tokens": SPEC_CUT_TOKENS,
+           "prompt_tokens": [len(p) for p in prompts], "tiers": {}}
+    eng = engine()
+    for tier in ("unified", "gather", "int8"):
+        e = engine(quantize_kv=True) if tier == "int8" else eng
+        e._force_gather_decode = tier == "gather"
+        key = {"unified": "ragged_fwd", "int8": "ragged_q8_fwd"}.get(tier)
+        off, off_ms = spec_loop(torch, e, prompts, cons, SPEC_CUT_TOKENS)
+        log = VerifyLog(e, kernels)
+        if key:
+            P.ragged_attend = verify_recorder(torch, P, kept, key, log)
+        spec = BatchedSpeculator(e, e, k=SPEC_K)
+        try:
+            on, on_ms = spec_loop(torch, e, prompts, cons, SPEC_CUT_TOKENS,
+                                  spec)
+        finally:
+            log.remove()
+            if key:
+                P.ragged_attend = P.ragged_attend.orig
+        e._force_gather_decode = False
+        out["tiers"][tier] = {**spec_compare(off, on), "off_ms": off_ms,
+                              "on_ms": on_ms, "stats": spec.stats(),
+                              "verify_calls": log.calls,
+                              "verify_launches": log.launches}
+        del e
+    # the hopeless draft: another cut, one unconstrained row long enough
+    # to collapse, run vanilla two ticks and re-probe
+    _, dparams = spec_cut_params(torch, 2)
+    draft = GenerateEngine(cfg, dparams, tok, device="cuda",
+                           session_max_bytes=CUT_POOL_BYTES)
+    n_long = 2 * CONT_CHUNK + 8
+    off, _ = spec_loop(torch, eng, prompts[:1], cons[:1], n_long)
+    spec = BatchedSpeculator(eng, draft, k=4, k_min=2, reprobe_after=2)
+    on, _ = spec_loop(torch, eng, prompts[:1], cons[:1], n_long, spec)
+    out["hopeless"] = {**spec_compare(off, on), "new_tokens": n_long,
+                       "stats": spec.stats(),
+                       "draft_sessions_left": len(draft.sessions)}
+    del draft, dparams
+    torch.cuda.empty_cache()
+    # the batch-1 decoder: a JSON row over a prompt of 300+ tokens
+    dec = SpeculativeDecoder(cfg, params, cfg, params, tok, k=SPEC_K,
+                             max_seq=eng.max_seq)
+    share_grammar(dec, eng)
+    prompt = tok.encode_chat(chat("pick the next action", 12))
+    want = eng.generate([prompt], temperature=0.0,
+                        max_new_tokens=SPEC_CUT_TOKENS,
+                        constrain_json=[True])[0]
+    before = kernels.launch_counts()
+    got = dec.generate(prompt, temperature=0.0,
+                       max_new_tokens=SPEC_CUT_TOKENS, constrain_json=True)
+    torch.cuda.synchronize()
+    out["decoder"] = {
+        "prompt_tokens": len(prompt),
+        "equal": got.token_ids == want.token_ids,
+        "first_diff": first_diff(got.token_ids, want.token_ids),
+        "new_tokens": got.n_gen_tokens, "rounds": got.rounds,
+        "acceptance": got.acceptance_rate,
+        "launches": {k: v - before[k]
+                     for k, v in kernels.launch_counts().items()}}
+    bad = [t for t, r in out["tiers"].items()
+           if not (all(r["equal"]) and min(r["spec_rounds"]) > 0
+                   and spec_errors(r["stats"]) == 0)]
+    if (bad or not out["tiers"]["unified"]["verify_launches"]["ragged_fwd"]
+            or not out["tiers"]["int8"]["verify_launches"]["ragged_q8_fwd"]
+            or not all(out["hopeless"]["equal"])
+            or out["hopeless"]["stats"]["disengages"] < 1
+            or out["hopeless"]["stats"]["reprobes"] < 1
+            or spec_errors(out["hopeless"]["stats"])
+            or not out["decoder"]["equal"]
+            or out["decoder"]["prompt_tokens"] < 300
+            or not out["decoder"]["launches"]["flash_fwd"]
+            or "ragged_fwd" not in kept or "ragged_q8_fwd" not in kept):
+        emit({"phase": "spec", "fp32_cut": out})
+        raise AssertionError(f"the fp32 cut failed its checks: {bad}")
+    return out
+
+
+def spec_bf16(torch, R, P, kernels, base, kept: dict) -> dict:
+    """llama-3-8b in bf16 at full depth over the serve phase's weights,
+    self-draft: one JSON row of SPEC_LONG_TOKENS through the loop, spec
+    off and then on (wall ms, ms per committed token, rounds, acceptance,
+    tokens a round, K after every round, the first differing token: not
+    failed), the first bf16 verify tick's ragged inputs kept; then the
+    same row through the batch-1 decoder."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.speculative import (
+        BatchedSpeculator, SpeculativeDecoder,
+    )
+    eng = GenerateEngine(base.cfg, base.params, base.tokenizer, seed=0,
+                         device="cuda")
+    eng._json_cache = base._json_cache
+    prompt = eng.tokenizer.encode_chat(chat("write the full plan as JSON",
+                                            N_RULES))
+    n = SPEC_LONG_TOKENS
+    (off,), off_ms = spec_loop(torch, eng, [prompt], [True], n)
+    log = VerifyLog(eng, kernels)
+    P.ragged_attend = verify_recorder(torch, P, kept, "ragged_fwd_bf16", log)
+    spec = BatchedSpeculator(eng, eng, k=SPEC_K)
+    ks = []
+    run_round = spec.run_round
+
+    def traced_round(rows):
+        done = sum(len(r.emitted) for r in rows)
+        fin = run_round(rows)
+        ks.append([spec.k, sum(len(r.emitted) for r in rows) - done])
+        return fin
+    spec.run_round = traced_round
+    try:
+        (on,), on_ms = spec_loop(torch, eng, [prompt], [True], n, spec)
+    finally:
+        log.remove()
+        P.ragged_attend = P.ragged_attend.orig
+    st = spec.stats()
+    out = {"model": MODEL, "dtype": "bfloat16", "prompt_tokens": len(prompt),
+           "loop": {"off_ms": off_ms, "on_ms": on_ms,
+                    "off_new_tokens": off.n_gen_tokens,
+                    "on_new_tokens": on.n_gen_tokens,
+                    "off_ms_per_token": off_ms / max(1, off.n_gen_tokens),
+                    "on_ms_per_token": on_ms / max(1, on.n_gen_tokens),
+                    "equal": on.token_ids == off.token_ids,
+                    "first_diff": first_diff(on.token_ids, off.token_ids),
+                    "rounds": on.spec_rounds,
+                    "acceptance": on.spec_accepted_tokens
+                    / max(1, on.spec_drafted_tokens),
+                    "tokens_per_round": st["tokens_per_round"],
+                    "k_and_committed_per_round": ks, "stats": st,
+                    "verify_calls": log.calls,
+                    "verify_launches": log.launches}}
+    dec = SpeculativeDecoder(base.cfg, base.params, base.cfg, base.params,
+                             base.tokenizer, k=SPEC_K, max_seq=eng.max_seq)
+    share_grammar(dec, eng)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = dec.generate(prompt, temperature=0.0, max_new_tokens=n,
+                       constrain_json=True)
+    torch.cuda.synchronize()
+    dec_ms = (time.monotonic() - t0) * 1e3
+    out["decoder"] = {"ms": dec_ms, "new_tokens": got.n_gen_tokens,
+                      "ms_per_token": dec_ms / max(1, got.n_gen_tokens),
+                      "rounds": got.rounds, "acceptance": got.acceptance_rate,
+                      "tokens_per_round": got.tokens_per_round,
+                      "equal": got.token_ids == off.token_ids,
+                      "first_diff": first_diff(got.token_ids,
+                                               off.token_ids)}
+    if (on.spec_rounds <= 0 or spec_errors(st)
+            or not log.launches["ragged_fwd"]):
+        emit({"phase": "spec", "bf16": out})
+        raise AssertionError("the bf16 speculative row failed its checks")
+    return out
+
+
+def spec_pool(torch, R, kernels, pool_backend) -> dict:
+    """The decide pool under the loop with llama-3-8b drafted by itself
+    (draft_map, QoS on): one decide that must end "ok" with llama-3-8b's
+    spec rounds above 0 and the speculator in spec_stats(); then, on a
+    fresh speculator, llama-3-8b's greedy JSON row (32 new tokens) with
+    the other two members' loops running (an unconstrained row each) and
+    with its loop alone, twice each in turns."""
+    from quoracle_tpu_torch.consensus import engine as CE
+    cpool = R.TorchBackend(DECIDE_POOL, device="cuda",
+                           engines=pool_backend.engines,
+                           embedder=pool_backend.embedder,
+                           continuous=True, continuous_chunk=CONT_CHUNK,
+                           qos=True, draft_map={MODEL: MODEL},
+                           draft_k=SPEC_K)
+    rows = []
+    orig_query = cpool.query
+
+    def spy(requests):
+        res = orig_query(requests)
+        rows.append({r.model_spec: [r.spec_rounds, r.spec_accepted_tokens]
+                     for r in res})
+        return res
+    cpool.query = spy
+    try:
+        outcomes, records = run_decides(
+            R, CE, cpool, DECIDE_POOL, DECIDE_MAX_TOKENS,
+            session_key="agent-spec", steps=1)
+        cpool.query = spy
+        decide = decide_summary(outcomes[0], records[0])
+        decide["spec_per_round"] = rows
+        stats = cpool.spec_stats()
+    finally:
+        cpool.__dict__.pop("query", None)
+        cpool.close()
+    # the timed rows get a fresh speculator (a new backend over the same
+    # engines): the decide's sampled rows may have disengaged the first
+    tpool = R.TorchBackend(DECIDE_POOL, device="cuda",
+                           engines=pool_backend.engines,
+                           embedder=pool_backend.embedder,
+                           continuous=True, continuous_chunk=CONT_CHUNK,
+                           qos=True, draft_map={MODEL: MODEL},
+                           draft_k=SPEC_K)
+    messages = [{"role": "system", "content": wait_only_system_prompt()},
+                {"role": "user", "content": "Task: keep the build green. "
+                                            "Decide the next step."}]
+    runs = []
+    try:
+        for k, members in enumerate(([DECIDE_POOL, [MODEL]]) * 2):
+            sid = f"spec-round-{k}"
+            torch.cuda.synchronize()
+            # llama-3-8b's row JSON (its plain-JSON table is built), the
+            # others unconstrained: no grammar build inside the timing,
+            # and their loops run for the whole row
+            res = tpool.query([R.QueryRequest(
+                m, messages, temperature=0.0, max_tokens=MAX_TOKENS,
+                session_id=sid, constrain_json=m == MODEL)
+                for m in members])
+            if not all(r.ok for r in res):
+                raise AssertionError(f"spec pool row error: {res}")
+            r0 = next(r for r in res if r.model_spec == MODEL)
+            runs.append({"members": len(members), "ms": r0.latency_ms,
+                         "new_tokens": r0.usage.completion_tokens,
+                         "spec_rounds": r0.spec_rounds,
+                         "accepted": r0.spec_accepted_tokens})
+            tpool.drop_session(sid)
+        row_stats = tpool.spec_stats()["members"][MODEL]
+    finally:
+        tpool.close()
+    llama_rounds = sum(r.get(MODEL, [0])[0] for r in rows)
+    member = stats["members"].get(MODEL, {})
+    out = {"decide": decide, "llama_spec_rounds": llama_rounds,
+           "spec_stats": stats, "llama_row": runs,
+           "llama_row_spec_stats": row_stats,
+           "llama_row_ms": {"all_loops": [r["ms"] for r in runs
+                                          if r["members"] > 1],
+                            "alone": [r["ms"] for r in runs
+                                      if r["members"] == 1]}}
+    if (decide["status"] != "ok" or llama_rounds <= 0
+            or member.get("mode") != "continuous" or spec_errors(member)
+            or spec_errors(row_stats)):
+        emit({"phase": "spec", "pool": out})
+        raise AssertionError("the speculative decide failed its checks")
+    return out
+
+
+def verify_entry(torch, P, kernel, a, kw) -> dict:
+    """A ragged kernel on a kept verify tick: error against the twin
+    (raises past the tolerance), device times, the bound from these
+    inputs, SDPA's time, and the live blocks' query counts."""
+    bm = a[4]
+    return {"name": kernel.name,
+            **ragged_tick_numbers(torch, P, kernel, a, kw),
+            "nq": [int(x) for x in bm[:, 2] if int(x) > 0]}
+
+
+def phase_spec(torch, R, kernels, P, backend, pools: list) -> dict:
+    """Speculative serving on the card: the decide pool with llama-3-8b
+    drafted (run first: the pool's members are then released, which
+    ``pools`` holds, to give the fp32 cuts room), the fp32 cut's equality
+    on three tiers, the hopeless draft and the batch-1 decoder, and the
+    bf16 row at full depth, spec on and off. The launch counts are zeroed
+    before and read after all three; the kept verify ticks are then held
+    against the twins. No ``batcher-`` thread may outlive it."""
+    base = backend.engines[MODEL]
+    report = {"phase": "spec", "model": MODEL, "k": SPEC_K,
+              "chunk": CONT_CHUNK}
+    kept: dict = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    report["pool"] = spec_pool(torch, R, kernels, pools.pop())
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["fp32_cut"] = spec_fp32_cut(torch, R, P, kernels, base, kept)
+    torch.cuda.empty_cache()
+    report["bf16"] = spec_bf16(torch, R, P, kernels, base, kept)
+    torch.cuda.synchronize()
+    report["launches"] = kernels.launch_counts()
+    report["verify_ticks"] = {
+        name: verify_entry(torch, P, k, *kept[name]) for name, k in (
+            ("ragged_fwd", kernels.RAGGED),
+            ("ragged_q8_fwd", kernels.RAGGED_Q8),
+            ("ragged_fwd_bf16", kernels.RAGGED))}
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("batcher-")]
+    report["batcher_threads_alive"] = alive
+    if alive or not all(report["launches"][k] for k in (
+            "ragged_fwd", "ragged_q8_fwd", "flash_fwd")):
+        emit(report)
+        raise AssertionError(f"spec phase: threads {alive} alive, or a "
+                             f"kernel of the path never launched")
+    return report
+
+
 def paged_library(torch, kernel, q, kp, vp, tables, ints, window,
                   k_scale=None, v_scale=None):
     """scaled_dot_product_attention on a paged kernel's work: each row's
@@ -2799,34 +3269,39 @@ def ragged_entry(torch, P, kernel, kept: dict, launches: int) -> dict:
     inputs carry the scale pools) on its kept decode and chunk ticks. The
     decode tick is the one the main path launches most; the chunk tick's
     numbers ride beside it."""
-    ticks = {}
-    for key in ("decode", "chunk"):
-        a, kw = kept[key]
-        q, kp, vp, bt, bm, tq, window = a
-        got = P.ragged_attend(*a, **kw)
-        err = check(torch, kernel.name, got, P.ragged_attend_ref(*a, **kw),
-                    {"dtype": dtype_name(q), "tq": tq})["max_abs_err"]
-        scaled = kw.get("k_scale") is not None
-        nbytes, flops = ragged_work(torch, q, kp, bt, bm, tq, window,
-                                    scales=scaled)
-        b_ms, b_by = bound(nbytes, flops, dtype_name(q))
-        ticks[key] = {
-            "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: P.ragged_attend(*a, **kw)),
-            "plain_ms": cuda_ms(torch, lambda: P.ragged_attend_ref(*a, **kw)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(torch, ragged_library(torch, *a, **kw)),
-            "shape": {"q": list(q.shape), "pages": list(kp.shape),
-                      "page_dtype": dtype_name(kp),
-                      "tables": list(bt.shape), "tq": tq,
-                      "live_blocks": int((bm[:, 2] > 0).sum()),
-                      "dtype": dtype_name(q), "bytes": nbytes,
-                      "flops": flops,
-                      **split_grid(torch, P, bt.shape[0], kp.shape[2],
-                                   bt.shape[1], kp.shape[1])}}
+    ticks = {key: ragged_tick_numbers(torch, P, kernel, *kept[key])
+             for key in ("decode", "chunk")}
     return {"name": kernel.name, "route": "cuda", "source": kernel.source,
             "replaces": kernel.replaces, "launches": launches,
             **ticks["decode"], "chunk": ticks["chunk"]}
+
+
+def ragged_tick_numbers(torch, P, kernel, a, kw) -> dict:
+    """One kept ragged tick: error against the twin (raises past the
+    tolerance), the kernel's, the twin's and SDPA's device times, the
+    bound from these inputs, and the tick's shape."""
+    q, kp, vp, bt, bm, tq, window = a
+    got = P.ragged_attend(*a, **kw)
+    err = check(torch, kernel.name, got, P.ragged_attend_ref(*a, **kw),
+                {"dtype": dtype_name(q), "tq": tq})["max_abs_err"]
+    scaled = kw.get("k_scale") is not None
+    nbytes, flops = ragged_work(torch, q, kp, bt, bm, tq, window,
+                                scales=scaled)
+    b_ms, b_by = bound(nbytes, flops, dtype_name(q))
+    return {
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: P.ragged_attend(*a, **kw)),
+        "plain_ms": cuda_ms(torch, lambda: P.ragged_attend_ref(*a, **kw)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(torch, ragged_library(torch, *a, **kw)),
+        "shape": {"q": list(q.shape), "pages": list(kp.shape),
+                  "page_dtype": dtype_name(kp),
+                  "tables": list(bt.shape), "tq": tq,
+                  "live_blocks": int((bm[:, 2] > 0).sum()),
+                  "dtype": dtype_name(q), "bytes": nbytes,
+                  "flops": flops,
+                  **split_grid(torch, P, bt.shape[0], kp.shape[2],
+                               bt.shape[1], kp.shape[1])}}
 
 
 def flash_entry(torch, F, kernels, kept, launches: int) -> dict:
@@ -3097,14 +3572,13 @@ def phase_reference(torch, R) -> dict:
     from quoracle_tpu_torch.models import config as C
     from quoracle_tpu_torch.models.generate import GenerateEngine
     from quoracle_tpu_torch.models.tokenizer import get_tokenizer
-    from quoracle_tpu_torch.models.transformer import init_params
     cfg = C.register_model(dataclasses.replace(
         C.get_model_config(MODEL), name="llama-3-8b-2layer", n_layers=2))
     spec = f"xla:{cfg.name}"
     out = {}
+    cut = dict(zip(("cuda", "cpu"), fp32_cut(torch, cfg, 1, cpu_copy=True)))
     for dev in ("cuda", "cpu"):
-        gen = torch.Generator().manual_seed(1)      # CPU draws, both sides
-        params = init_params(cfg, gen, device=dev, dtype=torch.float32)
+        params = cut.pop(dev)
         backends = {quant: R.TorchBackend([spec], device=dev, engines={
             spec: GenerateEngine(cfg, params, get_tokenizer(spec),
                                  device=dev, quantize_weights=quant,
@@ -3120,8 +3594,8 @@ def phase_reference(torch, R) -> dict:
                 setattr(eng, k, v)
             t0 = time.monotonic()
             rounds, results, _ = run_rounds(
-                R, backend, spec, [0.0] * 3, max_tokens=12, n_rules=8,
-                sessionless=tier == "unified")
+                R, backend, spec, [0.0] * 3, max_tokens=REFERENCE_TOKENS,
+                n_rules=8, sessionless=tier == "unified")
             out[(dev, tier)] = {
                 "s": time.monotonic() - t0, "rounds": rounds,
                 "texts": [[r.text for r in res] for res in results],
@@ -3284,7 +3758,7 @@ def ptxas_entries(log: str) -> list:
 def main(argv) -> int:
     only = None
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
-              "continuous")
+              "continuous", "spec")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -3342,6 +3816,11 @@ def main(argv) -> int:
         emit(phase(torch, R, kernels, CharDFA(max_depth=4), backend,
                    pool_backend))
         return 0
+    if only == "spec":
+        backend = R.TorchBackend([MODEL], seed=0)
+        emit(phase_spec(torch, R, kernels, P, backend,
+                        [decide_pool_backend(torch, R, backend)[0]]))
+        return 0
     if only in ("decide", "prefix"):
         backend = R.TorchBackend([MODEL], seed=0)
         decide_report, _, pool_backend = phase_decide(torch, R, kernels,
@@ -3383,7 +3862,11 @@ def main(argv) -> int:
         torch, R, kernels, dfa, backend, pool_backend,
         baton_decide_ms=[d["latency_ms"] for d in decide_report["decides"]])
     emit(continuous_report)
+    # phase_spec releases the decide pool once its decide has run
+    pools = [pool_backend]
     del pool_backend
+    spec_report = phase_spec(torch, R, kernels, P, backend, pools)
+    emit(spec_report)
     torch.cuda.empty_cache()
     launches = {**launches,
                 **{k: paged_launches[k] for k in PAGED_KERNELS},
@@ -3398,6 +3881,12 @@ def main(argv) -> int:
         e["continuous_launches"] = (
             continuous_report["serve"]["launches"][e["name"]]
             + continuous_report["pool"]["launches"][e["name"]])
+        e["spec_launches"] = spec_report["launches"][e["name"]]
+        if e["name"] == "ragged_fwd":
+            e["verify"] = spec_report["verify_ticks"]["ragged_fwd_bf16"]
+            e["verify_fp32"] = spec_report["verify_ticks"]["ragged_fwd"]
+        elif e["name"] == "ragged_q8_fwd":
+            e["verify"] = spec_report["verify_ticks"]["ragged_q8_fwd"]
     emit({"phase": "mainpath", "kernels": entries})
     emit(phase_trace(torch, R, backend, hist))
     params = backend.engines[MODEL].params

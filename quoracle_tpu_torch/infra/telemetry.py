@@ -6,10 +6,10 @@
   per-metric lock, a bisect, two adds); snapshots derive p50/p95/p99 by
   linear interpolation inside the owning bucket, and
   ``render_prometheus()`` emits the text exposition format.
-* The instruments the continuous batcher and the QoS layer record
-  (``SCHED_*``, ``QOS_*``): module globals shared by every batcher in the
-  process, as in the JAX package, so tests read deltas, never absolute
-  values. The admission controller reads the admit-wait histogram's
+* The instruments the continuous batcher, the QoS layer and the
+  speculator record (``SCHED_*``, ``QOS_*``, ``SPEC_*``): module globals
+  shared by every batcher in the process, as in the JAX package, so tests
+  read deltas, never absolute values. The admission controller reads the admit-wait histogram's
   bucket counts as its p95 signal.
 
 Left for Queue 1 item 8 (observability): the ``Tracer`` and its spans,
@@ -363,3 +363,37 @@ QOS_DEMOTIONS_TOTAL = METRICS.counter(
     "quoracle_qos_demotions_total",
     "bulk-class weight demotions while the INTERACTIVE tail is over "
     "its SLO target")
+
+# -- speculative serving (models/speculative.py) -----------------------------
+# Batched draft/verify decoding in the continuous serving path
+# (BatchedSpeculator): per-member acceptance, realized tokens per round,
+# the adaptive-K state and fallback attribution.
+SPEC_ROUNDS = METRICS.counter(
+    "quoracle_spec_rounds_total",
+    "speculative draft/verify rounds executed, per model")
+SPEC_DRAFTED = METRICS.counter(
+    "quoracle_spec_drafted_tokens_total",
+    "draft tokens proposed across all rounds, per model")
+SPEC_ACCEPTED = METRICS.counter(
+    "quoracle_spec_accepted_tokens_total",
+    "draft tokens accepted by the target verify, per model")
+SPEC_ACCEPTANCE = METRICS.histogram(
+    "quoracle_spec_acceptance",
+    "per-round acceptance rate (accepted / drafted), per model",
+    buckets=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 1.0))
+SPEC_TOKENS_PER_ROUND = METRICS.histogram(
+    "quoracle_spec_tokens_per_round",
+    "tokens committed per speculative round per row (accepted + "
+    "correction), per model",
+    buckets=(1, 2, 3, 4, 5, 6, 8, 10, 12, 16))
+SPEC_K = METRICS.gauge(
+    "quoracle_spec_k",
+    "current adaptive draft length K, per model")
+SPEC_ENGAGED = METRICS.gauge(
+    "quoracle_spec_engaged",
+    "1 while the member's speculator is engaged, 0 while it has "
+    "disengaged to vanilla decode (acceptance collapse)")
+SPEC_FALLBACK_TOTAL = METRICS.counter(
+    "quoracle_spec_fallback_total",
+    "decode ticks a row fell back to vanilla, per model and reason "
+    "(disengaged | sampling | window | draft_error | verify_error)")

@@ -46,8 +46,18 @@ maps page-aligned token prefixes of stored sessions to their pages. A new
 session adopts the longest cached prefix of its prompt and prefills only
 the rest; a batch of new sessions sharing a prompt runs in two waves, so
 the shared prompt prefills once; a write that would change a shared page
-copies it first. Windowed models never share. Left for later slices: KV
-tiers, speculation, VLM rows and meshes.
+copies it first. Windowed models never share.
+
+Speculative verify (``verify_chunk``, the target side of
+models/speculative.py's ``BatchedSpeculator``): one teacher-forced chunk
+forward per round resumes each row's session and returns the target's
+grammar-masked argmax (and, for sampled rows, its softmax) at the last K
+positions of every row. It runs on the unified tier (the ragged kernel;
+int8 pools: the int8 ragged kernel) or on the gather tier (working cache,
+dense forward, pages written back), never on the direct tier, and runs
+no decode loop. Its store-back keeps unverified draft tokens at the
+session's tail, so it never feeds the radix prefix cache. Left for later
+slices: KV tiers, VLM rows and meshes.
 """
 
 from __future__ import annotations
@@ -423,6 +433,12 @@ class GenResult:
     finish_reason: str  # "stop" | "length"
     n_cached_tokens: int = 0   # prompt prefix served from a resident session
     json_state: int = -1       # final grammar state (-1 = unconstrained)
+    # speculative serving (models/speculative.py through the continuous
+    # batcher): draft/verify rounds this result rode, draft tokens
+    # proposed and accepted; 0 on the plain paths
+    spec_rounds: int = 0
+    spec_drafted_tokens: int = 0
+    spec_accepted_tokens: int = 0
 
 
 PAGE = 128   # tokens per KV page
@@ -901,13 +917,43 @@ class GenerateEngine:
         s = self.sessions.get(session_id)
         return list(s.tokens) if s is not None else None
 
+    def verify_chunk(self, prompts, session_ids, verify_k, *,
+                     temperature=0.0, constrain_json=None,
+                     action_enums=None, initial_json_state=None,
+                     need_probs: bool = False) -> list[dict]:
+        """Speculative VERIFY against the paged session KV: row i's prompt
+        is ctx_i + proposals_i[:-1] and ``verify_k[i]`` = len(proposals_i).
+        ONE teacher-forced chunk forward resumes each row's session (the
+        LCP reuse of generate, capped so the whole K_i window runs) and
+        returns, per row, ``ids`` (the grammar-masked argmax at the K_i
+        positions that predict proposals_i), ``probs`` ([K_i, V] masked
+        softmax, one-hot for temperature-0 rows) when ``need_probs``, and
+        ``n_cached``. The chunk KV is stored back to the session's pages;
+        rejected draft KV past the committed prefix is overwritten by the
+        next round's suffix prefill (the LCP resume is the rollback).
+        ``initial_json_state`` is each row's grammar state after ctx_i,
+        relative to its grammar block. Every row must be sessioned."""
+        if session_ids is None or not all(session_ids):
+            raise ValueError("verify_chunk requires a session per row")
+        if len(verify_k) != len(prompts):
+            raise ValueError("verify_k must align with prompts")
+        if not all(1 <= int(k) <= len(p) for k, p in zip(verify_k, prompts)):
+            raise ValueError("each verify_k must lie in [1, len(prompt)]")
+        with self._paged_lock:
+            return self._generate_impl(
+                prompts, temperature, 1.0, 1, None, session_ids,
+                constrain_json, action_enums, initial_json_state,
+                verify=([int(k) for k in verify_k], bool(need_probs)))
+
     def _generate_impl(self, prompts, temperature, top_p, max_new_tokens,
                        generator, session_ids, constrain_json,
-                       action_enums, initial_json_state) -> list[GenResult]:
+                       action_enums, initial_json_state,
+                       verify=None) -> list:
         t0 = time.monotonic()
         n = len(prompts)
         if n == 0:
             return []
+        vk = verify[0] if verify is not None else None
         dev = self.device
         cfg = self.cfg
         temps = ([temperature] * n if isinstance(temperature, (int, float))
@@ -951,7 +997,10 @@ class GenerateEngine:
                     # share)
                     if (self.prefix_sharing
                             and cfg.sliding_window is None):
-                        cap = len(prompts[i]) - 1
+                        # verify: the last K_i positions are the window
+                        # and must run through the chunk forward
+                        cap = (len(prompts[i]) - 1 if vk is None
+                               else len(prompts[i]) - vk[i])
                         d = (self.sessions.match_prefix(prompts[i], cap)
                              if cap > 0 else None)
                         if d is not None:
@@ -959,7 +1008,10 @@ class GenerateEngine:
                             reuse_abs[i] = len(d.tokens)
                     continue
                 # >= 1 suffix token must run to produce last-position logits
-                p = min(_lcp(s.tokens, prompts[i]), len(prompts[i]) - 1)
+                # (verify: the whole K_i window must run)
+                p = min(_lcp(s.tokens, prompts[i]),
+                        len(prompts[i]) - 1 if vk is None
+                        else len(prompts[i]) - vk[i])
                 if cfg.sliding_window is not None and p < len(s.tokens):
                     # windowed models resume only on clean extension
                     continue
@@ -971,7 +1023,11 @@ class GenerateEngine:
         prefixes = [r - o for r, o in zip(reuse_abs, kv_off_host)]
         suffixes = [list(p[r:]) for p, r in zip(prompts, reuse_abs)]
         max_chunk = max(len(s) for s in suffixes)
-        T = _round_up(max_chunk, self.prompt_buckets)
+        # verify chunks are K-token windows (plus the odd full re-prefill):
+        # small buckets keep them from padding to the prompt floor
+        T = _round_up(max_chunk,
+                      tuple(sorted({8, 16, 32, 64, *self.prompt_buckets}))
+                      if vk is not None else self.prompt_buckets)
         B = _round_up(n, self.BATCH_BUCKETS)
         # the decode bound is bucketed too; per-row limits stop each row at
         # its own budget
@@ -1034,13 +1090,22 @@ class GenerateEngine:
                         jstate_np[i] = offsets[enums[i]]
 
         samp_np = (temp_arr, top_arr, active, limits)
+        vrun = None
+        if verify is not None:
+            # every verify row is sessioned (checked by verify_chunk)
+            if not paged:
+                raise ValueError("verify requires the paged session path")
+            k_arr = np.ones((B,), np.int32)
+            k_arr[:n] = vk
+            vrun = (k_arr, _round_up(max(vk), (4, 8, 16)), verify[1])
         with self._rng_lock:
             if paged:
-                out, n_emitted, jstate_f, t_prefill, now = self._run_paged(
-                    prompts, suffixes, sess_rows, reuse_abs, kv_off_host,
-                    store_sids, B, maxp, tokens, pre_arr, off_arr,
-                    chunk_arr, samp_np, jstate_np, json_table, generator,
-                    max_new)
+                out, n_emitted, jstate_f, t_prefill, now, vout = \
+                    self._run_paged(
+                        prompts, suffixes, sess_rows, reuse_abs,
+                        kv_off_host, store_sids, B, maxp, tokens, pre_arr,
+                        off_arr, chunk_arr, samp_np, jstate_np, json_table,
+                        generator, max_new, vrun)
             else:
                 out, n_emitted, jstate_f, t_prefill, now = self._run_dense(
                     tokens, chunk_arr, cache_len, samp_np, jstate_np,
@@ -1049,6 +1114,17 @@ class GenerateEngine:
         self.last_prefill_s = t_prefill - t0
         self.last_decode_s = now - t_prefill
         latency = now - t0
+
+        if verify is not None:
+            vids, vprobs = vout
+            # window position t predicts proposals[t]; the first K_i
+            # entries are the row's verdicts (kmax padding is garbage)
+            return [{
+                "ids": [int(x) for x in vids[i, :vk[i]]],
+                "probs": (np.asarray(vprobs[i, :vk[i]], np.float32)
+                          if vprobs is not None else None),
+                "n_cached": reuse_abs[i],
+            } for i in range(n)]
 
         stop_set = {cfg.eos_token_id, *cfg.stop_token_ids}
         results = []
@@ -1122,7 +1198,7 @@ class GenerateEngine:
     def _run_paged(self, prompts, suffixes, sess_rows, reuse_abs,
                    kv_off_host, store_sids, B, maxp, tokens, pre_arr,
                    off_arr, chunk_arr, samp_np, jstate_np, json_table,
-                   generator, max_new):
+                   generator, max_new, verify=None):
         """The sessioned call: allocate each stored row's dst pages (its
         own resident pages first, LRU eviction for the rest), pick the
         tier as the JAX engine does, run it, then store every session's
@@ -1144,7 +1220,14 @@ class GenerateEngine:
         direct prefill also need every resumed row to write through its
         own pages (a declined store rules them out) and no
         ``partial_swap``. The direct prefill has its own gate and chunk
-        cap. What remains is gather."""
+        cap. What remains is gather.
+
+        ``verify`` (k_arr, kmax, need_probs) runs a speculative verify
+        chunk instead of a decode: on the unified tier, or else on the
+        gather tier (never direct: it is a chunk forward, not a decode
+        loop). Returns (out, n_emitted, jstate_f, t_prefill, now, vout);
+        vout is (ids [rows, kmax], probs or None) under verify, else
+        None."""
         n = len(prompts)
         st = self.sessions
         page = st.page
@@ -1158,6 +1241,7 @@ class GenerateEngine:
         protect = tuple(s for s in store_sids if s)
         max_prompt = max(len(p) for p in prompts)
         use_direct = (not self._force_gather_decode
+                      and verify is None
                       and not self.quantize_kv
                       and max_prompt >= self.direct_decode_min_tokens)
         unified_ok = (not self._force_gather_decode
@@ -1276,16 +1360,16 @@ class GenerateEngine:
         use_unified = unified_ok and own_pages
 
         if use_unified:
-            out, n_emitted, final_lens, jstate_f, t_prefill, now = \
+            out, n_emitted, final_lens, jstate_f, t_prefill, now, vout = \
                 self._run_unified(n, suffixes, dst, pre_arr, off_arr,
                                   chunk_arr, samp_np, jstate_np, json_table,
-                                  generator, max_new, maxp)
+                                  generator, max_new, maxp, verify=verify)
         else:
-            out, n_emitted, final_lens, jstate_f, t_prefill, now = \
+            out, n_emitted, final_lens, jstate_f, t_prefill, now, vout = \
                 self._run_split(n, suffixes, src, dst, tokens, pre_arr,
                                 off_arr, chunk_arr, samp_np, jstate_np,
                                 json_table, generator, max_new, maxp,
-                                use_direct, use_direct_pre)
+                                use_direct, use_direct_pre, verify=verify)
 
         for i in range(n):
             sid, pages = store_sids[i], dst_lists[i]
@@ -1311,25 +1395,30 @@ class GenerateEngine:
             st.put_raw(sid, _Session(tokens=toks, pages=pages,
                                      start_pos=start))
             # every FULL page of a conversation stored from position 0
-            # becomes adoptable (windowed sessions never share)
-            if self.prefix_sharing and start == 0 and W is None:
+            # becomes adoptable (windowed sessions never share); a verify
+            # store-back carries unverified draft tokens at its tail:
+            # resumable (the LCP is token-keyed), but not shared
+            if (self.prefix_sharing and start == 0 and W is None
+                    and verify is None):
                 st.insert_prefix(toks, pages)
         # temp pages (sessionless rows on the page-reading tiers) die with
         # the call; adoptions no stored session took over release now
         for pages in temp_lists + adopted_release:
             if pages:
                 st.release(pages)
-        return out, n_emitted, jstate_f, t_prefill, now
+        return out, n_emitted, jstate_f, t_prefill, now, vout
 
     def _run_split(self, n, suffixes, src, dst, tokens, pre_arr, off_arr,
                    chunk_arr, samp_np, jstate_np, json_table, generator,
-                   max_new, maxp, use_direct, use_direct_pre):
+                   max_new, maxp, use_direct, use_direct_pre, verify=None):
         """The direct and gather tiers. Prefill: the direct paged prefill
         (chunk against pages, chunk KV to dst pages) or the gather prefill
         (working cache). Decode: the direct decode (pages + tail, after
         the working cache, if any, is copied to dst pages; the tail is
         copied after) or the gather decode (working cache, then prompt
-        and response KV copied to dst pages)."""
+        and response KV copied to dst pages). Under ``verify`` the gather
+        tier runs the verify chunk instead (``step_paged_verify``), and
+        the chunk's KV is copied to the dst pages."""
         st = self.sessions
         dev = self.device
         page = st.page
@@ -1340,6 +1429,22 @@ class GenerateEngine:
         temp, top, active, limits = (put(a) for a in samp_np)
         jstate0 = None if jstate_np is None else put(jstate_np)
         off_dev = put(off_arr)
+        if verify is not None:
+            k_arr, kmax, need_probs = verify
+            vids, vprobs, cache = self.step_paged_verify(
+                put(src), put(tokens), put(pre_arr), put(chunk_arr),
+                off_dev, put(k_arr), temp, json_table, jstate0, n, kmax,
+                need_probs)
+            _fence(dev)
+            t_prefill = time.monotonic()
+            self.step_scatter_prompt(cache.k, cache.v, put(dst))
+            vout = (vids.cpu().numpy(),
+                    None if vprobs is None else vprobs.cpu().numpy())
+            _fence(dev)
+            B = tokens.shape[0]
+            return (np.zeros((B, 0), np.int32), np.zeros((B,), np.int32),
+                    pre_arr + chunk_arr, np.full((B,), -1, np.int32),
+                    t_prefill, time.monotonic(), vout)
         if use_direct_pre:
             n_tok = st.n_pages * page
             T = tokens.shape[1]
@@ -1394,7 +1499,7 @@ class GenerateEngine:
         # the page copies belong to this call's decode phase
         _fence(dev)
         now = time.monotonic()
-        return out, n_emitted, final_lens, jstate_f, t_prefill, now
+        return out, n_emitted, final_lens, jstate_f, t_prefill, now, None
 
     # -- the paged steps: plain methods over the pool, written in place
     # where the JAX jits donate it --
@@ -1447,6 +1552,77 @@ class GenerateEngine:
             json_state=json_state, kv_off=kv_off)
         self.step_scatter_prompt(cache.k, cache.v, dst)
         return out, n_emitted, cache.lens, jstate
+
+    @torch.no_grad()
+    def step_paged_verify(self, src, tokens, prefix_lens, chunk_lens, kv_off,
+                          k_arr, temperature, json_table, json_state,
+                          n: int, kmax: int, need_probs: bool):
+        """Gather tier verify: the rows' resident pages gathered into a
+        working cache, the teacher-forced chunk [pending, d_1..d_{K-1}]
+        through the dense forward, and the verdicts of each row's last
+        ``k_arr`` chunk positions (``_verdicts``, the first ``n`` rows).
+        Returns (ids [n, kmax], probs or None, cache); the caller copies
+        the working cache back to the rows' pages."""
+        k, v = self._gather_work(src)
+        B, T = tokens.shape
+        cache = KVCache(k=k, v=v, lens=torch.zeros(
+            (B,), dtype=torch.int32, device=src.device))
+        positions = (prefix_lens[:, None]
+                     + torch.arange(T, dtype=torch.int32,
+                                    device=tokens.device)[None, :]
+                     + kv_off.to(torch.int32)[:, None])
+        total = (prefix_lens + chunk_lens).to(torch.int32)
+        hidden, cache = forward_hidden(
+            self.params, self.cfg, tokens, positions, cache,
+            write_offset=prefix_lens.to(torch.int32), kv_lens=total,
+            kv_pos_offset=kv_off)
+        cache.lens = total
+        # the verify window: each row's last k_arr chunk positions
+        widx = torch.clamp(
+            (chunk_lens - k_arr)[:, None]
+            + torch.arange(kmax, device=tokens.device)[None, :],
+            0, T - 1).long()[:n]
+        rows = torch.arange(n, device=tokens.device)[:, None]
+        ids, probs = self._verdicts(
+            hidden[rows, widx], tokens[rows, widx], json_table,
+            None if json_state is None else json_state[:n],
+            temperature[:n], need_probs)
+        return ids, probs, cache
+
+    def _verdicts(self, wh, wtok, json_table, json_state, temperature,
+                  need_probs: bool):
+        """Verify-window verdicts, one recipe for both tiers: logits at
+        the window's hidden states ``wh`` [R, kmax, D]; under a grammar,
+        each position's state walked from ``json_state`` (the state after
+        ctx) over the window's draft tokens ``wtok[:, 1:]`` — the mask at
+        position t is the one vanilla decode applies there — then the
+        argmax, and the temperature softmax (one-hot for temperature-0
+        rows) when ``need_probs``. Returns (ids [R, kmax], probs or
+        None)."""
+        cfg = self.cfg
+        logits = project_logits(self.params, cfg, wh)       # [R, kmax, V]
+        R, kmax, V = logits.shape
+        if json_table is not None:
+            s = json_state.to(torch.int32)
+            states = [s]
+            for t in range(1, kmax):
+                nxt = json_table[torch.clamp(s, min=0).long(),
+                                 wtok[:, t].long()].to(torch.int32)
+                s = torch.where(s >= 0, nxt, s)
+                states.append(s)
+            logits = grammar_mask(
+                logits.reshape(R * kmax, V),
+                torch.stack(states, dim=1).reshape(-1), json_table,
+                cfg.eos_token_id).reshape(R, kmax, V)
+        ids = torch.argmax(logits, dim=-1)
+        probs = None
+        if need_probs:
+            temp = temperature.to(torch.float32)
+            probs = torch.softmax(
+                logits / torch.clamp(temp, min=1e-6)[:, None, None], dim=-1)
+            hot = torch.nn.functional.one_hot(ids, V).to(probs.dtype)
+            probs = torch.where((temp <= 0)[:, None, None], hot, probs)
+        return ids, probs
 
     @torch.no_grad()
     def step_paged_prefill_direct(self, src_tables, tokens, prefix_lens,
@@ -1527,13 +1703,16 @@ class GenerateEngine:
 
     def _run_unified(self, n, suffixes, dst, pre_arr, off_arr, chunk_arr,
                      samp_np, jstate_np, json_table, generator, max_new,
-                     maxp):
+                     maxp, verify=None):
         """One unified ragged tick: lay every row's suffix out token-major
         (segments padded to RAGGED_TQ blocks so a block never spans rows),
         run ONE mixed chunk forward through the ragged kernel — KV written
-        straight to each row's dst pages — then the ragged decode loop.
-        Row-indexed results are sized [NB]; the first ``n`` slots are the
-        batch rows in order."""
+        straight to each row's dst pages — then the ragged decode loop, or
+        under ``verify`` (k_arr, kmax, need_probs) the verdicts at the flat
+        indices of each row's last K positions (``_verdicts``) and no
+        decode. Row-indexed results are sized [NB]; the first ``n`` slots
+        are the batch rows in order. Returns (out, n_emitted, final_lens,
+        jstate_f, t_prefill, now, vout)."""
         st = self.sessions
         cfg = self.cfg
         dev = self.device
@@ -1574,6 +1753,9 @@ class GenerateEngine:
         if json_table is not None:
             r_jstate = np.full((NB,), -1, np.int32)
             r_jstate[:n] = jstate_np[:n]
+        if verify is not None:
+            k_arr, kmax, need_probs = verify
+            widx = np.zeros((n, kmax), np.int64)
         cur = 0
         for i in range(n):
             s, nb = segs[i], nb_rows[i]
@@ -1594,6 +1776,9 @@ class GenerateEngine:
             r_tables[i, :maxp] = dst[i]
             r_pool_lens[i] = kv_len
             r_off[i] = int(off_arr[i])
+            if verify is not None:
+                widx[i] = cur + np.clip(
+                    s - int(k_arr[i]) + np.arange(kmax), 0, s - 1)
             cur += nb * TQ
 
         def put(a):
@@ -1604,6 +1789,19 @@ class GenerateEngine:
             self.params, cfg, put(flat_tok)[None], put(flat_pos)[None],
             st.k, st.v, put(btab), put(bmeta), put(flat_dst), tq=TQ,
             **scales)[0]
+        if verify is not None:
+            w = put(widx)
+            ids, probs = self._verdicts(
+                hidden[0][w], put(flat_tok)[w], json_table,
+                None if r_jstate is None else put(r_jstate[:n]),
+                put(r_temp[:n]), need_probs)
+            _fence(dev)
+            t_prefill = time.monotonic()
+            vout = (ids.cpu().numpy(),
+                    None if probs is None else probs.cpu().numpy())
+            return (np.zeros((NB, 0), np.int32), np.zeros((NB,), np.int32),
+                    r_pool_lens, np.full((NB,), -1, np.int32), t_prefill,
+                    time.monotonic(), vout)
         last_logits = project_logits(self.params, cfg,
                                      hidden[0][put(last_idx)])   # [NB, V]
         _fence(dev)
@@ -1622,7 +1820,7 @@ class GenerateEngine:
         out, n_emitted, final_lens, jstate_f = (
             x.cpu().numpy() for x in (out, n_emitted, final_lens, jstate_f))
         now = time.monotonic()
-        return out, n_emitted, final_lens, jstate_f, t_prefill, now
+        return out, n_emitted, final_lens, jstate_f, t_prefill, now, None
 
     def _json_table_device(self, enum_set: tuple):
         """Grammar tables for this tokenizer, built once per distinct

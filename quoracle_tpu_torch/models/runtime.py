@@ -19,9 +19,13 @@ every ``continuous_chunk`` tokens. ``qos`` puts that loop behind the
 serving QoS layer, as in the JAX backend: one ``AdmissionController`` and
 one ``SLOTracker`` shared by the members, one ``WeightedFairPolicy`` per
 member (serving/).
+``draft_map`` serves drafted members speculatively (models/
+speculative.py), as the JAX backend does: under ``continuous`` each one's
+loop gets a ``BatchedSpeculator``; in baton mode a single uncontended text
+row goes through the member's batch-1 ``SpeculativeDecoder``.
 ``embed`` runs the on-device ``EmbeddingEncoder`` (models/embeddings.py).
-``MockBackend`` is the scripted test backend. Left for later slices:
-speculative decoding, KV tiers and VLM rows.
+``MockBackend`` is the scripted test backend. Left for later slices: KV
+tiers and VLM rows.
 """
 
 from __future__ import annotations
@@ -45,6 +49,9 @@ from quoracle_tpu_torch.models.generate import (
     splice_session_prompt,
 )
 from quoracle_tpu_torch.models.scheduler import ContinuousBatcher
+from quoracle_tpu_torch.models.speculative import (
+    BatchedSpeculator, SpeculativeDecoder,
+)
 from quoracle_tpu_torch.models.tokenizer import (
     _stringify_content, get_tokenizer,
 )
@@ -93,8 +100,10 @@ class Usage:
 
 @dataclasses.dataclass
 class QueryResult:
-    """One row's answer. ``spec_*`` and ``chip_ms`` stay 0 in this slice
-    (no speculation, no chip-economics ledger)."""
+    """One row's answer. ``spec_rounds`` and ``spec_accepted_tokens``
+    count the draft/verify rounds the row rode and the draft tokens the
+    target accepted (0 without speculation); ``chip_ms`` stays 0 until the
+    chip-economics ledger is ported."""
     model_spec: str
     text: str = ""
     usage: Usage = dataclasses.field(default_factory=Usage)
@@ -313,6 +322,17 @@ class TorchBackend(ModelBackend):
     grammar builds. Each member has a baton batcher (``_MemberBatcher``)
     that merges concurrent callers' rounds into one generate.
 
+    ``draft_map`` ({member spec: draft spec}) turns on speculative
+    serving for those members, with ``draft_k`` draft tokens a round.
+    Draft engines are built like members (from seed ``len(pool) + 100 +
+    j`` in the map's sorted order) unless the spec already has an engine
+    here (a self-draft reuses the member's), and never serve as pool
+    members. Under ``continuous`` each drafted member's loop gets a
+    ``BatchedSpeculator``; otherwise the member gets a batch-1
+    ``SpeculativeDecoder`` over its own dense caches, which serves a
+    single text row when its lock is free (greedy, or sampled at top_p
+    1), the baton batcher everything else.
+
     ``continuous`` replaces round-granularity baton batching with
     DECODE-level continuous batching (models/scheduler.py): each member
     runs a chunked decode loop on its own ``batcher-<model>`` thread that
@@ -339,6 +359,7 @@ class TorchBackend(ModelBackend):
                  embedder=None, overlap: bool = True,
                  continuous: bool = False, continuous_chunk: int = 32,
                  continuous_slots: int = 8, qos=None,
+                 draft_map: Optional[dict] = None, draft_k: int = 6,
                  quantize_weights: bool = False, quantize_kv: bool = False):
         self.device = resolve_device(device)
         self.pool = list(pool)
@@ -346,17 +367,40 @@ class TorchBackend(ModelBackend):
         self.quantize_weights = bool(quantize_weights)
         self.quantize_kv = bool(quantize_kv)
         self.engines: dict[str, GenerateEngine] = dict(engines or {})
-        for i, spec in enumerate(self.pool):
-            if spec in self.engines:
-                continue
+
+        def build_engine(spec: str, i: int) -> GenerateEngine:
             cfg = get_model_config(spec)
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed + i)
             params = init_params(cfg, gen, device=self.device)
-            self.engines[spec] = GenerateEngine(
+            return GenerateEngine(
                 cfg, params, get_tokenizer(spec), seed=seed + i,
                 device=self.device, quantize_weights=self.quantize_weights,
                 quantize_kv=self.quantize_kv)
+
+        for i, spec in enumerate(self.pool):
+            if spec not in self.engines:
+                self.engines[spec] = build_engine(spec, i)
+        # Speculative serving: draft engines load like members (and take
+        # the same int8 flags) but never serve as pool members themselves
+        self.draft_map = dict(draft_map or {})
+        self._spec_decoders: dict[str, SpeculativeDecoder] = {}
+        self._speculators: dict[str, BatchedSpeculator] = {}
+        for j, (tspec, dspec) in enumerate(sorted(self.draft_map.items())):
+            if tspec not in self.engines:
+                raise KeyError(f"draft_map target {tspec!r} is not in the "
+                               f"pool")
+            if dspec not in self.engines:
+                self.engines[dspec] = build_engine(dspec,
+                                                   len(self.pool) + 100 + j)
+            te, de = self.engines[tspec], self.engines[dspec]
+            if continuous:
+                self._speculators[tspec] = BatchedSpeculator(te, de,
+                                                             k=draft_k)
+            else:
+                self._spec_decoders[tspec] = SpeculativeDecoder(
+                    te.cfg, te.params, de.cfg, de.params, te.tokenizer,
+                    k=draft_k, max_seq=te.max_seq)
         # one baton batcher per POOL member
         self._batchers = {spec: _MemberBatcher(self.engines[spec])
                           for spec in self.pool}
@@ -388,7 +432,9 @@ class TorchBackend(ModelBackend):
                                         max_slots=continuous_slots,
                                         policy=qos_policies.get(spec),
                                         admission=self.qos_controller,
-                                        slo=self.slo)
+                                        slo=self.slo,
+                                        speculator=self._speculators.get(
+                                            spec))
                 for spec in self.pool}
             if self.qos_controller is not None:
                 for spec, pol in qos_policies.items():
@@ -422,6 +468,33 @@ class TorchBackend(ModelBackend):
 
     def scheduler_stats(self) -> dict:
         return {spec: cb.stats() for spec, cb in self._cbatchers.items()}
+
+    def swap_draft(self, tspec: str, engine, name: Optional[str] = None):
+        """Hot-swap the draft engine behind ``tspec``'s continuous-mode
+        speculator and return the incumbent engine (for rollback). The
+        caller owns both engines: the swapped-out one is not closed, and
+        the backend's ``engines`` keeps its entries. Draft KV is derived
+        state: rows re-prefill into the new draft's sessions on their next
+        round."""
+        speculator = self._speculators.get(tspec)
+        if speculator is None:
+            raise KeyError(f"no continuous speculator for {tspec!r} "
+                           f"(draft_map: {sorted(self.draft_map)})")
+        old = speculator.swap_draft(engine)
+        self.draft_map[tspec] = name or engine.cfg.name
+        return old
+
+    def spec_stats(self) -> dict:
+        if not self._speculators and not self._spec_decoders:
+            return {"enabled": False}
+        members = {spec: s.stats() for spec, s in self._speculators.items()}
+        for spec, dec in self._spec_decoders.items():
+            # batch-1 decoders keep no rolling scorecard: report the wiring
+            members.setdefault(spec, {
+                "mode": "batch1", "draft": dec.dc.name, "k": dec.k,
+            })
+        return {"enabled": True, "draft_map": dict(self.draft_map),
+                "members": members}
 
     def qos_stats(self) -> dict:
         if self.qos_controller is None:
@@ -491,6 +564,11 @@ class TorchBackend(ModelBackend):
                 # share the session's ACTUAL ids (prompt + sampled
                 # response) so the retained response KV resumes too
                 sess_toks = engine.session_tokens(r.session_id)
+                if not sess_toks and spec in self._spec_decoders:
+                    # speculative sessions live in the decoder, not the
+                    # engine: splice against ITS resident ids
+                    sess_toks = self._spec_decoders[spec].session_tokens(
+                        r.session_id)
                 if sess_toks:
                     spliced = splice_session_prompt(tok, sess_toks, ids)
                     if spliced is not None and len(spliced) < max_seq:
@@ -534,15 +612,71 @@ class TorchBackend(ModelBackend):
                        live_idxs: list[int], results: list,
                        t0: float) -> None:
         """Serve prepared rows through the backend's dispatch mode: the
-        member's continuous batcher, or its baton batcher, which may merge
-        them with concurrent callers' rounds; each row's failure becomes
-        its error string, as in the JAX backend."""
+        member's continuous batcher; its batch-1 speculative decoder (one
+        text row, greedy or top_p 1, the decoder's lock free); or its
+        baton batcher, which may merge them with concurrent callers'
+        rounds. Each row's failure becomes its error string, as in the JAX
+        backend."""
         if self.continuous:
             self._query_member_continuous(spec, rows, live_idxs, results,
                                           t0)
             return
+        engine = self.engines[spec]
+        dec = self._spec_decoders.get(spec)
+        if (dec is not None and len(rows) == 1
+                and (rows[0]["temperature"] <= 0
+                     or rows[0]["top_p"] >= 1.0)
+                # the decoder sizes its dense caches for prompt + max_new <
+                # max_seq: a prompt leaving no token of room goes to the
+                # baton path's own overflow handling
+                and len(rows[0]["prompt"]) + 1 < engine.max_seq
+                # TRY-acquire: under concurrent callers the baton batcher's
+                # merge beats serialized speculation, so contention falls
+                # through to it
+                and dec.lock.acquire(blocking=False)):
+            self._serve_speculative(spec, dec, rows[0], live_idxs[0],
+                                    results, t0)
+            return
         futs = self._batchers[spec].submit(rows)
         self._collect(spec, futs, live_idxs, results, t0)
+
+    def _serve_speculative(self, spec: str, dec: SpeculativeDecoder,
+                           r0: dict, i0: int, results: list,
+                           t0: float) -> None:
+        """One row through the batch-1 decoder (the caller holds its lock,
+        released here). The OUTPUT_FLOOR-inflated budget is clamped to the
+        window, as the engine clamps its per-row limits."""
+        engine = self.engines[spec]
+        cfg = engine.cfg
+        budget = min(r0["budget"], engine.max_seq - len(r0["prompt"]) - 1)
+        try:
+            g = dec.generate(
+                r0["prompt"], temperature=r0["temperature"],
+                top_p=r0["top_p"], max_new_tokens=budget,
+                constrain_json=bool(r0["constrain_json"]),
+                action_enum=r0["action_enum"],
+                session_id=r0["session_id"])
+        except ContextOverflowError as e:
+            results[i0] = QueryResult(model_spec=spec,
+                                      error=f"context_overflow: {e}")
+            return
+        except Exception as e:    # noqa: BLE001 — row-level error
+            results[i0] = QueryResult(model_spec=spec,
+                                      error=f"generate failed: {e}")
+            return
+        finally:
+            dec.lock.release()
+        cost = (g.n_prompt_tokens * cfg.input_cost_per_mtok
+                + g.n_gen_tokens * cfg.output_cost_per_mtok) / 1e6
+        results[i0] = QueryResult(
+            model_spec=spec, text=g.text,
+            usage=Usage(g.n_prompt_tokens, g.n_gen_tokens, cost),
+            latency_ms=(time.monotonic() - t0) * 1000,
+            # draft and verify interleave: no prefill/decode split, as in
+            # continuous mode
+            prefill_ms=0.0, decode_ms=0.0,
+            cached_tokens=g.n_cached_tokens, spec_rounds=g.rounds,
+            spec_accepted_tokens=g.accepted)
 
     def _query_member_continuous(self, spec: str, rows: list[dict],
                                  live_idxs: list[int],
@@ -601,7 +735,9 @@ class TorchBackend(ModelBackend):
                 model_spec=spec, text=g.text,
                 usage=Usage(g.n_prompt_tokens, g.n_gen_tokens, cost),
                 latency_ms=latency_ms, prefill_ms=prefill_ms,
-                decode_ms=decode_ms, cached_tokens=g.n_cached_tokens)
+                decode_ms=decode_ms, cached_tokens=g.n_cached_tokens,
+                spec_rounds=g.spec_rounds,
+                spec_accepted_tokens=g.spec_accepted_tokens)
 
     def embed(self, texts: Sequence[str]) -> list[np.ndarray]:
         return self.embedder.embed(texts)
@@ -609,11 +745,16 @@ class TorchBackend(ModelBackend):
     def drop_session(self, session_id: str,
                      model_specs: Optional[Sequence[str]] = None) -> None:
         """Release a conversation's resident KV on every engine (or only
-        on ``model_specs``)."""
+        on ``model_specs``), and in the members' batch-1 speculative
+        decoders: their sessions hold two dense caches, and a reused id
+        must not splice against a dead conversation."""
         keep = None if model_specs is None else set(model_specs)
         for spec, engine in self.engines.items():
             if keep is None or spec in keep:
                 engine.drop_session(session_id)
+        for spec, dec in self._spec_decoders.items():
+            if keep is None or spec in keep:
+                dec.drop_session(session_id)
 
     def count_tokens(self, model_spec: str, text: str) -> int:
         return self.engines[model_spec].tokenizer.count(text)

@@ -27,7 +27,16 @@ granularity instead — the classic continuous-batching scheme:
 
 On the card every chunk is a sessioned call, so it runs the unified
 ragged tier by default: the chunk's one-token re-prefills and then its
-decode ticks go through the ragged kernel. Sampled rows draw fresh RNG
+decode ticks go through the ragged kernel.
+
+With a ``speculator`` (models/speculative.py ``BatchedSpeculator``) a
+tick splits: eligible rows ride batched draft/verify rounds until each has
+committed about a chunk, while ineligible rows (nucleus-sampled rows, rows
+at the window's edge, every row while the member is disengaged) decode
+vanilla in the same tick. A speculator failure decodes the rows it left
+vanilla for the tick and counts as an "error" fallback. Temperature-0
+tokens are the same with and without speculation (fp32; bf16 sums may
+differ between a verify chunk and a decode tick). Sampled rows draw fresh RNG
 per chunk — the stream differs from a one-shot call (same distribution);
 temperature-0 rows give the one-shot tokens (fp32; bf16 sums may differ
 between a chunk tick and a decode tick of the same token).
@@ -44,8 +53,7 @@ The worker thread did not make the engine: the current CUDA device is per
 thread in PyTorch, so the loop pins the device of the engine's weights
 before its first chunk; every forward it reaches runs under the engine's
 own ``torch.no_grad`` decorators. Left out of this copy, each marked
-where it stood: the speculative tick (Queue 1 item 5), the tiered-KV
-prefetch at submit (item 7), the tracer spans, wait clocks, tree, fleet
+where it stood: the tiered-KV prefetch at submit (Queue 1 item 7), the tracer spans, wait clocks, tree, fleet
 and cost attribution and the flight-recorder records (item 8), and the
 fault-injection tick (item 9).
 """
@@ -97,6 +105,11 @@ class _Row:
     priority: int = 1                   # Priority.AGENT
     tenant: str = "default"
     deadline_s: Optional[float] = None
+    # speculative serving: draft/verify rounds this row rode and draft
+    # tokens proposed and accepted, surfaced on the retiring GenResult
+    spec_rounds: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
 
 class ContinuousBatcher:
@@ -110,19 +123,23 @@ class ContinuousBatcher:
 
     def __init__(self, engine, chunk: int = 32, max_slots: int = 8,
                  policy: Optional[AdmissionPolicy] = None,
-                 admission=None, slo=None):
+                 admission=None, slo=None, speculator=None):
         """``policy`` orders admission (default: FIFO;
         serving/qos.WeightedFairPolicy for DRR + aging). ``admission``
         is an optional serving/admission.AdmissionController consulted
         on every submit — sheds fail the row's future with a structured
         AdmissionError instead of growing the queue. ``slo`` is an
-        optional serving/slo.SLOTracker fed per-class retire latency."""
+        optional serving/slo.SLOTracker fed per-class retire latency.
+        ``speculator`` (models/speculative.BatchedSpeculator) turns
+        eligible rows' decode ticks into batched draft/verify rounds;
+        ineligible rows decode vanilla in the same tick."""
         self.engine = engine
         self.chunk = chunk
         self.max_slots = max_slots
         self._policy = policy if policy is not None else FifoPolicy()
         self.admission = admission
         self.slo = slo
+        self.speculator = speculator
         self._live: list[_Row] = []
         self._seq = 0
         self._lock = threading.Lock()
@@ -246,8 +263,8 @@ class ContinuousBatcher:
         """Point-in-time health snapshot (racy reads of worker-owned
         state — a snapshot, not an invariant). ``padding`` stays None
         until the engine counts real against padded chunk tokens (the JAX
-        engine's ``padding_stats``); ``speculative`` until Queue 1 item
-        5."""
+        engine's ``padding_stats``, Queue 1 item 8); ``speculative`` is
+        the speculator's ``stats()``, None without one."""
         return {
             "queued": self._policy.qsize(),
             "live": len(self._live),
@@ -259,7 +276,8 @@ class ContinuousBatcher:
             "closed": self._stop,
             "qos": self._policy.snapshot(),
             "padding": None,
-            "speculative": None,
+            "speculative": (self.speculator.stats()
+                            if self.speculator is not None else None),
         }
 
     def progress(self) -> tuple[bool, int]:
@@ -319,11 +337,10 @@ class ContinuousBatcher:
                 self._wake.wait(timeout=0.2)
                 self._wake.clear()
                 continue
-            # (the JAX batcher's _step splits the tick between its
-            # speculator and this plain step: Queue 1 item 5; it also
-            # samples a decode-tick span: item 8)
+            # (the JAX batcher samples a decode-tick span here: Queue 1
+            # item 8)
             try:
-                self._live = self._plain_step(self._live)
+                self._live = self._step(self._live)
             except Exception:             # noqa: BLE001 — isolate, don't
                 self._live = self._isolate_failure(self._live)  # nuke all
             self.steps += 1               # watchdog progress signal
@@ -367,11 +384,13 @@ class ContinuousBatcher:
         return survivors
 
     def _drop_row_sessions(self, row) -> None:
-        """Owned-session cleanup for a terminal row. (Under speculative
-        serving the JAX batcher also drops the draft engine's shadow
-        session: Queue 1 item 5.)"""
+        """Owned-session cleanup for a terminal row: the engine session
+        and, under speculative serving, the draft engine's shadow session
+        the speculator keyed by the same id."""
         if row.owns_session:
             self.engine.drop_session(row.session_id)
+            if self.speculator is not None:
+                self.speculator.drop_session(row.session_id)
 
     def _finish_row(self, row, finish_reason: str,
                     json_state: int = -1) -> None:
@@ -387,6 +406,9 @@ class ContinuousBatcher:
                 finish_reason=finish_reason,
                 n_cached_tokens=row.n_cached_first or 0,
                 json_state=json_state,
+                spec_rounds=row.spec_rounds,
+                spec_drafted_tokens=row.spec_drafted,
+                spec_accepted_tokens=row.spec_accepted,
             ))
         self._drop_row_sessions(row)
         self.retired += 1
@@ -400,6 +422,84 @@ class ContinuousBatcher:
             self.slo.observe(
                 row.priority,
                 (time.monotonic() - row.t_submit) * 1000)
+
+    def _step(self, rows: list) -> list:
+        """One decode tick. Under speculative serving the tick splits:
+        eligible rows ride batched draft/verify rounds (``_spec_step``)
+        while ineligible rows decode vanilla in the same tick. Both kinds
+        retire through _finish_row."""
+        spec = self.speculator
+        spec_rows: list = []
+        spec_ids: set = set()
+        finishes: dict = {}
+        if spec is not None:
+            spec.tick_vanilla()         # re-probe countdown while off
+            for r in rows:
+                reason = spec.ineligible_reason(
+                    len(r.prompt) + len(r.emitted), r.temperature,
+                    r.top_p)
+                if reason is None:
+                    spec_rows.append(r)
+                    spec_ids.add(id(r))
+                else:
+                    spec.note_fallback(reason)
+            if spec_rows:
+                # (the JAX batcher books the round's wall into the rows'
+                # wait clocks here: Queue 1 item 8)
+                finishes, leftover = self._spec_step(spec_rows)
+                if leftover:            # speculator failed mid-tick:
+                    lids = set(map(id, leftover))   # decode those vanilla
+                    spec_rows = [r for r in spec_rows
+                                 if id(r) not in lids]
+                    spec_ids -= lids
+        plain = [r for r in rows if id(r) not in spec_ids]
+        still = self._plain_step(plain) if plain else []
+        for row in spec_rows:
+            fin = finishes.get(id(row))
+            finished = (fin == "stop"
+                        or len(row.emitted) >= row.max_new
+                        or (len(row.prompt) + len(row.emitted)
+                            >= self.engine.max_seq - 1))
+            if finished:
+                self._finish_row(
+                    row, "stop" if fin == "stop" else "length",
+                    json_state=(row.json_state
+                                if row.json_state is not None else -1))
+            else:
+                still.append(row)
+        return still
+
+    def _spec_step(self, rows: list) -> tuple[dict, list]:
+        """Speculative sub-tick: repeated draft/verify rounds until every
+        row has committed ~chunk tokens, finished, or become ineligible.
+        Returns ({id(row): "stop" | None}, leftover): ``leftover`` rows hit
+        a speculator error and decode vanilla this tick; what they
+        committed before it (rows and sessions change in place) is
+        consistent, so the fallback is seamless."""
+        spec = self.speculator
+        finishes: dict = {}
+        active = list(rows)
+        baseline = {id(r): len(r.emitted) for r in rows}
+        try:
+            while active:
+                for rid, fin in spec.run_round(active).items():
+                    if fin is not None:
+                        finishes[rid] = fin
+                active = [
+                    r for r in active
+                    if finishes.get(id(r)) is None
+                    and len(r.emitted) < r.max_new
+                    and len(r.emitted) - baseline[id(r)] < self.chunk
+                    and spec.ineligible_reason(
+                        len(r.prompt) + len(r.emitted), r.temperature,
+                        r.top_p) is None]
+        except Exception:    # noqa: BLE001 — isolate, don't kill rows
+            spec.note_fallback("error", len(active))
+            # (the JAX batcher records the error in its flight recorder
+            # here: Queue 1 item 8)
+            leftover = [r for r in active if finishes.get(id(r)) is None]
+            return finishes, leftover
+        return finishes, []
 
     def _plain_step(self, rows: list) -> list:
         prompts = [r.prompt + r.emitted for r in rows]

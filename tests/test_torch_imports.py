@@ -43,7 +43,8 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.infra.telemetry",
              "quoracle_tpu_torch.infra.resources",
              "quoracle_tpu_torch.serving.slo",
-             "quoracle_tpu_torch.models.scheduler"):
+             "quoracle_tpu_torch.models.scheduler",
+             "quoracle_tpu_torch.models.speculative"):
     assert name in names, name
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join({repo!r}, "chip_smoke.py"))
@@ -62,5 +63,5 @@ def test_port_and_chip_smoke_import_no_jax():
         env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 49, out.stdout          # every module was imported
+    assert int(n) >= 50, out.stdout          # every module was imported
     assert bad.strip() == "[]", out.stdout
