@@ -182,6 +182,24 @@ never prints its last line):
              under torch.profiler: wall time, device busy time (the union
              of kernel intervals), idle share, launches, and the kernels
              that take the most device time
+  ckpt       an HF checkpoint on the card (models/loader.py): the serve
+             phase's llama-3-8b bf16 weights, all 32 layers, exported by
+             export_hf_checkpoint to a temporary directory outside the
+             checkout, with make_checkpoint's tokenizer files and a
+             config.json of the catalog entry (config_from_hf must give
+             back its widths and rope); registered, then served by a
+             TorchBackend built over the name alone, which loads the
+             weights and the checkpoint's own tokenizer and chat
+             template: the serve phase's traffic, JSON prefixes, round 2
+             resumed, flash and ragged launched (counts zeroed before the
+             build); every loaded leaf and the logits of one 938-token
+             sequence bit-identical to the exported model's; then
+             make_checkpoint's tiny llama and gemma (2 layers, at head
+             dims 128 and 256, which the kernels serve) loaded in fp32 on
+             the card and on the CPU, the same greedy rounds on the
+             unified tier: identical texts and cached counts. Prints the bytes
+             written, export and load seconds, load GB/s, round 2's ms
+             beside the serve phase's random-weight round
   calib      the paged-tier calibration (tools/calibrate_paged.py's
              sweep: 1024, 4096 and 16384 resident tokens, 3 timed rounds
              of 32 new tokens a path after a warm-up) at llama-3-8b in
@@ -220,7 +238,8 @@ never prints its last line):
              at the 8, 64 and 256-token buckets
 
 in that order but for batch, continuous and spec, which run after
-prefix, and calib, after trace; then the card's nvidia-smi line, the kernels JSON line and, last,
+prefix, and ckpt and calib, after trace; then the card's nvidia-smi
+line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
 never writes, for the whole run (the calib phase's loading engine
@@ -234,7 +253,8 @@ decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
 ``--only calib``, ``--only batch``, ``--only continuous`` and ``--only
 spec`` run that phase after the build, over weights drawn here (no last
-line). Every
+line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
+the build (no last line). Every
 comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
 False, and cudnn's too). The script imports torch and the port, never
 JAX or the JAX package.
@@ -3544,6 +3564,220 @@ def phase_sweep(torch, F, P) -> dict:
     return {"phase": "sweep", "cases": rows}
 
 
+CKPT_MODEL = "llama-3-8b-ckpt"     # the catalog name of the exported copy
+# the catalog fields a checkpoint's config.json must give back: widths,
+# rope, norm and the family's switches
+CONFIG_FIELDS = ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
+                 "ffn_dim", "head_dim", "rope_theta", "rope_scaling",
+                 "norm_eps", "activation", "tie_embeddings",
+                 "scale_embeddings", "rmsnorm_plus_one", "sliding_window",
+                 "attn_bias", "context_window")
+# make_checkpoint's tiny llama and gemma (2 layers, vocab 2048) at the
+# CUDA kernels' head dims, 128 and 256: the tiny configs' 16 is below them
+CKPT_TINY = {"llama": dict(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           head_dim=128),
+             "gemma": dict(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=2,
+                           head_dim=256)}
+CKPT_TINY_TOKENS = 12               # new tokens a row of their rounds
+
+
+def hf_config(cfg, ids: dict) -> dict:
+    """A llama-family catalog entry as the config.json an HF export of it
+    carries, with the checkpoint tokenizer's special ids."""
+    if (cfg.activation, cfg.tie_embeddings, cfg.attn_bias,
+            cfg.rope_scaling, cfg.sliding_window) != ("silu", False, False,
+                                                      None, None):
+        raise AssertionError(f"{cfg.name} is not a plain llama entry")
+    return {"architectures": ["LlamaForCausalLM"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+            "intermediate_size": cfg.ffn_dim,
+            "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+            "max_position_embeddings": cfg.context_window,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+            "hidden_act": "silu", "tie_word_embeddings": False,
+            "bos_token_id": ids["<|bos|>"], "eos_token_id": ids["<|eos|>"],
+            "pad_token_id": ids["<|pad|>"], "torch_dtype": "bfloat16"}
+
+
+def dense_logits(torch, params, cfg, ids: list):
+    """fp32 logits of every position of one sequence (the dense path:
+    flash from 256 tokens up on the card)."""
+    from quoracle_tpu_torch.models import transformer as T
+    n = len(ids)
+    dev = params.final_norm.device
+    tokens = torch.tensor([ids], dtype=torch.int32, device=dev)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+    cache = T.init_cache(cfg, 1, n, dev, dtype=params.dtype)
+    hidden, _ = T.forward_hidden(
+        params, cfg, tokens, pos, cache,
+        torch.zeros(1, dtype=torch.int32, device=dev),
+        torch.full((1,), n, dtype=torch.int32, device=dev))
+    return T.project_logits(params, cfg, hidden[0])
+
+
+def ckpt_tiny_rounds(torch, R, root: str) -> dict:
+    """make_checkpoint's tiny llama and gemma (CKPT_TINY), each loaded in
+    fp32 on the card and on the CPU and served the same greedy traffic on
+    the unified tier (the card's default, forced on the CPU): identical
+    texts, token counts and cached counts."""
+    from quoracle_tpu_torch.models import loader
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.make_checkpoint import make_checkpoint
+    from quoracle_tpu_torch.models.tokenizer import get_tokenizer
+    out = {}
+    for i, (fam, widths) in enumerate(CKPT_TINY.items()):
+        path = make_checkpoint(os.path.join(root, f"tiny-{fam}"),
+                               family=fam, scale="tiny", seed=i,
+                               overrides=widths)
+        cfg = loader.register_hf_checkpoint(path, name=f"ckpt-tiny-{fam}")
+        spec = f"xla:{cfg.name}"
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            eng = GenerateEngine(
+                cfg, loader.load_params(path, cfg, device=dev,
+                                        dtype=torch.float32),
+                get_tokenizer(spec), device=dev)
+            eng.unified_min_tokens = 0
+            backend = R.TorchBackend([spec], device=dev,
+                                     engines={spec: eng})
+            t0 = time.monotonic()
+            rounds, results, _ = run_rounds(
+                R, backend, spec, [0.0] * 3, CKPT_TINY_TOKENS, n_rules=8)
+            runs[dev] = {
+                "s": time.monotonic() - t0,
+                "texts": [[r.text for r in res] for res in results],
+                "tokens": [[r.usage.completion_tokens for r in res]
+                           for res in results],
+                "cached": [rnd["cached_tokens"] for rnd in rounds]}
+            backend.close()
+            del backend, eng
+        g, c = runs["cuda"], runs["cpu"]
+        same = all(g[k] == c[k] for k in ("texts", "tokens", "cached"))
+        row = {"identical": same, "gpu_s": g["s"], "cpu_s": c["s"],
+               "cached_tokens": g["cached"][1], "new_tokens": g["tokens"]}
+        if min(g["cached"][1]) <= 0:
+            raise AssertionError(f"tiny {fam}: round 2 resumed nothing")
+        if not same:
+            row.update(gpu_texts=g["texts"], cpu_texts=c["texts"])
+            emit({"phase": "ckpt", "tiny": {fam: row}})
+            raise AssertionError(f"tiny {fam}: GPU and CPU disagree")
+        out[fam] = row
+    return out
+
+
+def phase_ckpt(torch, R, kernels, dfa, backend, serve_report) -> dict:
+    """Serve an HF checkpoint on the card: the serve phase's llama-3-8b
+    bf16 weights exported at full width and depth to a temporary
+    directory outside the checkout, with make_checkpoint's tokenizer files
+    and a config.json of the catalog entry; registered, then served by a
+    TorchBackend built over the name alone (the loader, the checkpoint's
+    own tokenizer and chat template); the loaded weights and logits held
+    bit for bit against the exported model's; then two tiny checkpoints
+    on the card and the CPU. The launch counts are zeroed before the
+    backend's build and read after its rounds."""
+    from quoracle_tpu_torch.models import loader
+    from quoracle_tpu_torch.models.make_checkpoint import (
+        make_tokenizer_files,
+    )
+    t_phase = time.monotonic()
+    src = backend.engines[MODEL]
+    cfg = src.cfg
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    report = {"phase": "ckpt", "model": MODEL, "layers": cfg.n_layers}
+    orig_load = R.loader.load_params
+    ckpt_backend = None
+    try:
+        base = os.path.join(root, "base")
+        os.makedirs(base)
+        ids = make_tokenizer_files(base, cfg.vocab_size)
+        with open(os.path.join(base, "config.json"), "w") as f:
+            json.dump(hf_config(cfg, ids), f, indent=1)
+        with open(os.path.join(base, "config.json")) as f:
+            back = loader.config_from_hf(json.load(f), CKPT_MODEL)
+        wrong = [k for k in CONFIG_FIELDS
+                 if getattr(back, k) != getattr(cfg, k)]
+        if wrong:
+            raise AssertionError(f"config.json gives back other {wrong}")
+
+        t0 = time.monotonic()
+        out = loader.export_hf_checkpoint(src.params, cfg,
+                                          os.path.join(root, "ckpt"), base)
+        report["export_s"] = time.monotonic() - t0
+        nbytes = os.path.getsize(os.path.join(out, "model.safetensors"))
+        report["bytes_written"] = nbytes
+        spec = f"xla:{loader.register_hf_checkpoint(out, CKPT_MODEL).name}"
+
+        loads = []
+
+        def timed_load(*a, **kw):
+            t = time.monotonic()
+            model = orig_load(*a, **kw)
+            torch.cuda.synchronize()
+            loads.append(time.monotonic() - t)
+            return model
+        R.loader.load_params = timed_load
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        ckpt_backend = R.TorchBackend([spec], seed=0)
+        torch.cuda.synchronize()
+        report["init_s"] = time.monotonic() - t0
+        R.loader.load_params = orig_load
+        if len(loads) != 1:
+            raise AssertionError(f"the backend loaded {len(loads)} times")
+        report["load_s"] = loads[0]
+        report["load_gb_per_s"] = nbytes / loads[0] / 1e9
+        eng = ckpt_backend.engines[spec]
+        tok = type(eng.tokenizer).__name__
+        if tok != "HFAutoTokenizer":
+            raise AssertionError(f"the checkpoint serves a {tok}")
+        rounds, results, _ = run_rounds(R, ckpt_backend, spec, TEMPS,
+                                        MAX_TOKENS, N_RULES)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        if min(launches["flash_fwd"], launches["ragged_fwd"]) <= 0:
+            raise AssertionError(f"the checkpoint missed a kernel: "
+                                 f"{launches}")
+        check_rounds(rounds, results, dfa, long_min=256)
+        report.update(launches=launches, rounds=rounds,
+                      texts=[r.text[:48] for r in results[0]])
+        report["round2"] = round2_compare({
+            "checkpoint": rounds[1],
+            "random (serve phase)": serve_report["rounds"][1]})
+
+        # every leaf bit for bit, then one sequence's logits
+        got = eng.params.state_dict()
+        for name, t in src.params.state_dict().items():
+            if not torch.equal(got[name], t):
+                raise AssertionError(f"loaded {name} differs from the "
+                                     f"exported weight")
+        seq = src.tokenizer.encode_chat(
+            chat("summarize the rules above in one line", N_RULES + 6))
+        a = dense_logits(torch, src.params, cfg, seq)
+        b = dense_logits(torch, eng.params, eng.cfg, seq)
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"logits differ: max {float((a - b).abs().max())}")
+        report["logits"] = {"tokens": len(seq), "identical": True}
+        del a, b, got, eng
+        ckpt_backend.close()
+        ckpt_backend = None
+        torch.cuda.empty_cache()
+        report["tiny"] = ckpt_tiny_rounds(torch, R, root)
+    finally:
+        R.loader.load_params = orig_load
+        if ckpt_backend is not None:
+            ckpt_backend.close()
+        del ckpt_backend
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    report["seconds"] = time.monotonic() - t_phase
+    return report
+
+
 REFERENCE_TIERS = {
     # (int8 weights and pages, engine attributes)
     # the unified kernel (the card's default; forced on the CPU)
@@ -3758,7 +3992,7 @@ def ptxas_entries(log: str) -> list:
 def main(argv) -> int:
     only = None
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
-              "continuous", "spec")
+              "continuous", "spec", "ckpt")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -3820,6 +4054,12 @@ def main(argv) -> int:
         backend = R.TorchBackend([MODEL], seed=0)
         emit(phase_spec(torch, R, kernels, P, backend,
                         [decide_pool_backend(torch, R, backend)[0]]))
+        return 0
+    if only == "ckpt":
+        dfa = CharDFA(max_depth=4)
+        backend, report, *_ = phase_serve(torch, R, F, P, kernels, dfa)
+        emit(report)
+        emit(phase_ckpt(torch, R, kernels, dfa, backend, report))
         return 0
     if only in ("decide", "prefix"):
         backend = R.TorchBackend([MODEL], seed=0)
@@ -3889,6 +4129,10 @@ def main(argv) -> int:
             e["verify"] = spec_report["verify_ticks"]["ragged_q8_fwd"]
     emit({"phase": "mainpath", "kernels": entries})
     emit(phase_trace(torch, R, backend, hist))
+    ckpt_report = phase_ckpt(torch, R, kernels, dfa, backend, report)
+    emit(ckpt_report)
+    for e in entries:
+        e["ckpt_launches"] = ckpt_report["launches"][e["name"]]
     params = backend.engines[MODEL].params
     del backend, kept, paged_kept
     torch.cuda.empty_cache()

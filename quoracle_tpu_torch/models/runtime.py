@@ -40,6 +40,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from quoracle_tpu_torch.models import loader
 from quoracle_tpu_torch.models.config import OUTPUT_FLOOR, get_model_config
 from quoracle_tpu_torch.models.embeddings import (
     EmbeddingEncoder, HashingEmbedder,
@@ -308,10 +309,12 @@ class _MemberBatcher:
 class TorchBackend(ModelBackend):
     """Serves a pool of catalog models, one ``GenerateEngine`` each, on
     one device. ``device=None`` means the GPU and raises without one; the
-    CPU serves only when asked (``device="cpu"``, the tests). Weights are
-    random bf16, drawn from ``torch.Generator``s seeded ``seed + i`` on
-    the device (checkpoint loading is a later slice); ``engines`` hands in
-    prebuilt engines instead. ``quantize_weights`` and ``quantize_kv``
+    CPU serves only when asked (``device="cpu"``, the tests). A catalog
+    entry with a ``checkpoint_path`` (models/loader.py
+    ``register_hf_checkpoint``) serves its checkpoint's bf16 weights and
+    its own tokenizer; the others serve random bf16 weights drawn from
+    ``torch.Generator``s seeded ``seed + i`` on the device. ``engines``
+    hands in prebuilt engines instead. ``quantize_weights`` and ``quantize_kv``
     (int8 serving, models/quant.py) apply to every engine the backend
     builds, as in the JAX backend.
 
@@ -350,8 +353,8 @@ class TorchBackend(ModelBackend):
     The embedder is built as the JAX backend builds it: ``embedder`` if
     given; else an ``EmbeddingEncoder`` over ``embed_model`` (default: the
     pool's first member), sharing that member's weights and tokenizer when
-    it has an engine here, else over random weights drawn on the device
-    from a generator seeded ``seed + 101``."""
+    it has an engine here, else over its checkpoint or random weights
+    drawn on the device from a generator seeded ``seed + 101``."""
 
     def __init__(self, pool: Sequence[str], *, seed: int = 0, device=None,
                  embed_model: Optional[str] = None,
@@ -368,11 +371,19 @@ class TorchBackend(ModelBackend):
         self.quantize_kv = bool(quantize_kv)
         self.engines: dict[str, GenerateEngine] = dict(engines or {})
 
+        def weights(cfg, seed_i: int):
+            # an entry with a checkpoint serves its own weights, as in the
+            # JAX backend; the others draw random ones
+            if cfg.checkpoint_path:
+                return loader.load_params(cfg.checkpoint_path, cfg,
+                                          device=self.device)
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed_i)
+            return init_params(cfg, gen, device=self.device)
+
         def build_engine(spec: str, i: int) -> GenerateEngine:
             cfg = get_model_config(spec)
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed + i)
-            params = init_params(cfg, gen, device=self.device)
+            params = weights(cfg, seed + i)
             return GenerateEngine(
                 cfg, params, get_tokenizer(spec), seed=seed + i,
                 device=self.device, quantize_weights=self.quantize_weights,
@@ -449,9 +460,7 @@ class TorchBackend(ModelBackend):
                 eparams, ecfg, etok = e.params, e.cfg, e.tokenizer
             else:
                 ecfg = get_model_config(espec)
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(seed + 101)
-                eparams = init_params(ecfg, gen, device=self.device)
+                eparams = weights(ecfg, seed + 101)
                 etok = get_tokenizer(espec)
             self.embedder = EmbeddingEncoder(ecfg, eparams, etok)
 

@@ -24,10 +24,13 @@ CPU):
 
     python -m quoracle_tpu_torch.tools.bench_longctx --resident 16384
 
-The port has no checkpoint loader yet: the engine serves a copy of a
-catalog model (``--model``, default llama-3-8b) registered with its
-context window widened to the session, over random bf16 weights drawn
-from a seeded generator on the device. tools/calibrate_paged.py reuses
+The engine serves a copy of a catalog model registered with its context
+window widened to the session: with ``--scale``, as the JAX tool does,
+models/make_checkpoint.py's llama checkpoint at that scale (made under
+the repository's git-ignored ``checkpoints/`` when missing), its weights
+loaded by models/loader.py and its own tokenizer; without, ``--model``
+(default llama-3-8b) over random bf16 weights drawn from a seeded
+generator on the device. tools/calibrate_paged.py reuses
 ``measure_paths`` to find each path's crossover and write the engine's
 gate file.
 """
@@ -37,6 +40,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import sys
 import time
@@ -46,6 +50,10 @@ import torch
 
 from quoracle_tpu_torch.models.config import get_model_config, register_model
 from quoracle_tpu_torch.models.generate import GenerateEngine, resolve_device
+from quoracle_tpu_torch.models.loader import (
+    load_params, register_hf_checkpoint,
+)
+from quoracle_tpu_torch.models.make_checkpoint import make_checkpoint
 from quoracle_tpu_torch.models.quant import kv_token_bytes
 from quoracle_tpu_torch.models.tokenizer import get_tokenizer
 from quoracle_tpu_torch.models.transformer import init_params
@@ -89,23 +97,42 @@ def session_bytes(cfg, resident: int, rounds: int, new_tokens: int,
     return max(2, -(-int(need) // GIB)) * GIB
 
 
+CHECKPOINTS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "checkpoints")
+
+
+def bench_checkpoint(scale: str) -> str:
+    """models/make_checkpoint.py's llama checkpoint at ``scale`` under
+    ``checkpoints/`` (made once, then reused)."""
+    return make_checkpoint(os.path.join(CHECKPOINTS, f"torch-llama-{scale}"),
+                           family="llama", scale=scale)
+
+
 def build_engine(resident: int, rounds: int, new_tokens: int,
                  model: str = "xla:llama-3-8b",
                  session_max_bytes: Optional[int] = None, params=None,
-                 device=None, seed: int = 0, dtype=torch.bfloat16):
+                 device=None, seed: int = 0, dtype=torch.bfloat16,
+                 checkpoint: Optional[str] = None):
     """(engine, tokenizer) for a ``resident``-token session: a copy of
-    ``model``'s catalog entry registered as ``longctx`` with its context
+    ``model``'s catalog entry (or of ``checkpoint``'s config, registered
+    as ``longctx-base``) registered as ``longctx`` with its context
     window widened to the session, prompt buckets (256, 1024, resident,
     window), and ``params`` (a prebuilt ``Transformer``, so one set of
-    weights serves every sweep size) or random ``dtype`` weights drawn
-    from a generator seeded ``seed`` on ``device`` (None: the card)."""
+    weights serves every sweep size), else the checkpoint's weights, else
+    random weights drawn from a generator seeded ``seed``, in ``dtype`` on
+    ``device`` (None: the card)."""
     device = resolve_device(device)
+    if checkpoint is not None:
+        base = register_hf_checkpoint(checkpoint, "longctx-base")
+        model = f"xla:{base.name}"
     base = get_model_config(model)
     max_seq = session_max_seq(resident, rounds, new_tokens)
     cfg = register_model(dataclasses.replace(
         base, name="longctx", context_window=max_seq))
     tok = get_tokenizer(model)
-    if params is None:
+    if params is None and checkpoint is not None:
+        params = load_params(checkpoint, cfg, device=device, dtype=dtype)
+    elif params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         params = init_params(cfg, gen, device=device, dtype=dtype)
@@ -211,13 +238,20 @@ def main(argv=None) -> None:
                     help="timed resumed rounds per path")
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--model", default="xla:llama-3-8b",
-                    help="catalog model whose widths the engine serves")
+                    help="catalog model whose widths the engine serves "
+                         "over random weights")
+    ap.add_argument("--scale", default=None,
+                    choices=["1b", "small", "tiny"],
+                    help="serve make_checkpoint's llama checkpoint at "
+                         "this scale instead")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
-    eng, tok = build_engine(args.resident, args.rounds, args.new_tokens,
-                            args.model, device=args.device)
+    eng, tok = build_engine(
+        args.resident, args.rounds, args.new_tokens, args.model,
+        device=args.device,
+        checkpoint=bench_checkpoint(args.scale) if args.scale else None)
     log(f"engine ready; resident target {args.resident} tokens, session "
         f"pool {eng.sessions.max_tokens} tokens")
     results = measure_paths(eng, tok, args.resident, args.rounds,

@@ -1,6 +1,9 @@
 """The PyTorch port stands alone: importing any of its modules, or
 chip_smoke.py, in a fresh interpreter loads neither JAX nor the JAX
-package. (Only the parity tests import both.)"""
+package, nor the libraries the JAX package reads checkpoints with
+(``safetensors``, ``tokenizers``, ``transformers``, ``regex``,
+``ml_dtypes``), which the card's machine lacks. (Only the parity tests
+import them.)"""
 
 import os
 import subprocess
@@ -44,14 +47,17 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.infra.resources",
              "quoracle_tpu_torch.serving.slo",
              "quoracle_tpu_torch.models.scheduler",
-             "quoracle_tpu_torch.models.speculative"):
+             "quoracle_tpu_torch.models.speculative",
+             "quoracle_tpu_torch.models.safetensors_io",
+             "quoracle_tpu_torch.models.loader",
+             "quoracle_tpu_torch.models.make_checkpoint"):
     assert name in names, name
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join({repo!r}, "chip_smoke.py"))
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "quoracle_tpu" or m.startswith("quoracle_tpu."))
+BANNED = ("jax", "jaxlib", "quoracle_tpu", "safetensors", "tokenizers",
+          "transformers", "regex", "ml_dtypes")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 print(len(names), bad)
 """
 
