@@ -57,10 +57,12 @@ never prints its last line):
              int8 unified, int8 gather and bf16 unified.
   decide     two decides of the port's ConsensusEngine over TorchBackend
              (members served concurrently, the backend's default) for
-             the north-star pool, llama-3-8b (the serve phase's engine,
-             also the embedder's weights), mistral-7b and gemma-7b at full
-             width and depth, random bf16 weights from seeded generators
-             (seed + i, as the backend draws them): one agent (session
+             the north-star pool, llama-3-8b (a view of the serve
+             phase's first 8 layers, also the embedder's weights),
+             mistral-7b and gemma-7b at full width cut to 8 layers
+             (DEPTH_CUT, for the script's time limit; the later phases'
+             uses of the pool too), random bf16 weights from seeded
+             generators (seed + i, as the backend draws them): one agent (session
              agent-decide), allowed actions {"wait"}, the system prompt of
              build_system_prompt for that set, the default schedule (4
              refinement rounds, temperatures 1.0 falling to 0.2, JSON
@@ -200,10 +202,46 @@ never prints its last line):
              unified tier: identical texts and cached counts. Prints the bytes
              written, export and load seconds, load GB/s, round 2's ms
              beside the serve phase's random-weight round
+  tiers      tiered KV and the handoff (serving/kvtier.py,
+             serving/handoff.py) at llama-3-8b full width over the serve
+             phase's bf16 weights, in five parts: (a) six sessions of
+             3,000-token prompts (24 pages each, 144 against the 2 GiB
+             pool's 128) on an engine with a host tier sized to hold what
+             it demotes: the LRU session is demoted, its resumed round
+             (20 more tokens, 32 new) restores it by page-in, and it must
+             give a never-evicting control engine's tokens and cached
+             count, with the restored pages bit-identical to the demoted
+             ones and no restore failure; the demote and page-in ms, bytes
+             and GB/s, the control's re-prefill of the same round with
+             tiers off, and pinned (the default) against pageable host
+             copies in turns;
+             (b) restart-warm prefixes: engine A with a disk store in a
+             fresh directory under build/ serves a 2,000-token prompt and
+             drains its spills, a new engine B over the same directory
+             serves it again: every full block restored from disk, B's
+             tokens those of A's warm row; bytes written, write s, load
+             ms per block (crc included); the directory is removed; (c)
+             (a) over int8 pools (int8 weights quantized here, three
+             sessions against a 64-page pool): pages and scales restored
+             bit-identical, the resumed round on ragged_q8_fwd; (d) a
+             one-token prefill handed from engine A to engine B
+             (KVHandoff export and adopt, one set of weights) continues
+             with the tokens of a control engine continuing itself, and a
+             bf16 envelope is refused by an int8-KV engine (reason
+             "signature", nothing lands); (e) TorchBackend(host_kv_mb=,
+             continuous=True): an agent's round to its hibernated session
+             is restored (the submit's prefetch or the lookup), cached
+             tokens above 0, backend.prefetch_sessions warms it again,
+             kv_stats on, effective headroom at least the raw one. The
+             launch counts are zeroed before (a) and read after (e):
+             ragged_fwd and ragged_q8_fwd must have run; the resumed
+             rounds' first chunk and decode ticks are held against the
+             twins and timed
   calib      the paged-tier calibration (tools/calibrate_paged.py's
              sweep: 1024, 4096 and 16384 resident tokens, 3 timed rounds
              of 32 new tokens a path after a warm-up) at llama-3-8b in
-             bf16 over the serve phase's weights, a fresh engine a size
+             bf16 cut to 8 layers (DEPTH_CUT; the serve phase's first
+             8 layers, embedding and head), a fresh engine a size
              (tools/bench_longctx.py; the unified, direct_full,
              direct_decode and gather paths, each with its launches,
              p50, the rounds' spread, peak memory and reused tokens),
@@ -238,7 +276,7 @@ never prints its last line):
              at the 8, 64 and 256-token buckets
 
 in that order but for batch, continuous and spec, which run after
-prefix, and ckpt and calib, after trace; then the card's nvidia-smi
+prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
 line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
@@ -251,9 +289,9 @@ main path's lengths without the serving phases; no last line); ``--only
 decide`` runs the decide phase (llama-3-8b built anew) and the reference
 decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
-``--only calib``, ``--only batch``, ``--only continuous`` and ``--only
-spec`` run that phase after the build, over weights drawn here (no last
-line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
+``--only calib``, ``--only batch``, ``--only continuous``, ``--only
+spec`` and ``--only tiers`` run that phase after the build, over weights
+drawn here (no last line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
 the build (no last line). Every
 comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
 False, and cudnn's too). The script imports torch and the port, never
@@ -335,6 +373,10 @@ DECIDE_POOL = [MODEL, "xla:mistral-7b", "xla:gemma-7b"]
 # within each budget is estimated by quoracle_tpu_torch/tools/
 # json_closure.py
 DECIDE_MAX_TOKENS = 256
+# layers of the decide pool's members (llama-3-8b a view of the serve
+# phase's first layers, the others drawn at this depth) and of the calib
+# sweep, of 32 (28 for gemma-7b): cut for the script's 1,200 s
+DEPTH_CUT = 8
 # the calib phase: tools/calibrate_paged.py's default sweep, timed rounds
 # a path and new tokens a round; its gates go to GATES_FILE. Every other
 # phase runs with QUORACLE_PAGED_CALIB pinned to PINNED_GATES, a path the
@@ -1506,27 +1548,47 @@ def decide_texts(out) -> list:
             + [p.raw_text for p in out.proposals])
 
 
+def depth_cut(spec: str):
+    """``spec``'s catalog entry cut to DEPTH_CUT layers, registered as
+    ``<name>-<DEPTH_CUT>layer``."""
+    from quoracle_tpu_torch.models import config as C
+    base = C.get_model_config(spec)
+    return C.register_model(dataclasses.replace(
+        base, name=f"{base.name}-{DEPTH_CUT}layer", n_layers=DEPTH_CUT))
+
+
+def layer_view(torch, params, cfg):
+    """A Transformer of ``cfg`` over ``params``' embedding, first
+    ``cfg.n_layers`` layers, final norm and head: shared, no copy."""
+    from quoracle_tpu_torch.models.transformer import Transformer
+    view = Transformer(cfg, device="meta", dtype=params.dtype)
+    view.embed, view.final_norm = params.embed, params.final_norm
+    view.layers = torch.nn.ModuleList(params.layers[:cfg.n_layers])
+    view.lm_head = params.lm_head
+    return view
+
+
 def decide_pool_backend(torch, R, backend) -> tuple:
-    """The decide pool's backend (overlap at its default, on): llama-3-8b
-    the serve phase's engine, the other members drawn here with the
-    backend's seeding (seed + i). Returns it and each new member's init
+    """The decide pool's backend (overlap at its default, on), each member
+    cut to DEPTH_CUT layers: llama-3-8b over the serve phase's first
+    layers (``layer_view``), the other members drawn here with the
+    backend's seeding (seed + i). Returns it and each member's init
     seconds."""
-    from quoracle_tpu_torch.models.config import get_model_config
     from quoracle_tpu_torch.models.generate import GenerateEngine
     from quoracle_tpu_torch.models.tokenizer import get_tokenizer
     from quoracle_tpu_torch.models.transformer import init_params
-    engines = {MODEL: backend.engines[MODEL]}
-    init_s = {}
+    engines, init_s = {}, {}
     for i, spec in enumerate(DECIDE_POOL):
-        if spec in engines:
-            continue
         t0 = time.monotonic()
-        cfg = get_model_config(spec)
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(i)
-        engines[spec] = GenerateEngine(
-            cfg, init_params(cfg, gen, device="cuda"), get_tokenizer(spec),
-            seed=i, device="cuda")
+        cfg = depth_cut(spec)
+        if spec == MODEL:
+            params = layer_view(torch, backend.engines[MODEL].params, cfg)
+        else:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(i)
+            params = init_params(cfg, gen, device="cuda")
+        engines[spec] = GenerateEngine(cfg, params, get_tokenizer(spec),
+                                       seed=i, device="cuda")
         torch.cuda.synchronize()
         init_s[spec] = time.monotonic() - t0
     return (R.TorchBackend(DECIDE_POOL, device="cuda", engines=engines),
@@ -1535,9 +1597,9 @@ def decide_pool_backend(torch, R, backend) -> tuple:
 
 def phase_decide(torch, R, kernels, backend):
     """Two decides of the port's ConsensusEngine over the north-star pool
-    at full width and depth (llama-3-8b the serve phase's engine, the
-    other two drawn here with the backend's seeding, seed + i; the
-    embedder shares llama's weights), on the unified tier (a resumed round
+    at full width cut to DEPTH_CUT layers (llama-3-8b a view of the serve
+    phase's weights, the other two drawn here with the backend's seeding,
+    seed + i; the embedder shares llama's weights), on the unified tier (a resumed round
     whose divergence falls inside a radix-cached page copies it and runs
     on gather; ``tiers`` shows where); then the embedder on the system
     prompt (256-token chunks: flash) and the decision's texts. Returns the
@@ -1857,13 +1919,12 @@ def calib_size(torch, F, P, kernels, BL, CP, resident: int, params,
     paths' temperature-0 tokens can be compared; ``keep`` (a dict) keeps
     the kernels' inputs during those rounds. Returns the size's report
     and its params."""
-    from quoracle_tpu_torch.models.config import get_model_config
-    cfg = get_model_config(MODEL)
+    cfg = depth_cut(MODEL)
     pool = BL.session_bytes(cfg, resident, CALIB_ROUNDS, CALIB_NEW_TOKENS)
     t0 = time.monotonic()
     eng, tok = BL.build_engine(resident, CALIB_ROUNDS, CALIB_NEW_TOKENS,
-                               MODEL, session_max_bytes=pool, params=params,
-                               device="cuda")
+                               f"xla:{cfg.name}", session_max_bytes=pool,
+                               params=params, device="cuda")
     params = eng.params
     kernels.reset_launch_counts()
     res = BL.measure_paths(eng, tok, resident, CALIB_ROUNDS,
@@ -1944,8 +2005,9 @@ def calib_tiers(torch, BL, params) -> dict:
     os.environ["QUORACLE_PAGED_CALIB"] = GATES_FILE
     try:
         eng, tok = BL.build_engine(max(CALIB_SIZES), CALIB_ROUNDS,
-                                   CALIB_NEW_TOKENS, MODEL, params=params,
-                                   device="cuda")
+                                   CALIB_NEW_TOKENS,
+                                   f"xla:{depth_cut(MODEL).name}",
+                                   params=params, device="cuda")
     finally:
         os.environ["QUORACLE_PAGED_CALIB"] = prev
     if eng.paged_gates.source != GATES_FILE:
@@ -1980,15 +2042,16 @@ def calib_tiers(torch, BL, params) -> dict:
 
 def phase_calib(torch, F, P, kernels, params=None) -> dict:
     """The port's calibration at long context, llama-3-8b at full width
-    and depth in bf16 over ``params`` (the serve phase's weights; None:
-    drawn from seed 0): the sweep over CALIB_SIZES on a fresh engine a
+    cut to DEPTH_CUT layers in bf16 over ``params`` (a view of the serve
+    phase's first layers; None: drawn from seed 0): the sweep over CALIB_SIZES on a fresh engine a
     size, the gates it decides written to GATES_FILE (never the default
     path) and loaded back, and the four kernels of the sweep's paths held
     against their twins on inputs kept at the largest size."""
     from quoracle_tpu_torch.tools import bench_longctx as BL
     from quoracle_tpu_torch.tools import calibrate_paged as CP
     from quoracle_tpu_torch.utils.calibration import save_paged_gates
-    report = {"phase": "calib", "model": MODEL, "rounds": CALIB_ROUNDS,
+    report = {"phase": "calib", "model": f"xla:{depth_cut(MODEL).name}",
+              "rounds": CALIB_ROUNDS,
               "new_tokens": CALIB_NEW_TOKENS, "sizes": {}}
     by_size, kept = {}, {}
     for resident in CALIB_SIZES:
@@ -3895,19 +3958,18 @@ def reference_decide(torch, R) -> dict:
     """The decide phase's two decides, greedy and small (one refinement
     round at most, 12 new tokens), through 2-layer fp32 cuts of the three
     members on the GPU (kernels) and on the CPU (plain twins), one set of
-    weights, the unified tier on both, members served in turn:
+    weights (``fp32_cut``: drawn on the card, copied to the CPU), the
+    unified tier on both, members served in turn:
     identical outcomes. Then the
     embedder (llama's cut) on one text per T bucket, 8, 64 and 256 tokens
     (flash on the card): vectors within 1e-5. A decide never samples at
     temperature 0 by itself, so the port's engine module's
     ``temperature_for_round`` points at 0.0 for this phase only."""
-    import copy
     import numpy as np
     from quoracle_tpu_torch.consensus import engine as CE
     from quoracle_tpu_torch.models import config as C
     from quoracle_tpu_torch.models.generate import GenerateEngine
     from quoracle_tpu_torch.models.tokenizer import get_tokenizer
-    from quoracle_tpu_torch.models.transformer import init_params
     pool = []
     for spec in DECIDE_POOL:
         base = C.get_model_config(spec)
@@ -3916,12 +3978,9 @@ def reference_decide(torch, R) -> dict:
     tok = get_tokenizer(pool[0])
     texts = {T: text_of_tokens(tok, lo, T)
              for T, lo in ((8, 1), (64, 33), (256, 129))}
-    params = {}
-    for i, spec in enumerate(pool):
-        cfg = C.get_model_config(spec)
-        cpu = init_params(cfg, torch.Generator().manual_seed(i + 1),
-                          device="cpu", dtype=torch.float32)
-        params[spec] = {"cuda": copy.deepcopy(cpu).to("cuda"), "cpu": cpu}
+    params = {spec: dict(zip(("cuda", "cpu"), fp32_cut(
+        torch, C.get_model_config(spec), i + 1, cpu_copy=True)))
+        for i, spec in enumerate(pool)}
     runs = {}
     orig = CE.temperature_for_round
     CE.temperature_for_round = lambda *a, **kw: 0.0
@@ -3973,6 +4032,544 @@ def reference_decide(torch, R) -> dict:
     return report
 
 
+# -- the tiers phase ---------------------------------------------------------
+
+# a tiered session's prompt: with its new tokens, 24 pages of 128; six of
+# them ask 144 pages of the bf16 engine's 2 GiB pool (128 usable pages)
+TIER_PROMPT = 3000
+TIER_SESSIONS = 6
+TIER_POOL_PAGES = 128
+TIER_NEW = 8                # new tokens of each session's first round
+TIER_RESUME_NEW = 32        # new tokens of the resumed round
+TIER_SUFFIX = 20            # tokens the resumed round appends
+# the int8 round trip: three such sessions against a 64-page int8 pool
+TIER_Q8_SESSIONS = 3
+TIER_Q8_PAGES = 64
+TIER_DISK_PROMPT = 2000     # the restart-warm prompt: 15 full blocks
+TIER_HANDOFF_PROMPT = 1000
+TIER_RULES = 30             # the backend part's chat prompt (~770 tokens)
+
+
+def tier_prompt(seed: int, n: int, vocab: int) -> list:
+    """``n`` token ids drawn from a seeded generator (distinct sessions
+    share no prefix, so the pool holds each in pages of its own)."""
+    import numpy as np
+    return [int(t) for t in np.random.default_rng(seed).integers(
+        3, min(vocab, 100_000), n)]
+
+
+def tier_pools(st) -> list:
+    return [st.k, st.v] + ([st.k_scale, st.v_scale]
+                           if st.k_scale is not None else [])
+
+
+def synced_ms(torch, fn):
+    """``fn()`` and its wall ms, the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.monotonic() - t0) * 1e3
+
+
+class TierSpy:
+    """Times a TierManager's byte movers on the card (synchronized before
+    and after each): ``_gather_host`` (pool pages to host tensors: the
+    demote's copy) and ``_scatter_device`` (host tensors into pool pages:
+    the restore's page-in); and keeps a clone, on the card, of the pages a
+    demote of ``watch`` copied, so that the restore of ``watch`` is held
+    bit for bit against it."""
+
+    def __init__(self, torch, tier, watch: str):
+        self.torch, self.tier, self.watch = torch, tier, watch
+        self.gathers, self.scatters, self.restores = [], [], []
+        self.snapshot = None
+        self.restored_equal = None
+        self.orig = {n: getattr(tier, n) for n in (
+            "_gather_host", "_scatter_device", "demote_session",
+            "restore_session")}
+        tier._gather_host = self._gather
+        tier._scatter_device = self._scatter
+        tier.demote_session = self._demote
+        tier.restore_session = self._restore
+
+    @staticmethod
+    def _nbytes(arrays) -> int:
+        return sum(a.numel() * a.element_size() for a in arrays
+                   if a is not None)
+
+    def _gather(self, pages):
+        out, ms = synced_ms(self.torch,
+                            lambda: self.orig["_gather_host"](pages))
+        self.gathers.append({"pages": len(pages), "ms": ms,
+                             "bytes": self._nbytes(out)})
+        return out
+
+    def _scatter(self, pages, *arrays):
+        _, ms = synced_ms(self.torch, lambda: self.orig["_scatter_device"](
+            pages, *arrays))
+        self.scatters.append({"pages": len(pages), "ms": ms,
+                              "bytes": self._nbytes(arrays)})
+
+    def _demote(self, key, sess):
+        if key == self.watch and self.snapshot is None:
+            idx = self.torch.tensor([p for p in sess.pages if p],
+                                    device=self.tier.store.k.device)
+            self.snapshot = [x.index_select(1, idx).clone()
+                             for x in tier_pools(self.tier.store)]
+        return self.orig["demote_session"](key, sess)
+
+    def _restore(self, key):
+        sess, ms = synced_ms(self.torch,
+                             lambda: self.orig["restore_session"](key))
+        self.restores.append({"key": key, "ms": ms,
+                              "ok": sess is not None})
+        if key == self.watch and sess is not None and self.snapshot:
+            idx = self.torch.tensor([p for p in sess.pages if p],
+                                    device=self.tier.store.k.device)
+            self.restored_equal = all(
+                self.torch.equal(x.index_select(1, idx), snap)
+                for x, snap in zip(tier_pools(self.tier.store),
+                                   self.snapshot))
+        return sess
+
+    def remove(self) -> None:
+        for n, f in self.orig.items():
+            setattr(self.tier, n, f)
+
+    @staticmethod
+    def rate(moves: list) -> list:
+        return [{**m, "gb_s": m["bytes"] / m["ms"] / 1e6} for m in moves]
+
+
+def tier_engine(base, params, **kw):
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    eng = GenerateEngine(base.cfg, params, base.tokenizer, seed=0,
+                         device="cuda", **kw)
+    eng.prefix_sharing = False      # each session in pages of its own
+    return eng
+
+
+def hibernate_all(eng) -> None:
+    """The eviction ladder over every resident session: demand all usable
+    pages (no key protected), then give them back."""
+    st = eng.sessions
+    with eng._paged_lock, st.lock:
+        got = st.alloc(st.n_pages - 1)
+        if got is None:
+            raise AssertionError("hibernate: the pool could not be emptied")
+        st._release(got)
+
+
+def tier_round_trip(torch, P, base, params, label: str, n_sessions: int,
+                    pool_pages, quant: bool, kept: dict) -> dict:
+    """Hibernate and restore at full width: ``n_sessions`` distinct
+    sessions of TIER_PROMPT tokens on a tiered engine whose pool holds
+    ``pool_pages`` pages push the first one
+    (the LRU victim) to host memory; its resumed round (TIER_SUFFIX more
+    tokens, TIER_RESUME_NEW new) restores it by page-in. A control engine
+    over the same weights, whose pool never evicts, runs the same two
+    rounds: equal tokens and cached counts, the restored pages (and int8
+    scales) bit-identical to the demoted ones, no restore failure. Then
+    the control re-prefills the same resumed round with its session
+    dropped (tiers off), and the host copies are timed pinned (the
+    default on the card) against pageable on the same pages."""
+    from quoracle_tpu_torch.models.quant import kv_token_bytes
+    from quoracle_tpu_torch.serving.kvtier import TierManager
+    cfg = base.cfg
+    q8 = dict(quantize_weights=True, quantize_kv=True) if quant else {}
+    rate = kv_token_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+                          1 if quant else 2, quant)
+    page = 128
+    page_bytes = rate * page
+    sess_pages = -(-(TIER_PROMPT + TIER_NEW) // page)
+    eng = tier_engine(base, params, session_max_bytes=pool_pages * page_bytes,
+                      **q8)
+    if (eng.sessions.n_pages - 1 != pool_pages
+            or n_sessions * sess_pages <= pool_pages):
+        raise AssertionError(f"{label}: {n_sessions} sessions of "
+                             f"{sess_pages} pages fit the pool")
+    demote_bytes = sess_pages * page_bytes
+    # the host budget holds every session the run demotes (the JAX
+    # default of 256 MiB would drop a 24-page session at this width)
+    host_mb = -(-(n_sessions * demote_bytes) // (1 << 20))
+    tier = eng.attach_tier(host_mb=host_mb)
+    ctl = tier_engine(base, params,
+                      session_max_bytes=(n_sessions + 2) * sess_pages
+                      * page_bytes, **q8)
+    vocab = base.cfg.vocab_size
+    prompts = [tier_prompt(100 + i, TIER_PROMPT, vocab)
+               for i in range(n_sessions)]
+    sids = [f"{label}-{i}" for i in range(n_sessions)]
+    spy = TierSpy(torch, tier, sids[0])
+
+    def one(e, prompt, sid, n):
+        return e.generate([prompt], temperature=0.0, max_new_tokens=n,
+                          session_ids=[sid])[0]
+
+    try:
+        t0 = time.monotonic()
+        first = [one(eng, p, s, TIER_NEW) for p, s in zip(prompts, sids)]
+        fill_s = time.monotonic() - t0
+        if not tier.has_session(sids[0]) or eng.sessions.get(sids[0]):
+            raise AssertionError(f"{label}: the LRU session was not demoted: "
+                                 f"{tier.stats()}")
+        host_after_demote = tier.host.stats()
+        c1 = one(ctl, prompts[0], "ctl", TIER_NEW)
+        if c1.token_ids != first[0].token_ids:
+            raise AssertionError(f"{label}: round 1 differs from the control")
+        resumed = (prompts[0] + first[0].token_ids
+                   + tier_prompt(999, TIER_SUFFIX, vocab))
+        c2 = one(ctl, resumed, "ctl", TIER_RESUME_NEW)
+        ctl_prefill_ms = ctl.last_prefill_s * 1e3
+        orig = P.ragged_attend
+        P.ragged_attend = ragged_recorder(torch, P, kept, lambda: True)
+        try:
+            r2 = one(eng, resumed, sids[0], TIER_RESUME_NEW)
+            torch.cuda.synchronize()
+        finally:
+            P.ragged_attend = orig
+        resumed_prefill_ms = eng.last_prefill_s * 1e3
+        restores = list(spy.restores)
+        page_in = [s for s in spy.scatters if s["pages"] > 1]
+        demotes = [g for g in spy.gathers if g["pages"] > 1]
+    finally:
+        spy.remove()
+    stats = tier.stats()
+    ok = (r2.token_ids == c2.token_ids
+          and r2.n_cached_tokens == c2.n_cached_tokens > 0
+          and stats["restored_sessions"] >= 1
+          and stats["restore_failures"] == 0
+          and spy.restored_equal is True and page_in and demotes)
+    report = {
+        "pool_pages": eng.sessions.n_pages - 1, "page_bytes": page_bytes,
+        "host_kv_mb": host_mb, "sessions": n_sessions,
+        "prompt_tokens": TIER_PROMPT, "fill_s": fill_s,
+        "host_after_demote": host_after_demote,
+        "demoted_entry_survived": host_after_demote["sessions"] >= 1,
+        "demotes": TierSpy.rate(demotes), "page_ins": TierSpy.rate(page_in),
+        "restores": restores,
+        "resumed_prefill_ms_with_restore": resumed_prefill_ms,
+        "tokens_equal": r2.token_ids == c2.token_ids,
+        "cached_tokens": r2.n_cached_tokens,
+        "control_cached_tokens": c2.n_cached_tokens,
+        "control_resumed_prefill_ms": ctl_prefill_ms,
+        "restored_pages_bit_identical": spy.restored_equal,
+        "tier": stats}
+    if not ok:
+        emit({"phase": "tiers", label: report})
+        raise AssertionError(f"{label}: the restore did not match the control")
+    # tiers off: the same resumed round on the control, its session gone
+    # (one chunk of every token: its bf16 sums may round otherwise than
+    # the 20-token chunk's, so its tokens are recorded, not held)
+    ctl.drop_session("ctl")
+    r_re = one(ctl, resumed, "ctl", TIER_RESUME_NEW)
+    report["reprefill_ms_tiers_off"] = ctl.last_prefill_s * 1e3
+    report["reprefill_tokens"] = ctl.last_prefill_tokens
+    report["reprefill_tokens_equal"] = r_re.token_ids == c2.token_ids
+    if r_re.n_cached_tokens != 0:
+        raise AssertionError(f"{label}: the re-prefill reused KV")
+    # pinned (the default) against pageable host buffers, in turns, on a
+    # session's worth of free pages; the first of each kind allocates its
+    # host buffers, later ones reuse the freed ones
+    del ctl
+    for sid in sids:
+        eng.drop_session(sid)
+    st = eng.sessions
+    pages = st.alloc(sess_pages, evict=False)
+    copies = []
+    default_pin = tier.pin_memory
+    for pin in (False, True, True, False, False, True):
+        tier.pin_memory = pin
+        out, d2h = synced_ms(torch, lambda: TierManager._gather_host(
+            tier, pages))
+        _, h2d = synced_ms(torch, lambda: TierManager._scatter_device(
+            tier, pages, *out))
+        copies.append({"pinned": pin, "d2h_ms": d2h, "h2d_ms": h2d,
+                       "bytes": TierSpy._nbytes(out)})
+        del out
+    tier.pin_memory = default_pin
+    st.release(pages)
+    report["host_copies"] = copies
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def tier_disk(torch, base) -> dict:
+    """Restart-warm prefixes: engine A (prefix sharing on, a disk store in
+    a fresh directory under build/) serves one long prompt, then the same
+    prompt under a second session (which adopts the first one's cached
+    blocks: the computation B will run), and drains its spills; engine B,
+    new, over the same weights and directory, serves the prompt: its
+    cached tokens cover every full block, its restored prefix pages are
+    those blocks, its tokens those of A's second row. The directory is
+    removed at the end."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    root = os.path.join(REPO, "build", "tiers_disk")
+    shutil.rmtree(root, ignore_errors=True)
+    prompt = tier_prompt(7, TIER_DISK_PROMPT, base.cfg.vocab_size)
+    blocks = (len(prompt) - 1) // 128
+    try:
+        def engine():
+            e = GenerateEngine(base.cfg, base.params, base.tokenizer, seed=0,
+                               device="cuda",
+                               session_max_bytes=512 << 20)
+            return e, e.attach_tier(host_mb=256, disk_dir=root)
+
+        a, ta = engine()
+        saves = []
+        orig_save = ta.disk.save
+
+        def timed_save(*args):
+            t0 = time.monotonic()
+            ok = orig_save(*args)
+            saves.append((time.monotonic() - t0) * 1e3)
+            return ok
+        ta.disk.save = timed_save
+        ra0 = a.generate([prompt], temperature=0.0,
+                         max_new_tokens=TIER_NEW, session_ids=["disk-a0"])[0]
+        a_cold_ms = a.last_prefill_s * 1e3
+        _, flush_ms = synced_ms(torch, ta.flush_spills)
+        ra = a.generate([prompt], temperature=0.0, max_new_tokens=TIER_NEW,
+                        session_ids=["disk-a"])[0]
+        a_warm_ms = a.last_prefill_s * 1e3
+        if ra.n_cached_tokens != blocks * 128:
+            raise AssertionError(f"tiers: A's second row reused "
+                                 f"{ra.n_cached_tokens} tokens")
+        files = sorted(f for f in os.listdir(ta.disk.dir)
+                       if f.endswith(".npz"))
+        nbytes = sum(os.path.getsize(os.path.join(ta.disk.dir, f))
+                     for f in files)
+        del a, ta
+        gc.collect()
+        torch.cuda.empty_cache()
+        b, tb = engine()
+        loads = []
+        orig_load = tb.disk.load
+
+        def timed_load(key, tokens):
+            t0 = time.monotonic()
+            out = orig_load(key, tokens)
+            loads.append((time.monotonic() - t0) * 1e3)
+            return out
+        tb.disk.load = timed_load
+        rb, b_ms = synced_ms(torch, lambda: b.generate(
+            [prompt], temperature=0.0, max_new_tokens=TIER_NEW,
+            session_ids=["disk-b"])[0])
+        stats = tb.stats()
+        report = {
+            "dir": os.path.relpath(root, REPO), "prompt_tokens": len(prompt),
+            "full_blocks": blocks, "files": len(files),
+            "bytes_written": nbytes, "write_s": sum(saves) / 1e3,
+            "writes": len(saves), "flush_ms": flush_ms,
+            "load_ms_per_block": loads,
+            "a_cold_prefill_ms": a_cold_ms,
+            "a_resident_prefix_prefill_ms": a_warm_ms,
+            "b_round_ms": b_ms, "b_prefill_ms": b.last_prefill_s * 1e3,
+            "b_prefill_tokens": b.last_prefill_tokens,
+            "cached_tokens": rb.n_cached_tokens,
+            "tokens_equal": rb.token_ids == ra.token_ids,
+            "tokens_equal_a_cold": rb.token_ids == ra0.token_ids,
+            "restored_prefix_pages": stats["restored_prefix_pages"],
+            "disk": stats["disk"]}
+        del b, tb
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["dir_removed"] = not os.path.exists(root)
+    if not (report["tokens_equal"] and report["files"] >= blocks
+            and rb.n_cached_tokens == blocks * 128
+            and report["restored_prefix_pages"] == blocks
+            and report["dir_removed"]):
+        emit({"phase": "tiers", "disk": report})
+        raise AssertionError("tiers: the restart did not warm from disk")
+    return report
+
+
+def tier_handoff(torch, base, int8_engine) -> dict:
+    """Two engines over one set of weights: a one-token prefill on A,
+    ``KVHandoff.export`` from A and ``adopt`` into B; B's continuation
+    must give the tokens of a control engine continuing its own prefill.
+    A bf16 engine's envelope must be refused by the int8-KV engine
+    (reason "signature"), nothing landing in its tier."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.serving.handoff import HandoffError, KVHandoff
+
+    def engine(tiered: bool):
+        e = GenerateEngine(base.cfg, base.params, base.tokenizer, seed=0,
+                           device="cuda", session_max_bytes=512 << 20)
+        if tiered:
+            e.attach_tier(host_mb=256)
+        return e
+
+    a, b, c = engine(True), engine(True), engine(False)
+    prompt = tier_prompt(11, TIER_HANDOFF_PROMPT, base.cfg.vocab_size)
+
+    def one(e, p, n):
+        return e.generate([p], temperature=0.0, max_new_tokens=n,
+                          session_ids=["h"])[0]
+
+    c1 = one(c, prompt, 1)
+    c2 = one(c, prompt + c1.token_ids, 24)
+    a1 = one(a, prompt, 1)
+    ho = KVHandoff()
+    env, export_ms = synced_ms(torch, lambda: ho.export(a, "h", MODEL))
+    _, adopt_ms = synced_ms(torch, lambda: ho.adopt(b, env))
+    prefetched = b.sessions.get("h") is not None
+    b2 = one(b, prompt + a1.token_ids, 24)
+    ok = (a1.token_ids == c1.token_ids and b2.token_ids == c2.token_ids
+          and b2.n_cached_tokens == c2.n_cached_tokens > 0 and prefetched
+          and b.sessions.tier.restored_sessions == 1)
+    # a bf16 envelope into the int8-KV engine: refused before any byte
+    a.generate([prompt], temperature=0.0, max_new_tokens=1,
+               session_ids=["rej"])
+    env2 = ho.export(a, "rej", MODEL)
+    before = int8_engine.sessions.tier.host.stats()
+    try:
+        ho.adopt(int8_engine, env2)
+        reason = None
+    except HandoffError as e:
+        reason = e.reason
+    landed = (int8_engine.sessions.tier.has_session("rej")
+              or int8_engine.sessions.get("rej") is not None
+              or int8_engine.sessions.tier.host.stats() != before)
+    report = {"prompt_tokens": len(prompt), "envelope_tokens": env.n_tokens,
+              "envelope_bytes": env.entry.nbytes, "export_ms": export_ms,
+              "adopt_ms": adopt_ms, "prefetched_on_adopt": prefetched,
+              "tokens_equal": b2.token_ids == c2.token_ids,
+              "cached_tokens": b2.n_cached_tokens,
+              "control_cached_tokens": c2.n_cached_tokens,
+              "reject_reason": reason, "reject_landed_bytes": landed,
+              "signatures": [a.kv_signature(), int8_engine.kv_signature()],
+              "ledger": ho.stats()}
+    del a, b, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok or reason != "signature" or landed:
+        emit({"phase": "tiers", "handoff": report})
+        raise AssertionError("tiers: the handoff failed its checks")
+    return report
+
+
+def tier_backend(torch, R, base) -> dict:
+    """The backend: ``TorchBackend(host_kv_mb=..., continuous=True)`` over
+    an engine on the serve phase's weights. An agent's second round goes
+    to its hibernated session: the continuous batcher's submit prefetches
+    it (or, if the loop holds the engine, its lookup restores it), and
+    the row's cached tokens show the restore; ``prefetch_sessions``
+    restores it again after a second hibernation; ``kv_stats`` is on, and
+    the effective headroom is at least the raw one while pages are
+    demotable."""
+    from quoracle_tpu_torch.infra.resources import (
+        effective_headroom_fraction, headroom_fraction, reclaimable_kv_bytes,
+    )
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    eng = GenerateEngine(base.cfg, base.params, base.tokenizer, seed=0,
+                         device="cuda", session_max_bytes=512 << 20)
+    backend = R.TorchBackend([MODEL], device="cuda", engines={MODEL: eng},
+                             host_kv_mb=512, continuous=True)
+    tier = eng.sessions.tier
+    prefetches = []
+    orig = eng.prefetch_session
+
+    def spy(sid):
+        out = orig(sid)
+        prefetches.append(out)
+        return out
+    eng.prefetch_session = spy
+    sid = "tier-agent"
+    hist = chat("pick the next action", TIER_RULES)
+    try:
+        (r1,) = backend.query([R.QueryRequest(
+            MODEL, hist, temperature=0.0, max_tokens=16, session_id=sid)])
+        hibernate_all(eng)
+        hibernated = tier.has_session(sid)
+        hist2 = hist + [{"role": "assistant", "content": r1.text},
+                        {"role": "user", "content": "refine your proposal"}]
+        (r2,) = backend.query([R.QueryRequest(
+            MODEL, hist2, temperature=0.0, max_tokens=16, session_id=sid)])
+        restored_round = tier.restored_sessions
+        reclaim = reclaimable_kv_bytes(backend)
+        raw, eff = headroom_fraction(), effective_headroom_fraction(backend)
+        hibernate_all(eng)
+        warmed = backend.prefetch_sessions(sid)
+        stats = backend.kv_stats()
+    finally:
+        eng.prefetch_session = orig
+        backend.close()
+    report = {"rows_ok": [r1.ok, r2.ok], "cached_tokens": [
+        r1.cached_tokens, r2.cached_tokens], "hibernated": hibernated,
+        "prefetch_at_submit": prefetches,
+        "restored_by_round_2": restored_round,
+        "prefetch_sessions": warmed, "kv_stats_enabled": stats["enabled"],
+        "reclaimable_bytes": reclaim, "headroom_raw": raw,
+        "headroom_effective": eff, "tier": tier.stats()}
+    del backend, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (r1.ok and r2.ok and hibernated and r2.cached_tokens > 0
+            and restored_round == 1 and warmed == 1 and stats["enabled"]
+            and reclaim > 0 and eff >= raw
+            and report["tier"]["restore_failures"] == 0):
+        emit({"phase": "tiers", "backend": report})
+        raise AssertionError("tiers: the backend failed its checks")
+    return report
+
+
+def phase_tiers(torch, R, P, kernels, backend) -> dict:
+    """Tiered KV and the handoff on the card at llama-3-8b full width over
+    the backend's bf16 weights: (a) hibernate and restore, (b) restart-
+    warm prefixes from disk, (c) hibernate and restore over int8 pools,
+    (d) the handoff, (e) the backend. The launch counts are zeroed before
+    (a) and read after (e); the kept inputs of the resumed rounds' ragged
+    ticks are then held against the twins."""
+    from quoracle_tpu_torch.models.quant import quantize_params
+    base = backend.engines[MODEL]
+    t_phase = time.monotonic()
+    report = {"phase": "tiers", "model": MODEL}
+    kept = {"ragged_fwd": {}, "ragged_q8_fwd": {}}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    report["bf16"] = tier_round_trip(torch, P, base, base.params, "bf16",
+                                     TIER_SESSIONS, TIER_POOL_PAGES, False,
+                                     kept["ragged_fwd"])
+    report["disk"] = tier_disk(torch, base)
+    q_params, q_s = synced_ms(torch, lambda: quantize_params(base.params,
+                                                             base.cfg))
+    report["int8_quantize_ms"] = q_s
+    report["int8"] = tier_round_trip(torch, P, base, q_params, "int8",
+                                     TIER_Q8_SESSIONS, TIER_Q8_PAGES, True,
+                                     kept["ragged_q8_fwd"])
+    q_eng = tier_engine(base, q_params, quantize_weights=True,
+                        quantize_kv=True, session_max_bytes=256 << 20)
+    q_eng.attach_tier(host_mb=64)
+    report["handoff"] = tier_handoff(torch, base, q_eng)
+    del q_eng, q_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["backend"] = tier_backend(torch, R, base)
+    torch.cuda.synchronize()
+    report["launches"] = kernels.launch_counts()
+    report["seconds_before_checks"] = time.monotonic() - t_phase
+    if not (report["launches"]["ragged_fwd"]
+            and report["launches"]["ragged_q8_fwd"]):
+        emit(report)
+        raise AssertionError(f"tiers: a kernel of the path never launched: "
+                             f"{report['launches']}")
+    report["ticks"] = {
+        name: {key: ragged_tick_numbers(torch, P, k, *kept[name][key])
+               for key in ("decode", "chunk")}
+        for name, k in (("ragged_fwd", kernels.RAGGED),
+                        ("ragged_q8_fwd", kernels.RAGGED_Q8))}
+    if "k_scale" not in kept["ragged_q8_fwd"]["decode"][1]:
+        raise AssertionError("tiers: the int8 ticks carry no scales")
+    report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return report
+
+
 def ptxas_entries(log: str) -> list:
     """One entry per compiled kernel of the nvcc log (``--ptxas-options
     =-v``): its (mangled) name, the register line and the stack and spill
@@ -3992,7 +4589,7 @@ def ptxas_entries(log: str) -> list:
 def main(argv) -> int:
     only = None
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
-              "continuous", "spec", "ckpt")
+              "continuous", "spec", "ckpt", "tiers")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -4054,6 +4651,10 @@ def main(argv) -> int:
         backend = R.TorchBackend([MODEL], seed=0)
         emit(phase_spec(torch, R, kernels, P, backend,
                         [decide_pool_backend(torch, R, backend)[0]]))
+        return 0
+    if only == "tiers":
+        backend = R.TorchBackend([MODEL], seed=0)
+        emit(phase_tiers(torch, R, P, kernels, backend))
         return 0
     if only == "ckpt":
         dfa = CharDFA(max_depth=4)
@@ -4133,7 +4734,12 @@ def main(argv) -> int:
     emit(ckpt_report)
     for e in entries:
         e["ckpt_launches"] = ckpt_report["launches"][e["name"]]
-    params = backend.engines[MODEL].params
+    tiers_report = phase_tiers(torch, R, P, kernels, backend)
+    emit(tiers_report)
+    for e in entries:
+        e["tiers_launches"] = tiers_report["launches"][e["name"]]
+    params = layer_view(torch, backend.engines[MODEL].params,
+                        depth_cut(MODEL))
     del backend, kept, paged_kept
     torch.cuda.empty_cache()
     emit(phase_calib(torch, F, P, kernels, params))

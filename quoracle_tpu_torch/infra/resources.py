@@ -1,15 +1,16 @@
 """Device-memory headroom of the PyTorch port (port of
-``quoracle_tpu/infra/resources.py``, the headroom signal only).
+``quoracle_tpu/infra/resources.py``, the headroom signals only).
 
 The admission controller (serving/admission.py) sheds bulk work while
 the card's free memory falls under its threshold; this module gives it
-that number. Sampling reads allocator counters only, so it never touches
+that number: the raw fraction, or under tiered KV
+(serving/kvtier.py) ``effective_headroom_fraction``, which adds the pool
+pages the tiers could demote without losing state. Sampling reads
+allocator counters and host-side bookkeeping only, so it never touches
 RNG or device state.
 
 Left for later slices: the per-engine HBM attribution and the scrape-time
-collector (Queue 1 item 8), and ``effective_headroom_fraction``, which
-adds the pages KV tiers could reclaim (Queue 1 item 7); without tiers the
-JAX backend hands the controller the raw fraction, as here.
+collector (Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -52,3 +53,43 @@ def headroom_fraction(devices: Optional[list[dict]] = None) -> Optional[float]:
     fracs = [(d["bytes_limit"] - d["bytes_in_use"]) / d["bytes_limit"]
              for d in devices if d.get("bytes_limit")]
     return min(fracs) if fracs else None
+
+
+def _kv_page_bytes(engine) -> int:
+    """Pool bytes of one page at the engine's own per-token rate (int8
+    payload and scales when quantized), so the headroom math counts what a
+    demote actually moves."""
+    return engine.kv_token_pool_bytes() * engine.sessions.page
+
+
+def reclaimable_kv_bytes(backend) -> int:
+    """Device bytes the tier ladder could free now without losing state:
+    the demotable pool pages of tier-attached engines, each bounded by its
+    tier's remaining host budget. Zero without tiers: evicting untiered
+    pages destroys state, which is not headroom."""
+    total = 0
+    for e in (getattr(backend, "engines", None) or {}).values():
+        tier = getattr(getattr(e, "sessions", None), "tier", None)
+        if tier is None:
+            continue
+        try:
+            total += tier.demotable_bytes(_kv_page_bytes(e))
+        except Exception:                 # noqa: BLE001 — a signal only
+            pass
+    return total
+
+
+def effective_headroom_fraction(backend) -> Optional[float]:
+    """The admission controller's memory signal under tiers: the raw
+    device headroom plus the demotable-page margin, capped at 1. Without a
+    limit-reporting device (the CPU) it stays None, as the raw one."""
+    devices = device_memory_stats()
+    frac = headroom_fraction(devices)
+    if frac is None:
+        return None
+    reclaim = reclaimable_kv_bytes(backend)
+    if reclaim:
+        limit = min(d["bytes_limit"] for d in devices
+                    if d.get("bytes_limit"))
+        frac = min(1.0, frac + reclaim / limit)
+    return frac

@@ -56,13 +56,22 @@ positions of every row. It runs on the unified tier (the ragged kernel;
 int8 pools: the int8 ragged kernel) or on the gather tier (working cache,
 dense forward, pages written back), never on the direct tier, and runs
 no decode loop. Its store-back keeps unverified draft tokens at the
-session's tail, so it never feeds the radix prefix cache. Left for later
-slices: KV tiers, VLM rows and meshes.
+session's tail, so it never feeds the radix prefix cache.
+
+Tiered KV (``attach_tier``; serving/kvtier.py): the store's eviction
+demotes a victim session to host memory, the session lookup restores a
+hibernated session by page-in (a failed restore re-prefills), a tiered
+prefix lookup pages host or disk blocks back into the radix tree, and
+``prefetch_session`` warms a hibernated session ahead of its row.
+``kv_signature`` names the pool's geometry and dtype exactly as the JAX
+engine does, so both packages share disk stores and handoffs. Left for
+later slices: VLM rows and meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 from collections import Counter
@@ -83,6 +92,7 @@ from quoracle_tpu_torch.models.transformer import (
     project_logits,
 )
 from quoracle_tpu_torch.ops import kernels
+from quoracle_tpu_torch.serving.kvtier import TierManager, dtype_name
 from quoracle_tpu_torch.utils.calibration import (
     load_paged_gates, resolve_unified_gate,
 )
@@ -472,8 +482,11 @@ class SessionStore:
     scratch. Pages are refcounted: a page shared by several sessions, an
     in-flight adopter and the radix prefix cache (models/prefix_cache.py)
     frees only when its last holder releases it. When the free list runs
-    dry, unreferenced cache leaves evict first, then LRU sessions.
-    Thread-safe; the engine additionally serializes sessioned steps."""
+    dry, unreferenced cache leaves evict first, then LRU sessions. With a
+    KV tier attached (``tier``, serving/kvtier.py) eviction demotes a
+    victim to host memory instead of destroying it, and prefix lookups
+    page tiered blocks back in. Thread-safe; the engine additionally
+    serializes sessioned steps."""
 
     def __init__(self, max_tokens: int = 262_144, page: int = PAGE):
         self.page = page
@@ -493,6 +506,10 @@ class SessionStore:
         self.v: Optional[torch.Tensor] = None
         self.k_scale: Optional[torch.Tensor] = None
         self.v_scale: Optional[torch.Tensor] = None
+        # the KV tier (serving/kvtier.TierManager, set by
+        # GenerateEngine.attach_tier): demote on eviction, restore by
+        # page-in
+        self.tier = None
 
     def get(self, key: str) -> Optional[_Session]:
         with self.lock:
@@ -527,10 +544,17 @@ class SessionStore:
                     break        # _attainable guarantees this can't happen
                 lru = min(victims, key=lambda k: self._sessions[k].last_used)
                 victims.remove(lru)
-                # (a KV tier would demote the victim host-side here)
-                self._release(self._sessions.pop(lru).pages)
+                sess = self._sessions.pop(lru)
+                if self.tier is not None:
+                    # eviction is demotion: the victim's pages are copied
+                    # host-side, then only its own references drop, so
+                    # shared pages other holders read stay resident
+                    self.tier.demote_session(lru, sess)
+                self._release(sess.pages)
             if len(self._free) < n:
-                return None      # accounting drift: _attainable overcounted
+                # accounting drift: _attainable overcounted (the JAX store
+                # counts and records it here: Queue 1 item 8)
+                return None
             return [self._free.pop() for _ in range(n)]
 
     def _attainable(self, victims: list) -> int:
@@ -580,7 +604,11 @@ class SessionStore:
         Alignment is a correctness requirement: the adopter's own suffix
         must never write into a page it shares."""
         with self.lock:
-            # (a KV tier would page host or disk blocks back in here)
+            if self.tier is not None:
+                # blocks stripped to the host tier, or persisted to disk
+                # by an earlier process, page back in and rejoin the tree
+                # before the match
+                self.tier.extend_prefix(tokens, max_reuse)
             pages, matched = self.prefix_cache.match(tokens, max_reuse)
             if matched < self.page:
                 return None
@@ -591,9 +619,19 @@ class SessionStore:
                       pages: Sequence[int]) -> int:
         """Feed a freshly stored session's full pages into the radix cache
         (the engine calls this at store-back for full-attention sessions
-        with start_pos == 0). Returns the number of new nodes."""
+        with start_pos == 0). With a disk-backed tier each full block also
+        writes through to the checksummed prefix store (content-addressed:
+        a block already there costs one stat), so a restarted process
+        warms from it. Returns the number of new nodes."""
         with self.lock:
-            return self.prefix_cache.insert(tokens, pages)
+            added = self.prefix_cache.insert(tokens, pages)
+            if self.tier is not None and self.tier.disk is not None:
+                for j in range(len(tokens) // self.page):
+                    if j < len(pages) and pages[j]:
+                        self.tier.persist_block(
+                            [int(t) for t in tokens[:(j + 1) * self.page]],
+                            pages[j])
+            return added
 
     def put(self, key: str, sess: _Session) -> None:
         """Replace a session, releasing any of the old session's pages the
@@ -604,6 +642,8 @@ class SessionStore:
             if old is not None and old is not sess:
                 self._release([p for p in old.pages if p not in sess.pages])
             self._sessions[key] = sess
+            if self.tier is not None:
+                self.tier.discard_session(key)   # the host copy is stale
 
     def put_raw(self, key: str, sess: _Session) -> None:
         """Replace WITHOUT page bookkeeping — the caller owns the page
@@ -611,12 +651,27 @@ class SessionStore:
         sess.last_used = time.monotonic()
         with self.lock:
             self._sessions[key] = sess
+            if self.tier is not None:
+                self.tier.discard_session(key)   # the host copy is stale
+
+    def register_restored(self, key: str, tokens: list, pages: list[int],
+                          start_pos: int) -> _Session:
+        """Build and register a session the tier just paged back in (the
+        tier never builds a ``_Session`` itself). The caller holds the
+        lock and owns the pages."""
+        sess = _Session(tokens=tokens, pages=pages, start_pos=start_pos)
+        self.put_raw(key, sess)
+        return sess
 
     def drop(self, key: str) -> None:
         with self.lock:
             s = self._sessions.pop(key, None)
             if s is not None:
                 self._release(s.pages)
+            if self.tier is not None:
+                # a dropped conversation must not come back from the host
+                # tier under a reused id
+                self.tier.discard_session(key)
 
     def free_pages(self) -> int:
         with self.lock:
@@ -732,10 +787,7 @@ class GenerateEngine:
         self.pool_dtype = torch.int8 if self.quantize_kv else self.cache_dtype
         # Session budget in BYTES, converted to tokens (K+V per token, the
         # scales included), capped at 32 full context windows
-        token_bytes = kv_token_bytes(
-            cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
-            torch.empty((), dtype=self.pool_dtype).element_size(),
-            self.quantize_kv)
+        token_bytes = self.kv_token_pool_bytes()
         self.sessions = SessionStore(
             max_tokens=max(PAGE, min(session_max_bytes // token_bytes,
                                      32 * self.max_seq)))
@@ -772,6 +824,80 @@ class GenerateEngine:
         # (decode, and with it unified) or the gather prefill
         self._force_gather_decode = False
         self._force_gather_prefill = False
+
+    def kv_token_pool_bytes(self) -> int:
+        """Pool bytes per resident KV token (int8 payload and scales when
+        quantized, plain cache bytes otherwise): the session budget's and
+        the tier headroom's byte rate."""
+        return kv_token_bytes(
+            self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim,
+            torch.empty((), dtype=self.pool_dtype).element_size(),
+            self.quantize_kv)
+
+    def quant_stats(self) -> dict:
+        """The engine's quantization posture: mode flags, the per-token
+        KV byte rate against the bf16 rate, and their ratio."""
+        bf16_rate = (2 * self.cfg.n_layers * self.cfg.n_kv_heads
+                     * self.cfg.head_dim
+                     * torch.empty((), dtype=self.cache_dtype)
+                     .element_size())
+        rate = self.kv_token_pool_bytes()
+        return {
+            "quantize_weights": self.quantize_weights,
+            "quantize_kv": self.quantize_kv,
+            "kv_bytes_per_token": rate,
+            "kv_bytes_per_token_bf16": bf16_rate,
+            "kv_compression": round(bf16_rate / rate, 3) if rate else None,
+            "resident_kv_tokens": self.sessions.max_tokens,
+        }
+
+    def kv_signature(self) -> str:
+        """The engine's exact KV geometry and dtype as a string, the JAX
+        engine's own: the disk prefix store's directory and the handoff's
+        compatibility check (serving/handoff.py). Two engines exchange KV
+        bytes only when their signatures match exactly; an int8 pool adds
+        ``-q8kv``."""
+        cfg = self.cfg
+        return (f"{cfg.name.replace('/', '_')}-L{cfg.n_layers}"
+                f"x{cfg.n_kv_heads}x{cfg.head_dim}-p{self.sessions.page}"
+                f"-{dtype_name(self.pool_dtype)}"
+                + ("-q8kv" if self.quantize_kv else ""))
+
+    def attach_tier(self, host_mb: int = 256,
+                    disk_dir: Optional[str] = None,
+                    disk_gb: float = 8.0) -> TierManager:
+        """Turn tiered KV on (serving/kvtier.py): eviction demotes to a
+        ``host_mb``-bounded host page store, a touch restores by page-in,
+        and with ``disk_dir`` prefix-cache blocks persist to a checksummed
+        store (``disk_gb``-bounded, LRU-pruned) that warms the next
+        process. Host copies of a CUDA pool go through pinned buffers.
+        Returns the TierManager (also ``sessions.tier``)."""
+        tier = TierManager(self.sessions, model=self.cfg.name,
+                           host_mb=host_mb, disk_dir=disk_dir,
+                           signature=self.kv_signature(),
+                           disk_gb=disk_gb)
+        self.sessions.tier = tier
+        return tier
+
+    def prefetch_session(self, session_id: str) -> bool:
+        """Warm a hibernated session before its row needs it: restore it
+        by page-in if the host tier holds it. TRY-acquires the paged lock,
+        so a busy engine skips the warm-up rather than block the caller
+        (the sessioned generate restores at its lookup anyway). The
+        page-in runs on the pool device's current stream, the one the
+        engine's kernels read from."""
+        tier = self.sessions.tier
+        if tier is None or not tier.has_session(session_id):
+            return False
+        if self.sessions.get(session_id) is not None:
+            return False                  # already resident
+        if not self._paged_lock.acquire(blocking=False):
+            return False
+        try:
+            self._ensure_pool()
+            return tier.restore_session(session_id) is not None
+        finally:
+            self._paged_lock.release()
 
     @staticmethod
     def kernel_launches() -> dict[str, int]:
@@ -905,17 +1031,26 @@ class GenerateEngine:
         return merged
 
     def drop_session(self, session_id: str) -> None:
-        """Release a session's pages, serialized with sessioned generate
-        calls so an in-flight batch never loses pages it references."""
+        """Release a session's pages and discard its host-tier copy,
+        serialized with sessioned generate calls so an in-flight batch
+        never loses pages it references. (The JAX engine also drops the
+        image-keyed variants of a VLM session; the port serves no VLM
+        rows.)"""
         with self._paged_lock:
             self.sessions.drop(session_id)
 
     def session_tokens(self, session_id: str) -> Optional[list[int]]:
-        """The session's resident conversation ids (prompt + retained
-        response), or None — what the backend splices the next round's
-        prompt against."""
+        """The session's conversation ids (prompt + retained response), or
+        None — what the backend splices the next round's prompt against.
+        A hibernated session answers from the host tier; the generate then
+        restores its pages."""
         s = self.sessions.get(session_id)
-        return list(s.tokens) if s is not None else None
+        if s is not None:
+            return list(s.tokens)
+        tier = self.sessions.tier
+        if tier is not None:
+            return tier.peek_tokens(session_id)
+        return None
 
     def verify_chunk(self, prompts, session_ids, verify_k, *,
                      temperature=0.0, constrain_json=None,
@@ -989,6 +1124,18 @@ class GenerateEngine:
                 store_sids[i] = sid
                 paged = True
                 s = self.sessions.get(sid)
+                if (s is None and self.sessions.tier is not None
+                        and self.sessions.tier.has_session(sid)):
+                    # hibernated: restore by page-in instead of re-prefill
+                    # (the caller holds _paged_lock, so no paged step
+                    # races the copy); any failure re-prefills
+                    try:
+                        self._ensure_pool()
+                        s = self.sessions.tier.restore_session(sid)
+                    except Exception:     # noqa: BLE001 — fall back
+                        logging.getLogger(__name__).exception(
+                            "kv restore failed for %s; re-prefilling", sid)
+                        s = None
                 if s is None:
                     # a NEW session whose prompt starts with a radix-cached
                     # page-aligned prefix adopts those pages: _run_paged
@@ -1001,6 +1148,10 @@ class GenerateEngine:
                         # and must run through the chunk forward
                         cap = (len(prompts[i]) - 1 if vk is None
                                else len(prompts[i]) - vk[i])
+                        if self.sessions.tier is not None:
+                            # a tiered lookup may page blocks into the
+                            # pool, which must exist first
+                            self._ensure_pool()
                         d = (self.sessions.match_prefix(prompts[i], cap)
                              if cap > 0 else None)
                         if d is not None:

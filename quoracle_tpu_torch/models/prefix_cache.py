@@ -169,15 +169,31 @@ class RadixPrefixCache:
         del node.parent.children[node.block]
         self._pages.pop(node.page, None)
 
+    def _node_tokens(self, node: _Node) -> list:
+        """The full token prefix a node's page caches (the root path's
+        blocks, concatenated): the KV tier's content-addressed key."""
+        blocks = []
+        while node is not self._root:
+            blocks.append(node.block)
+            node = node.parent
+        out: list = []
+        for b in reversed(blocks):
+            out.extend(b)
+        return out
+
     def evict(self, n: int) -> int:
         """Free up to ``n`` pages by stripping unreferenced LRU leaves.
-        Returns pages actually freed to the store's free list."""
+        Returns pages actually freed to the store's free list. With a KV
+        tier attached (serving/kvtier.py), a stripped leaf's block is
+        captured host-side first, so a later lookup can page it back in."""
         freed = 0
         while freed < n:
             leaf = self._evictable_leaf()
             if leaf is None:
                 break
-            # (a KV tier would capture the leaf's block host-side here)
+            if self.store.tier is not None:
+                self.store.tier.capture_leaf(self._node_tokens(leaf),
+                                             leaf.page)
             self._remove(leaf)
             self.store._release([leaf.page])   # last ref -> free list
             freed += 1

@@ -183,3 +183,10 @@ def kv_token_bytes(n_layers: int, n_kv: int, head_dim: int,
     if quantized:
         payload += n_layers * n_kv * KV_SCALE_BYTES_PER_TOKEN_PER_HEAD
     return payload
+
+
+def entry_nbytes(*tensors: Optional[torch.Tensor]) -> int:
+    """Total bytes of a KV tier entry's tensors, None entries skipped:
+    ``numel × element_size`` each, the count numpy's ``nbytes`` gives."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)

@@ -24,8 +24,13 @@ speculative.py), as the JAX backend does: under ``continuous`` each one's
 loop gets a ``BatchedSpeculator``; in baton mode a single uncontended text
 row goes through the member's batch-1 ``SpeculativeDecoder``.
 ``embed`` runs the on-device ``EmbeddingEncoder`` (models/embeddings.py).
-``MockBackend`` is the scripted test backend. Left for later slices: KV
-tiers and VLM rows.
+``host_kv_mb`` / ``disk_kv_dir`` attach tiered KV (serving/kvtier.py) to
+every pool member, as in the JAX backend: eviction demotes sessions to
+host memory, a touch restores them by page-in, prefix blocks persist to a
+disk store a restarted process warms from; ``kv_stats`` and
+``prefetch_sessions`` report and warm them.
+``MockBackend`` is the scripted test backend. Left for later slices: VLM
+rows.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from quoracle_tpu_torch.infra.resources import effective_headroom_fraction
 from quoracle_tpu_torch.models import loader
 from quoracle_tpu_torch.models.config import OUTPUT_FLOOR, get_model_config
 from quoracle_tpu_torch.models.embeddings import (
@@ -354,7 +360,15 @@ class TorchBackend(ModelBackend):
     given; else an ``EmbeddingEncoder`` over ``embed_model`` (default: the
     pool's first member), sharing that member's weights and tokenizer when
     it has an engine here, else over its checkpoint or random weights
-    drawn on the device from a generator seeded ``seed + 101``."""
+    drawn on the device from a generator seeded ``seed + 101``.
+
+    ``host_kv_mb`` and ``disk_kv_dir`` (with ``disk_kv_gb``) attach a KV
+    tier to every pool member, never to a draft (a draft's shadow sessions
+    are cheaper to re-draft than to park): eviction demotes to a
+    ``host_kv_mb``-bounded host store (256 MiB when only a disk directory
+    is given) and prefix blocks persist under ``disk_kv_dir``. With QoS the
+    controller's memory signal then counts the demotable pages as
+    headroom; ``close()`` drains the disk spills."""
 
     def __init__(self, pool: Sequence[str], *, seed: int = 0, device=None,
                  embed_model: Optional[str] = None,
@@ -363,6 +377,8 @@ class TorchBackend(ModelBackend):
                  continuous: bool = False, continuous_chunk: int = 32,
                  continuous_slots: int = 8, qos=None,
                  draft_map: Optional[dict] = None, draft_k: int = 6,
+                 host_kv_mb: int = 0, disk_kv_dir: Optional[str] = None,
+                 disk_kv_gb: float = 8.0,
                  quantize_weights: bool = False, quantize_kv: bool = False):
         self.device = resolve_device(device)
         self.pool = list(pool)
@@ -392,6 +408,13 @@ class TorchBackend(ModelBackend):
         for i, spec in enumerate(self.pool):
             if spec not in self.engines:
                 self.engines[spec] = build_engine(spec, i)
+        # Tiered KV on the pool members only
+        self.kv_tiered = bool(host_kv_mb or disk_kv_dir)
+        if self.kv_tiered:
+            for spec in self.pool:
+                self.engines[spec].attach_tier(
+                    host_mb=host_kv_mb or 256, disk_dir=disk_kv_dir,
+                    disk_gb=disk_kv_gb)
         # Speculative serving: draft engines load like members (and take
         # the same int8 flags) but never serve as pool members themselves
         self.draft_map = dict(draft_map or {})
@@ -419,9 +442,9 @@ class TorchBackend(ModelBackend):
         self._cbatchers = {}
         # Serving QoS: ONE controller + SLO tracker shared across members
         # (overload and tail burn are system conditions), one
-        # weighted-fair queue per member. qos=True → defaults. (With KV
-        # tiers the JAX backend hands the controller the headroom the
-        # tiers could reclaim: Queue 1 item 7.)
+        # weighted-fair queue per member. qos=True → defaults. With KV
+        # tiers the pages the tier ladder could demote count as headroom,
+        # so bulk work is not shed for memory it can free on demand.
         self.qos_controller = None
         self.slo = None
         qos_policies: dict = {}
@@ -429,7 +452,9 @@ class TorchBackend(ModelBackend):
             qcfg = qos if isinstance(qos, QoSConfig) else QoSConfig()
             self.slo = SLOTracker(targets_ms=qcfg.slo_targets_ms)
             self.qos_controller = AdmissionController(
-                config=qcfg.admission, tenants=qcfg.tenants)
+                config=qcfg.admission, tenants=qcfg.tenants,
+                headroom_fn=(lambda: effective_headroom_fraction(self))
+                if self.kv_tiered else None)
             qos_policies = {
                 spec: WeightedFairPolicy(
                     weights=qcfg.weights, quantum=qcfg.quantum,
@@ -467,9 +492,18 @@ class TorchBackend(ModelBackend):
     def close(self) -> None:
         """Stop the continuous batchers' threads (the baton batchers run
         on their callers' threads). Queued rows fail loudly rather than
-        stranding waiters — ContinuousBatcher.close() semantics."""
+        stranding waiters — ContinuousBatcher.close() semantics. Tiered
+        engines drain their queued disk spills, so a clean shutdown hands
+        its successor every persisted prefix."""
         for cb in self._cbatchers.values():
             cb.close()
+        for eng in self.engines.values():
+            tier = eng.sessions.tier
+            if tier is not None:
+                try:
+                    tier.flush_spills()
+                except Exception:         # noqa: BLE001 — best-effort
+                    pass
 
     def watchdog_sources(self) -> list:
         return [(f"decode-loop:{spec}", cb.progress)
@@ -504,6 +538,39 @@ class TorchBackend(ModelBackend):
             })
         return {"enabled": True, "draft_map": dict(self.draft_map),
                 "members": members}
+
+    def kv_stats(self) -> dict:
+        if not self.kv_tiered:
+            return {"enabled": False}
+        members = {}
+        for spec in self.pool:
+            e = self.engines[spec]
+            st = e.sessions
+            tier = st.tier
+            if tier is None:
+                continue
+            with st.lock:
+                free = len(st._free)
+                n_sessions = len(st._sessions)
+                occ = st.prefix_cache.occupancy()
+            members[spec] = {
+                "hbm": {
+                    "pages": st.n_pages,
+                    "free_pages": free,
+                    "used_pages": st.n_pages - 1 - free,
+                    "sessions": n_sessions,
+                    "prefix_cache": occ,
+                },
+                "quant": e.quant_stats(),
+                **tier.stats(),
+            }
+        return {"enabled": True, "members": members}
+
+    def prefetch_sessions(self, session_id: str) -> int:
+        if not self.kv_tiered:
+            return 0
+        return sum(1 for spec in self.pool
+                   if self.engines[spec].prefetch_session(session_id))
 
     def qos_stats(self) -> dict:
         if self.qos_controller is None:

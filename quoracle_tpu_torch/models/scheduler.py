@@ -52,10 +52,12 @@ computes once admitted is untouched.
 The worker thread did not make the engine: the current CUDA device is per
 thread in PyTorch, so the loop pins the device of the engine's weights
 before its first chunk; every forward it reaches runs under the engine's
-own ``torch.no_grad`` decorators. Left out of this copy, each marked
-where it stood: the tiered-KV prefetch at submit (Queue 1 item 7), the tracer spans, wait clocks, tree, fleet
-and cost attribution and the flight-recorder records (item 8), and the
-fault-injection tick (item 9).
+own ``torch.no_grad`` decorators. A row resuming a hibernated session
+warms it at submit (``engine.prefetch_session``, tiered KV), overlapping
+the page-in with its queue wait. Left out of this copy, each marked where
+it stood: the tracer spans, wait clocks, tree, fleet and cost attribution
+and the flight-recorder records (Queue 1 item 8), and the fault-injection
+tick (item 9).
 """
 
 from __future__ import annotations
@@ -216,8 +218,17 @@ class ContinuousBatcher:
             depth = self._policy.qsize()
         SCHED_QUEUE_DEPTH.set(depth, model=self._model)
         self._wake.set()
-        # (the JAX batcher warms a hibernated session's KV here, tiered
-        # KV's prefetch: Queue 1 item 7)
+        # Tiered-KV prefetch: a row resuming a HIBERNATED session warms it
+        # now, overlapping the page-in with its queue wait. Best-effort and
+        # non-blocking (it try-acquires the engine lock): a busy engine
+        # skips it and the sessioned generate restores at its lookup.
+        if session_id is not None:
+            prefetch = getattr(self.engine, "prefetch_session", None)
+            if prefetch is not None:
+                try:
+                    prefetch(session_id)
+                except Exception:   # noqa: BLE001 — warm-up only
+                    pass
         return row.future
 
     def close(self) -> None:

@@ -50,7 +50,9 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.models.speculative",
              "quoracle_tpu_torch.models.safetensors_io",
              "quoracle_tpu_torch.models.loader",
-             "quoracle_tpu_torch.models.make_checkpoint"):
+             "quoracle_tpu_torch.models.make_checkpoint",
+             "quoracle_tpu_torch.serving.kvtier",
+             "quoracle_tpu_torch.serving.handoff"):
     assert name in names, name
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join({repo!r}, "chip_smoke.py"))
