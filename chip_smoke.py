@@ -173,6 +173,29 @@ never prints its last line):
              failed). The first verify tick's ragged inputs (fp32 and
              bf16 float pages, int8 pages; blocks of nq = K) are held
              against the twins and timed beside the bound and SDPA
+  obs        observability on the serving path (infra/), over the serve
+             phase's llama-3-8b bf16 weights at full width and depth: the
+             serve traffic (round 1, the sessionless row, the resumed
+             round) on a fresh engine of seed 0 three times, every plane
+             off, then on (a tracer sink, the span ring and the flight
+             recorder as sinks, the cost, tree and introspect planes, the
+             wall profiler running), then off: texts, token and cached
+             counts identical, the wall ms a decode step of each run; in
+             the on run every row's chip_ms above 0 (0 when off), the
+             roofline's MFU readings of each prefill and decode in (0, 1]
+             with the bound-by-memory flags, the rows' charge beside the
+             phase walls; one decide of the decide pool under the
+             continuous loop inside an agent.decide_tick span: the tree
+             consensus.decide, consensus.round, backend.member and the
+             loop's sched.queue_wait and sched.decode spans, DECIDE_MS,
+             ROUNDS_TOTAL, the audit record's task_id equal to the trace
+             id; a demote and restore on a 16-page pool with a host tier
+             (the KV_* counters, the kv.restore span, the kv_demote and
+             kv_restore records, the restore's charge), then a resumed
+             round inside torch_trace_window, which must arm and write
+             under build/ (removed after); the memory attribution of the
+             serve and pool backends (named parts plus other equal the
+             card's used bytes, none negative); the exposition's series
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -264,18 +287,22 @@ never prints its last line):
   reference  a 2-layer cut of llama-3-8b in fp32: the same rounds through
              the GPU engine (kernels) and through the same weights on the
              CPU (plain twins) must give identical greedy texts and cached
-             counts, on the unified, direct and gather tiers, and with
-             int8 weights and pages on the unified and gather tiers; then
-             the decide phase's two decides, greedy (the port engine's
+             counts (3 new tokens a row), on the unified, direct and
+             gather tiers, and with int8 weights and pages on the unified
+             and gather tiers: each engine's unified tier runs round 1 and
+             the resumed round 2, each tier after it one more resumed
+             round over the sessions left before it; then the decide
+             phase's two decides, greedy (the port engine's
              temperature_for_round pointed at 0.0 for this phase only: a
              decide never samples at 0 by itself), one refinement round at
-             most and 12 new tokens, over 2-layer fp32 cuts of all three
-             members, served in turn: identical outcomes (status,
-             decision, rounds, cached tokens, every member's texts) on
-             the GPU and the CPU, and the embedder's vectors within 1e-5
-             at the 8, 64 and 256-token buckets
+             most and 4 new tokens, over 1-layer fp32 cuts of all three
+             members at full width, served in turn: identical outcomes
+             (status, decision, rounds, cached tokens, every member's
+             texts) on the GPU and the CPU, and the embedder's vectors
+             within 1e-5 at the 8, 64 and 256-token buckets. Engines of
+             one tokenizer share the JSON grammar's host table
 
-in that order but for batch, continuous and spec, which run after
+in that order but for batch, continuous, obs and spec, which run after
 prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
 line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
@@ -290,8 +317,9 @@ decide`` runs the decide phase (llama-3-8b built anew) and the reference
 decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
 ``--only calib``, ``--only batch``, ``--only continuous``, ``--only
-spec`` and ``--only tiers`` run that phase after the build, over weights
-drawn here (no last line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
+spec``, ``--only tiers`` and ``--only obs`` run that phase after the
+build, over weights drawn here (no last line); ``--only reference`` runs
+the reference phase after the build (no last line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
 the build (no last line). Every
 comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
 False, and cudnn's too). The script imports torch and the port, never
@@ -309,6 +337,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 START = time.monotonic()
@@ -388,8 +417,17 @@ CALIB_NEW_TOKENS = 32
 GATES_FILE = os.path.join(REPO, "build", "paged_gates.json")
 # new tokens a row in the reference phase's tier rounds: the CPU side
 # (plain twins, int8 weights dequantized on every call) is most of its
-# time, and the whole script must finish inside 1,200 s
-REFERENCE_TOKENS = 6
+# time, and the whole script must finish inside 1,200 s. Cut for the obs
+# phase (the reference phase took 214 s in one H100 run: the decide's CPU
+# side 97 s, the tier rounds' 71 s): 3 new tokens (was 6); the tiers
+# after an engine's first run one resumed round each over the sessions
+# the tier before left (was: two rounds each from fresh sessions); the
+# decide's members cut to 1 layer (was 2) and 4 new tokens (was 12);
+# every engine of one tokenizer builds its JSON grammar tables once
+# (host tables shared, each device's copy made from them)
+REFERENCE_TOKENS = 3
+REFERENCE_DECIDE_LAYERS = 1
+REFERENCE_DECIDE_TOKENS = 4
 PINNED_GATES = os.path.join(REPO, "build", "chip_smoke_pinned_gates.json")
 
 
@@ -3483,6 +3521,325 @@ def phase_trace(torch, R, backend, hist) -> dict:
     return {"phase": "trace", "model": MODEL, "calls": calls}
 
 
+# -- the obs phase -------------------------------------------------------------
+
+OBS_TRACE_DIR = os.path.join(REPO, "build", "obs_trace")
+OBS_TIER_PROMPT = 600       # the demote and restore session's prompt
+OBS_TIER_BYTES = 256 << 20  # its engine's session pool: 16 bf16 pages
+# new tokens a member in the obs decide: the span tree needs rows, not
+# answers that parse (at 256 the decide took 48.9 s in one H100 run with
+# the loop's first calls and grammar tables)
+OBS_DECIDE_TOKENS = 64
+
+
+def obs_modules():
+    from quoracle_tpu_torch.infra import (
+        costobs, fleetobs, flightrec, introspect, resources, telemetry,
+        treeobs,
+    )
+    return types.SimpleNamespace(tel=telemetry, co=costobs, tree=treeobs,
+                                 intro=introspect, fleet=fleetobs,
+                                 fr=flightrec, res=resources)
+
+
+def obs_planes(O, on: bool, sink=None) -> None:
+    """Every plane on (``sink`` and the span ring and flight recorder as
+    tracer sinks; the cost, tree and introspect planes, the wall
+    profiler) or off (no sink, the three planes disabled, the profiler
+    stopped)."""
+    for fn in list(O.tel.TRACER._sinks):
+        O.tel.TRACER.remove_sink(fn)
+    for mod in (O.co, O.tree, O.intro):
+        (mod.enable if on else mod.disable)()
+    if on:
+        for fn in (sink, O.fleet.SPANS.record, O.fr.FLIGHT.record_span):
+            O.tel.TRACER.add_sink(fn)
+        O.intro.start()
+    else:
+        O.intro.shutdown()
+
+
+def hist_delta(h, before) -> tuple:
+    """(count, sum) a histogram gained since ``before`` = h.counts()."""
+    _, s, n = h.counts()
+    return n - before[2], s - before[1]
+
+
+def obs_serve_run(torch, R, O, base, on: bool) -> dict:
+    """The serve traffic (round 1, the sessionless row, the resumed round)
+    on a fresh engine over ``base``'s weights, seed 0 (so the same
+    generator state), planes on or off. Returns what must be identical,
+    the timings and, when on, the spans, MFU readings and charges."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    eng = GenerateEngine(base.cfg, base.params, base.tokenizer, seed=0,
+                         device="cuda")
+    # the serve engine's grammar tables (same tokenizer and device): each
+    # run pays no table build
+    eng._json_cache = base._json_cache
+    backend = R.TorchBackend([MODEL], device="cuda", engines={MODEL: eng})
+    events, mfu = [], []
+    orig = O.co.Roofline.observe
+
+    def spy(self, stage, real_tokens, steps, ctx, wall_s, bucket):
+        got = orig(self, stage, real_tokens, steps, ctx, wall_s, bucket)
+        if got is not None:
+            mfu.append({"stage": stage, "mfu": got["mfu"],
+                        "hbm_bound": got["hbm_bound"],
+                        "tokens": real_tokens, "ctx": ctx,
+                        "wall_ms": wall_s * 1e3})
+        return got
+
+    step_h = O.tel.DECODE_STEP_MS.counts()
+    led0 = O.co.ledger_for(eng.cfg.name).snapshot()
+    obs_planes(O, on, events.append)
+    O.co.Roofline.observe = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rounds, results, _ = run_rounds(R, backend, MODEL, TEMPS,
+                                        MAX_TOKENS, N_RULES)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        prof = O.intro.PROFILER.snapshot()
+    finally:
+        O.co.Roofline.observe = orig
+        obs_planes(O, False)
+    led1 = O.co.ledger_for(eng.cfg.name).snapshot()
+    n_steps, step_ms = hist_delta(O.tel.DECODE_STEP_MS, step_h)
+    flat = [r for res in results for r in res]
+    out = {
+        "same": {"texts": [[r.text for r in res] for res in results],
+                 "tokens": [[r.usage.completion_tokens for r in res]
+                            for res in results],
+                 "cached": [[r.cached_tokens for r in res]
+                            for res in results]},
+        "wall_s": wall_s,
+        "round2": {"prefill_ms": rounds[1]["prefill_ms"],
+                   "decode_ms": rounds[1]["decode_ms"],
+                   "ms_per_step": rounds[1]["decode_ms"] / max(
+                       rounds[1]["new_tokens"])},
+        "decode_step_ms_mean": step_ms / max(1, n_steps),
+        "chip_ms": [r.chip_ms for r in flat],
+        "charged_ms": sum(r.chip_ms for r in flat),
+        "phase_walls_ms": sum(rd["prefill_ms"] + rd["decode_ms"]
+                              for rd in rounds)
+        + rounds[0]["sessionless"]["prefill_ms"]
+        + rounds[0]["sessionless"]["decode_ms"],
+        "ledger_busy_ms": led1["busy_chip_ms"] - led0["busy_chip_ms"],
+        "ledger_overhead_ms": led1["overhead_chip_ms"]
+        - led0["overhead_chip_ms"],
+        "mfu": mfu, "events": events,
+        "profiler": {k: prof[k] for k in ("hz", "running", "samples",
+                                          "overhead_frac")}}
+    del backend, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def span_counts(events) -> dict:
+    out: dict = {}
+    for e in events:
+        out[e["name"]] = out.get(e["name"], 0) + 1
+    return dict(sorted(out.items()))
+
+
+def obs_decide(torch, R, O, pool_backend) -> dict:
+    """One decide over the decide pool (DEPTH_CUT layers, full width)
+    under the continuous loop, inside an ``agent.decide_tick`` span, the
+    planes on: the span tree decide → round → member → the loop's spans,
+    DECIDE_MS, ROUNDS_TOTAL and the audit record's task_id."""
+    from quoracle_tpu_torch.consensus import engine as CE
+    from quoracle_tpu_torch.consensus import quality as Q
+    cpool = R.TorchBackend(DECIDE_POOL, device="cuda",
+                           engines=pool_backend.engines,
+                           embedder=pool_backend.embedder,
+                           continuous=True, continuous_chunk=CONT_CHUNK,
+                           qos=True)
+    events = []
+    d0 = O.tel.DECIDE_MS.counts()
+    r0 = O.tel.ROUNDS_TOTAL.total()
+    q0 = Q.QUALITY.scorecards()["n_decides"]
+    messages = [{"role": "system", "content": wait_only_system_prompt()},
+                {"role": "user", "content": "Task: keep the build green. "
+                                            "Decide the next step."}]
+    obs_planes(O, True, events.append)
+    try:
+        engine = CE.ConsensusEngine(cpool, CE.ConsensusConfig(
+            model_pool=list(DECIDE_POOL), max_refinement_rounds=1,
+            session_key="agent-obs", allowed_actions={"wait"},
+            max_tokens=OBS_DECIDE_TOKENS))
+        with O.tel.TRACER.span("agent.decide_tick", trace_id="task-obs",
+                               agent_id="agent-obs"):
+            out = engine.decide({m: list(messages) for m in DECIDE_POOL})
+    finally:
+        obs_planes(O, False)
+        cpool.close()
+    mine = [e for e in events if e.get("trace_id") == "task-obs"]
+    by_id = {e["span_id"]: e for e in mine}
+
+    def parent_name(e):
+        p = by_id.get(e["parent_id"])
+        return p["name"] if p is not None else None
+
+    edges = sorted({(e["name"], parent_name(e)) for e in mine})
+    n_dec, ms_dec = hist_delta(O.tel.DECIDE_MS, d0)
+    report = {"status": out.status, "rounds_used": out.rounds_used,
+              "task_id": out.audit["task_id"] if out.audit else None,
+              "trace_spans": span_counts(mine),
+              "all_spans": span_counts(events), "edges": edges,
+              "decide_ms": ms_dec, "decides_observed": n_dec,
+              "rounds_total": O.tel.ROUNDS_TOTAL.total() - r0,
+              "quality_decides": Q.QUALITY.scorecards()["n_decides"] - q0,
+              "chip_ms": out.chip_ms, "member_chip_ms": out.member_chip_ms}
+    need = {("consensus.decide", "agent.decide_tick"),
+            ("consensus.round", "consensus.decide"),
+            ("backend.member", "consensus.round"),
+            ("sched.queue_wait", "backend.member"),
+            ("sched.decode", "backend.member")}
+    if (report["task_id"] != "task-obs" or not need <= set(edges)
+            or n_dec != 1 or report["rounds_total"] != out.rounds_used
+            or report["quality_decides"] != 1):
+        emit({"phase": "obs", "decide": report})
+        raise AssertionError("the decide's span tree or counters are off")
+    return report
+
+
+def obs_tiers(torch, O, base) -> dict:
+    """A demote and a restore on a small pool (a fresh engine over the
+    serve weights, a host tier), planes on: the KV_* counters, the
+    kv.restore span, the kv_demote and kv_restore records and the
+    restore's charge; then one resumed round of 4 tokens inside a
+    torch_trace_window writing under build/."""
+    eng = tier_engine(base, base.params, session_max_bytes=OBS_TIER_BYTES)
+    eng.attach_tier(host_mb=1024)
+    name = eng.cfg.name
+    prompt = tier_prompt(7, OBS_TIER_PROMPT, base.cfg.vocab_size)
+    kinds = ("KV_DEMOTES_TOTAL", "KV_RESTORES_TOTAL",
+             "KV_HOST_EVICTIONS_TOTAL")
+    c0 = {k: getattr(O.tel, k).total() for k in kinds}
+    r0 = O.tel.KV_RESTORE_MS.counts()
+    restore0 = O.co.ledger_for(name).stage_ns().get("restore", 0)
+    events = []
+    O.fr.FLIGHT.record("obs_marker")
+    obs_planes(O, True, events.append)
+    try:
+        g1 = eng.generate([prompt], temperature=0.0, max_new_tokens=8,
+                          session_ids=["obs-a"])[0]
+        hibernate_all(eng)
+        g2 = eng.generate([prompt + g1.token_ids + prompt[:20]],
+                          temperature=0.0, max_new_tokens=8,
+                          session_ids=["obs-a"])[0]
+        shutil.rmtree(OBS_TRACE_DIR, ignore_errors=True)
+        with O.intro.torch_trace_window(OBS_TRACE_DIR) as armed:
+            eng.generate([prompt + g1.token_ids + prompt[:40]],
+                         temperature=0.0, max_new_tokens=4,
+                         session_ids=["obs-a"])
+            torch.cuda.synchronize()
+    finally:
+        obs_planes(O, False)
+    files = (sorted(os.listdir(OBS_TRACE_DIR))
+             if os.path.isdir(OBS_TRACE_DIR) else [])
+    trace_bytes = sum(os.path.getsize(os.path.join(OBS_TRACE_DIR, f))
+                      for f in files)
+    shutil.rmtree(OBS_TRACE_DIR, ignore_errors=True)
+    ev = O.fr.FLIGHT.snapshot()
+    i = max(j for j, e in enumerate(ev) if e["kind"] == "obs_marker")
+    flights = sorted({e["kind"] for e in ev[i + 1:]} - {"span"})
+    report = {"counters": {k: getattr(O.tel, k).total() - c0[k]
+                           for k in kinds},
+              "restore_ms": hist_delta(O.tel.KV_RESTORE_MS, r0)[1],
+              "restore_charge_ms": (O.co.ledger_for(name).stage_ns().get(
+                  "restore", 0) - restore0) / 1e6,
+              "cached_after_restore": g2.n_cached_tokens,
+              "spans": span_counts(events), "flight_kinds": flights,
+              "trace_window": {"armed": armed, "files": files,
+                               "bytes": trace_bytes,
+                               "dir": os.path.relpath(OBS_TRACE_DIR, REPO)},
+              "tier": eng.sessions.tier.stats()["restored_sessions"]}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (report["counters"]["KV_DEMOTES_TOTAL"] < 1
+            or report["counters"]["KV_RESTORES_TOTAL"] < 1
+            or "kv.restore" not in report["spans"]
+            or not {"kv_demote", "kv_restore"} <= set(flights)
+            or report["restore_charge_ms"] <= 0 or g2.n_cached_tokens <= 0
+            or armed is not True or not files or trace_bytes <= 0):
+        emit({"phase": "obs", "tiers": report})
+        raise AssertionError("the tier part of the obs phase failed")
+    return report
+
+
+def attribution_view(O, backend) -> dict:
+    att = O.res.hbm_attribution(backend)
+    dev = att["device"]
+    if (dev is None or not dev["consistent"]
+            or any(v < 0 for v in dev["parts"].values()) or dev["other"] < 0
+            or sum(dev["parts"].values()) + dev["other"]
+            != dev["used_bytes"]):
+        raise AssertionError(f"attribution does not add up: {dev}")
+    return {"device": dev,
+            "members": {m: {k: v[k] for k in ("role", "params_bytes",
+                                              "kv_pool_bytes", "sessions")}
+                        for m, v in att["members"].items()}}
+
+
+def phase_obs(torch, R, backend, pool_backend) -> dict:
+    """Observability on the serving path at llama-3-8b width and depth
+    (the serve phase's bf16 weights): the serve traffic with every plane
+    off, on and off again (identical texts, token and cached counts; the
+    wall ms a decode step of each), every row's chip-ms and the MFU
+    readings of the on run, the span tree of one decide of the pool, a
+    demote and restore, a profiler window, the memory attribution and
+    the exposition. No plane may fail to arm."""
+    O = obs_modules()
+    base = backend.engines[MODEL]
+    runs = [obs_serve_run(torch, R, O, base, on)
+            for on in (False, True, False)]
+    same = [r["same"] for r in runs]
+    on = runs[1]
+    baton_spans = span_counts(on["events"])
+    serve = {"identical": all(x == same[0] for x in same),
+             "wall_s": [r["wall_s"] for r in runs],
+             "round2_ms_per_step": [r["round2"]["ms_per_step"]
+                                    for r in runs],
+             "decode_step_ms_mean": [r["decode_step_ms_mean"]
+                                     for r in runs],
+             "round2": [r["round2"] for r in runs],
+             "chip_ms": on["chip_ms"],
+             "charged_ms": on["charged_ms"],
+             "phase_walls_ms": on["phase_walls_ms"],
+             "ledger_busy_ms": on["ledger_busy_ms"],
+             "ledger_overhead_ms": on["ledger_overhead_ms"],
+             "off_chip_ms": [sum(r["chip_ms"]) for r in (runs[0], runs[2])],
+             "mfu": on["mfu"],
+             "profiler": on["profiler"],
+             "mfu_hbm_bound": {k: v for k, v in O.tel.MFU_HBM_BOUND.
+                               _snapshot()["series"].items()
+                               if f"model={base.cfg.name}," in k},
+             "spans": baton_spans}
+    mfu_ok = all(0.0 < m["mfu"] <= 1.0 for m in on["mfu"]) and {
+        m["stage"] for m in on["mfu"]} >= {"prefill", "decode"}
+    if (not serve["identical"] or min(on["chip_ms"]) <= 0
+            or max(serve["off_chip_ms"]) != 0 or not mfu_ok
+            or "generate.prefill" not in baton_spans
+            or "backend.member" not in baton_spans):
+        emit({"phase": "obs", "serve": {**serve, "same": same}})
+        raise AssertionError("the obs serve runs failed their checks")
+    decide = obs_decide(torch, R, O, pool_backend)
+    tiers = obs_tiers(torch, O, base)
+    text = O.tel.METRICS.render_prometheus()
+    series = sum(1 for line in text.splitlines()
+                 if line and not line.startswith("#"))
+    return {"phase": "obs", "model": MODEL, "nvidia_smi": nvidia_smi(),
+            "serve": serve, "decide": decide, "tiers": tiers,
+            "attribution": {"serve": attribution_view(O, backend),
+                            "pool": attribution_view(O, pool_backend)},
+            "exposition": {"series": series,
+                           "metrics": len(O.tel.METRICS._metrics)}}
+
+
 def phase_sweep(torch, F, P) -> dict:
     """Each kernel's time and bound over the lengths it serves, bf16 at
     llama-3-8b attention geometry: ragged decode ticks (tq=1, 3 live rows
@@ -3857,15 +4214,28 @@ REFERENCE_TIERS = {
 }
 
 
+def share_tables(engines: list, tables: dict, enum) -> None:
+    """Engines of one tokenizer build the JSON grammar ``enum``'s host
+    table once: the first engine that needs it builds it into ``tables``,
+    the others take it from there and make only their device copy."""
+    key = ("one", enum)
+    for eng in engines:
+        if key not in tables:
+            eng._json_table_device((enum,))
+            tables[key] = eng._json_cache[key]
+        eng._json_cache[key] = tables[key]
+
+
 def phase_reference(torch, R) -> dict:
     """The same traffic, greedy, through a 2-layer fp32 cut of llama-3-8b
     on the GPU (kernels) and on the CPU (plain twins), one set of
     weights, on each paged tier in turn (one float and one int8 engine,
-    both ``quantize_weights`` and ``quantize_kv``, per device; sessions
-    dropped between tiers): the texts, token counts and cached-token
-    counts must agree. The float unified tier runs the full traffic, the
-    other tiers the consensus rounds only (the sessionless row takes the
-    dense path whatever the tier)."""
+    both ``quantize_weights`` and ``quantize_kv``, per device): the
+    texts, token counts and cached-token counts must agree. Each
+    engine's first tier (unified) runs the full traffic (round 1, the
+    sessionless row on the float engine, the resumed round 2); each tier
+    after it runs one more resumed round over the sessions the tier
+    before left, so every tier's resume path runs on both devices."""
     from quoracle_tpu_torch.models import config as C
     from quoracle_tpu_torch.models.generate import GenerateEngine
     from quoracle_tpu_torch.models.tokenizer import get_tokenizer
@@ -3873,14 +4243,22 @@ def phase_reference(torch, R) -> dict:
         C.get_model_config(MODEL), name="llama-3-8b-2layer", n_layers=2))
     spec = f"xla:{cfg.name}"
     out = {}
+    t0 = time.monotonic()
     cut = dict(zip(("cuda", "cpu"), fp32_cut(torch, cfg, 1, cpu_copy=True)))
+    setup_s = {"cut": time.monotonic() - t0}
+    tables: dict = {}
     for dev in ("cuda", "cpu"):
+        t0 = time.monotonic()
+        hist = {}
         params = cut.pop(dev)
         backends = {quant: R.TorchBackend([spec], device=dev, engines={
             spec: GenerateEngine(cfg, params, get_tokenizer(spec),
                                  device=dev, quantize_weights=quant,
                                  quantize_kv=quant)})
             for quant in (False, True)}
+        share_tables([b.engines[spec] for b in backends.values()], tables,
+                     None)
+        setup_s[dev] = time.monotonic() - t0
         for tier, (quant, attrs) in REFERENCE_TIERS.items():
             backend = backends[quant]
             eng = backend.engines[spec]
@@ -3890,19 +4268,28 @@ def phase_reference(torch, R) -> dict:
             for k, v in attrs.items():
                 setattr(eng, k, v)
             t0 = time.monotonic()
-            rounds, results, _ = run_rounds(
-                R, backend, spec, [0.0] * 3, max_tokens=REFERENCE_TOKENS,
-                n_rules=8, sessionless=tier == "unified")
+            if quant not in hist:
+                rounds, results, hist[quant] = run_rounds(
+                    R, backend, spec, [0.0] * 3,
+                    max_tokens=REFERENCE_TOKENS, n_rules=8,
+                    sessionless=tier == "unified")
+            else:
+                summary, res = consensus_round(
+                    R, backend, spec, hist[quant], [0.0] * 3,
+                    REFERENCE_TOKENS)
+                rounds, results = [summary], [res]
+                hist[quant] = [
+                    h + [{"role": "assistant", "content": r.text},
+                         {"role": "user", "content": "refine again"}]
+                    for h, r in zip(hist[quant], res)]
             out[(dev, tier)] = {
                 "s": time.monotonic() - t0, "rounds": rounds,
                 "texts": [[r.text for r in res] for res in results],
                 "tokens": [[r.usage.completion_tokens for r in res]
                            for res in results]}
-            for i in range(3):
-                backend.drop_session(f"agent-{i}")
         del backends, params
     report = {"phase": "reference", "model": spec, "dtype": "float32",
-              "tiers": {}}
+              "setup_s": setup_s, "tiers": {}}
     bad = []
     for tier in REFERENCE_TIERS:
         g, c = out[("cuda", tier)], out[("cpu", tier)]
@@ -3910,13 +4297,15 @@ def phase_reference(torch, R) -> dict:
             a["cached_tokens"] == b["cached_tokens"]
             for a, b in zip(g["rounds"], c["rounds"]))
         row = {"identical": same, "gpu_s": g["s"], "cpu_s": c["s"],
-               "cached_tokens": g["rounds"][1]["cached_tokens"],
+               "rounds": len(g["rounds"]),
+               "cached_tokens": g["rounds"][-1]["cached_tokens"],
                "new_tokens": g["tokens"]}
         if tier == "unified":
             row["sessionless_prompt_tokens"] = \
                 g["rounds"][0]["sessionless"]["prompt_tokens"]
-        if min(g["rounds"][1]["cached_tokens"]) <= 0:
-            raise AssertionError(f"{tier}: round 2 resumed nothing: {row}")
+        if min(g["rounds"][-1]["cached_tokens"]) <= 0:
+            raise AssertionError(f"{tier}: its resumed round resumed "
+                                 f"nothing: {row}")
         if not same:
             row.update(gpu_texts=g["texts"], cpu_texts=c["texts"])
             bad.append(tier)
@@ -3956,8 +4345,9 @@ def text_of_tokens(tok, lo: int, hi: int) -> str:
 
 def reference_decide(torch, R) -> dict:
     """The decide phase's two decides, greedy and small (one refinement
-    round at most, 12 new tokens), through 2-layer fp32 cuts of the three
-    members on the GPU (kernels) and on the CPU (plain twins), one set of
+    round at most, REFERENCE_DECIDE_TOKENS new tokens), through fp32 cuts
+    of the three members (REFERENCE_DECIDE_LAYERS layers, full width) on
+    the GPU (kernels) and on the CPU (plain twins), one set of
     weights (``fp32_cut``: drawn on the card, copied to the CPU), the
     unified tier on both, members served in turn:
     identical outcomes. Then the
@@ -3974,7 +4364,8 @@ def reference_decide(torch, R) -> dict:
     for spec in DECIDE_POOL:
         base = C.get_model_config(spec)
         pool.append("xla:" + C.register_model(dataclasses.replace(
-            base, name=f"{base.name}-2layer", n_layers=2)).name)
+            base, name=f"{base.name}-{REFERENCE_DECIDE_LAYERS}layer",
+            n_layers=REFERENCE_DECIDE_LAYERS)).name)
     tok = get_tokenizer(pool[0])
     texts = {T: text_of_tokens(tok, lo, T)
              for T, lo in ((8, 1), (64, 33), (256, 129))}
@@ -3982,6 +4373,7 @@ def reference_decide(torch, R) -> dict:
         torch, C.get_model_config(spec), i + 1, cpu_copy=True)))
         for i, spec in enumerate(pool)}
     runs = {}
+    tables: dict = {}
     orig = CE.temperature_for_round
     CE.temperature_for_round = lambda *a, **kw: 0.0
     try:
@@ -3992,6 +4384,7 @@ def reference_decide(torch, R) -> dict:
                                      params[spec][dev], get_tokenizer(spec),
                                      seed=i, device=dev)
                 eng.unified_min_tokens = 0    # the CPU default is gather
+                share_tables([eng], tables.setdefault(spec, {}), ("wait",))
                 engines[spec] = eng
             # members in turn: this phase compares the devices, and the
             # decide phase drives the overlap default; three members
@@ -4000,14 +4393,17 @@ def reference_decide(torch, R) -> dict:
             backend = R.TorchBackend(pool, device=dev, engines=engines,
                                      overlap=False)
             t0 = time.monotonic()
-            outcomes, records = run_decides(R, CE, backend, pool,
-                                            max_tokens=12,
-                                            max_refinement_rounds=1)
-            runs[dev] = {"s": time.monotonic() - t0,
+            outcomes, records = run_decides(
+                R, CE, backend, pool, max_tokens=REFERENCE_DECIDE_TOKENS,
+                max_refinement_rounds=1)
+            t1 = time.monotonic()
+            vecs = {T: backend.embed([t])[0] for T, t in texts.items()}
+            runs[dev] = {"s": t1 - t0, "embed_s": time.monotonic() - t1,
+                         "round_s": [r["round_s"] for r in records],
+                         "grammar_s": [r["grammar_s"] for r in records],
                          "views": [decide_view(o) for o in outcomes],
                          "tiers": [r["tiers"] for r in records],
-                         "vecs": {T: backend.embed([t])[0]
-                                  for T, t in texts.items()}}
+                         "vecs": vecs}
             del backend, engines
     finally:
         CE.temperature_for_round = orig
@@ -4018,6 +4414,9 @@ def reference_decide(torch, R) -> dict:
             for T in texts}
     report = {"pool": pool, "identical": g["views"] == c["views"],
               "gpu_s": g["s"], "cpu_s": c["s"],
+              "round_s": {"gpu": g["round_s"], "cpu": c["round_s"]},
+              "grammar_s": {"gpu": g["grammar_s"], "cpu": c["grammar_s"]},
+              "embed_s": {"gpu": g["embed_s"], "cpu": c["embed_s"]},
               "tiers": g["tiers"],
               "decides": [{k: v[k] for k in ("status", "rounds_used",
                                              "cached_tokens")}
@@ -4589,7 +4988,7 @@ def ptxas_entries(log: str) -> list:
 def main(argv) -> int:
     only = None
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
-              "continuous", "spec", "ckpt", "tiers")
+              "continuous", "spec", "ckpt", "tiers", "obs", "reference")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -4656,6 +5055,14 @@ def main(argv) -> int:
         backend = R.TorchBackend([MODEL], seed=0)
         emit(phase_tiers(torch, R, P, kernels, backend))
         return 0
+    if only == "obs":
+        backend = R.TorchBackend([MODEL], seed=0)
+        emit(phase_obs(torch, R, backend,
+                       decide_pool_backend(torch, R, backend)[0]))
+        return 0
+    if only == "reference":
+        emit(phase_reference(torch, R))
+        return 0
     if only == "ckpt":
         dfa = CharDFA(max_depth=4)
         backend, report, *_ = phase_serve(torch, R, F, P, kernels, dfa)
@@ -4703,6 +5110,7 @@ def main(argv) -> int:
         torch, R, kernels, dfa, backend, pool_backend,
         baton_decide_ms=[d["latency_ms"] for d in decide_report["decides"]])
     emit(continuous_report)
+    emit(phase_obs(torch, R, backend, pool_backend))
     # phase_spec releases the decide pool once its decide has run
     pools = [pool_backend]
     del pool_backend

@@ -8,12 +8,13 @@ field names, so a decide over the port's ``TorchBackend`` can be compared
 field by field with the JAX engine's. It types against the port's
 ``ModelBackend`` (models/runtime.py).
 
-Left out, because they only observe a decide: the JAX engine's tracer
-spans, its decide and round latency histograms and round counter, the
-chip-economics and session-graph charges, and the quality layer's
-scorecard feed (``QUALITY.observe_decide``). The audit record is built as
-in JAX (consensus/quality.py); its ``task_id`` falls back to None where
-the JAX engine reads the current trace id.
+Observed as in the JAX engine: a ``consensus.decide`` span wrapping one
+``consensus.round`` span per round (the backend's ``backend.member``
+spans parent onto it), the decide and round latency histograms and round
+counter, the per-decide chip-ms and token histograms, the session-graph
+node charge, and the quality layer's scorecard feed
+(``QUALITY.observe_decide``). The audit record (consensus/quality.py)
+takes its ``task_id`` from the config, else from the current trace id.
 
 Pure-logic layer: no persistence, no event bus. Dependencies (backend,
 embedder) arrive explicitly.
@@ -35,13 +36,18 @@ from quoracle_tpu_torch.consensus.parser import (
     ActionProposal, ParseFailure, parse_response,
 )
 from quoracle_tpu_torch.consensus.quality import (
-    build_audit_record, next_decide_id,
+    QUALITY, build_audit_record, next_decide_id,
 )
 from quoracle_tpu_torch.consensus.result import (
     Decision, pick_winner, select_winner_cluster,
 )
 from quoracle_tpu_torch.consensus.rules import EmbedAccumulator
 from quoracle_tpu_torch.consensus.temperature import temperature_for_round
+from quoracle_tpu_torch.infra import costobs, treeobs
+from quoracle_tpu_torch.infra.telemetry import (
+    COST_DECIDE_CHIP_MS, COST_DECIDE_TOKENS, DECIDE_MS, ROUND_MS,
+    ROUNDS_TOTAL, TRACER,
+)
 from quoracle_tpu_torch.models.runtime import ModelBackend, QueryRequest
 
 DEFAULT_THRESHOLD = 0.5          # reference consensus/manager.ex:11-21
@@ -168,8 +174,43 @@ class ConsensusEngine:
         ``messages_per_model`` maps model_spec -> chat messages (system prompt
         included) — each pool member fills its own context window (reference
         per-model histories, README.md:642-650).
+
+        Traced end to end (infra/telemetry.py): one ``consensus.decide``
+        span (a child of the caller's span) wrapping per-round
+        ``consensus.round`` spans, with quoracle_decide_ms /
+        quoracle_round_ms observations.
         """
-        return self._decide(messages_per_model)
+        t0 = time.monotonic()
+        with TRACER.span("consensus.decide",
+                         agent_id=self.config.session_key,
+                         n_models=len(self.config.model_pool)) as sp:
+            outcome = self._decide(messages_per_model)
+            sp.attrs.update(status=outcome.status,
+                            rounds=outcome.rounds_used,
+                            prefill_ms=round(outcome.prefill_ms, 1),
+                            decode_ms=round(outcome.decode_ms, 1),
+                            cached_tokens=outcome.cached_tokens,
+                            spec_accepted_tokens=outcome.
+                            spec_accepted_tokens)
+        DECIDE_MS.observe((time.monotonic() - t0) * 1000)
+        if costobs.enabled():
+            # economics per decide: chip-ms and emitted tokens (a zero
+            # chip-ms decide is observed too: the unmetered population)
+            COST_DECIDE_CHIP_MS.observe(outcome.chip_ms)
+            COST_DECIDE_TOKENS.observe(float(outcome.completion_tokens))
+        if treeobs.enabled():
+            # exactly ONE node charge per decide; falls back to the
+            # thread's binding when the engine was built without a tree
+            treeobs.charge_decide(
+                self.config.tree or treeobs.current(),
+                outcome.chip_ms, outcome.completion_tokens,
+                audit=outcome.audit)
+        if outcome.audit is not None:
+            # scorecards, entropy/margin instruments, drift detection and
+            # the audit-record fan-out — after the decide histogram, so
+            # the quality layer's cost never skews the latency it reports
+            QUALITY.observe_decide(outcome.audit)
+        return outcome
 
     def _decide(self, messages_per_model: dict[str, list[dict]]) -> ConsensusOutcome:
         t0 = time.monotonic()
@@ -197,7 +238,7 @@ class ConsensusEngine:
         round_num = 0
         while round_num < max_rounds:
             round_num += 1
-            proposals, failures = self._query_round_impl(
+            proposals, failures = self._query_round(
                 histories, pool, round_num, outcome)
             _note_failures(failures, failure_kinds, corrected)
             if not proposals:
@@ -288,13 +329,30 @@ class ConsensusEngine:
         cfg = self.config
         if not cfg.quality:
             return
+        current = TRACER.current()
+        task_id = cfg.task_id or (current.trace_id
+                                  if current is not None else None)
         outcome.audit = build_audit_record(
-            task_id=cfg.task_id, agent_id=cfg.session_key, pool=pool,
+            task_id=task_id, agent_id=cfg.session_key, pool=pool,
             outcome=outcome, clusters=clusters, winner_index=winner_index,
             sim_margins=acc.margins, failure_counts=failure_kinds,
             corrected=corrected, decide_id=outcome.decide_id)
 
     # ------------------------------------------------------------------
+
+    def _query_round(self, histories: dict[str, list[dict]], pool: list[str],
+                     round_num: int, outcome: ConsensusOutcome,
+                     ) -> tuple[list[ActionProposal], list[ModelFailure]]:
+        # one round = query + parse + validate; the span parents the
+        # backend's per-member spans
+        t0 = time.monotonic()
+        with TRACER.span("consensus.round", round=round_num,
+                         agent_id=self.config.session_key):
+            result = self._query_round_impl(histories, pool, round_num,
+                                            outcome)
+        ROUND_MS.observe((time.monotonic() - t0) * 1000)
+        ROUNDS_TOTAL.inc()
+        return result
 
     def _query_round_impl(self, histories: dict[str, list[dict]],
                           pool: list[str], round_num: int,

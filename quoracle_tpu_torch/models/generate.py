@@ -64,8 +64,17 @@ hibernated session by page-in (a failed restore re-prefills), a tiered
 prefix lookup pages host or disk blocks back into the radix tree, and
 ``prefetch_session`` warms a hibernated session ahead of its row.
 ``kv_signature`` names the pool's geometry and dtype exactly as the JAX
-engine does, so both packages share disk stores and handoffs. Left for
-later slices: VLM rows and meshes.
+engine does, so both packages share disk stores and handoffs.
+
+Observability (infra/): every generate and verify call observes its
+phase walls and per-token rates, ledgers its shape key in the engine's
+``CompileRegistry``, counts real against padded chunk tokens
+(``padding_stats``), charges its phase walls to the rows aboard it
+(``costobs.charge_step``: ``GenResult.chip_ms``, the verify rows'
+``chip_ms``, the MFU roofline) and beats the ``engine.tokens``
+heartbeat. All of it reads host-side counts the engine already holds and
+the walls ``_fence`` already measured: no RNG, no device read, no extra
+sync. Left for later slices: VLM rows and meshes.
 """
 
 from __future__ import annotations
@@ -80,10 +89,17 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from quoracle_tpu_torch.infra import costobs, introspect
+from quoracle_tpu_torch.infra.flightrec import FLIGHT
+from quoracle_tpu_torch.infra.locks import named_lock
+from quoracle_tpu_torch.infra.telemetry import (
+    DECODE_MS, DECODE_STEP_MS, JIT_COMPILES, KV_ALLOC_DRIFT_TOTAL,
+    PREFILL_MS, PREFILL_TOKENS_PER_S, PREFIX_LOOKUP_MS, TRACER,
+)
 from quoracle_tpu_torch.models.config import ModelConfig
 from quoracle_tpu_torch.models.prefix_cache import RadixPrefixCache
 from quoracle_tpu_torch.models.quant import (
-    kv_quant, kv_token_bytes, quantize_params,
+    kv_quant, kv_token_bytes, params_nbytes, quantize_params,
 )
 from quoracle_tpu_torch.models.sampling import sample_tokens
 from quoracle_tpu_torch.models.transformer import (
@@ -449,6 +465,9 @@ class GenResult:
     spec_rounds: int = 0
     spec_drafted_tokens: int = 0
     spec_accepted_tokens: int = 0
+    # this row's share of the measured device wall of the steps it rode,
+    # split by real tokens (infra/costobs.py); 0.0 with accounting off
+    chip_ms: float = 0.0
 
 
 PAGE = 128   # tokens per KV page
@@ -492,7 +511,8 @@ class SessionStore:
         self.page = page
         self.n_pages = max(3, -(-max_tokens // page) + 1)   # +1 scratch
         self.max_tokens = (self.n_pages - 1) * page
-        self.lock = threading.RLock()
+        self.lock = named_lock("session.store", rlock=True)
+        self.model = ""          # metric label; the engine sets cfg.name
         self._sessions: dict[str, _Session] = {}
         self._free: list[int] = list(range(self.n_pages - 1, 0, -1))
         # page refcounts; an absent key means 1 (every allocated page
@@ -552,8 +572,13 @@ class SessionStore:
                     self.tier.demote_session(lru, sess)
                 self._release(sess.pages)
             if len(self._free) < n:
-                # accounting drift: _attainable overcounted (the JAX store
-                # counts and records it here: Queue 1 item 8)
+                # accounting drift: _attainable promised pages the ladder
+                # could not deliver — counted and flight-recorded, so a
+                # refcount bug shows as telemetry, not as re-prefills
+                KV_ALLOC_DRIFT_TOTAL.inc(model=self.model)
+                FLIGHT.record("kv_alloc_drift", model=self.model,
+                              requested=n, free=len(self._free),
+                              sessions=len(self._sessions))
                 return None
             return [self._free.pop() for _ in range(n)]
 
@@ -749,6 +774,97 @@ def splice_session_prompt(tokenizer, sess_tokens: Sequence[int],
     return None
 
 
+class CompileRegistry:
+    """Per-engine ledger of every dispatched shape key, under the JAX
+    engine's names: each key remembers its first call's wall time and
+    how many later calls HIT it, and a sliding miss window trips the
+    RECOMPILE-STORM gauge when more than ``threshold`` new keys appear
+    inside ``window_s`` seconds. In the port nothing is compiled per
+    shape: a miss marks a first-shape call (the JAX engine's XLA
+    compile), so the ledger and the exposition stay the JAX package's on
+    the same call sequence."""
+
+    def __init__(self, model: str, window_s: float = 120.0,
+                 threshold: int = 4):
+        self.model = model
+        self.window_s = window_s
+        self.threshold = threshold
+        self._lock = named_lock("cache.compile")
+        self._shapes: dict[tuple, dict] = {}
+        self._miss_times: list[float] = []
+        self.hits = 0
+        self.misses = 0
+        self.storm = False
+        self.storms_total = 0
+
+    def record(self, shape: tuple, wall_ms: float) -> bool:
+        """Record one dispatch; returns True on a MISS (first sight of
+        this shape key)."""
+        from quoracle_tpu_torch.infra.telemetry import (
+            COMPILE_HITS, COMPILE_MISSES,
+        )
+        now = time.monotonic()
+        with self._lock:
+            entry = self._shapes.get(shape)
+            if entry is None:
+                self._shapes[shape] = {
+                    "shape": shape, "compile_ms": round(wall_ms, 1),
+                    "ts": time.time(), "hits": 0,
+                }
+                self.misses += 1
+                self._miss_times.append(now)
+                miss = True
+            else:
+                entry["hits"] += 1
+                self.hits += 1
+                miss = False
+            self._refresh_locked(now)
+        (COMPILE_MISSES if miss else COMPILE_HITS).inc(model=self.model)
+        return miss
+
+    def _refresh_locked(self, now: float) -> None:
+        from quoracle_tpu_torch.infra.telemetry import (
+            COMPILE_MISSES_IN_WINDOW, COMPILE_STORM,
+        )
+        self._miss_times = [t for t in self._miss_times
+                            if now - t <= self.window_s]
+        n = len(self._miss_times)
+        storm = n >= self.threshold
+        COMPILE_MISSES_IN_WINDOW.set(n, model=self.model)
+        COMPILE_STORM.set(1.0 if storm else 0.0, model=self.model)
+        if storm and not self.storm:
+            self.storms_total += 1
+            FLIGHT.record("compile_storm", model=self.model,
+                          misses_in_window=n, window_s=self.window_s)
+        self.storm = storm
+
+    def refresh(self) -> None:
+        """Re-evaluate the storm window against the clock (a collector
+        hook: a storm clears at the next scrape with no new dispatch)."""
+        with self._lock:
+            self._refresh_locked(time.monotonic())
+
+    def snapshot(self, max_shapes: int = 32) -> dict:
+        """Totals, hit rate, storm state and the costliest shape keys."""
+        with self._lock:
+            shapes = sorted(self._shapes.values(),
+                            key=lambda e: -e["compile_ms"])[:max_shapes]
+            total = self.hits + self.misses
+            return {
+                "hits": self.hits,
+                "misses": self.misses,
+                "hit_rate": round(self.hits / total, 4) if total else None,
+                "n_shapes": len(self._shapes),
+                "storm": self.storm,
+                "storms_total": self.storms_total,
+                "misses_in_window": len(self._miss_times),
+                "window_s": self.window_s,
+                "threshold": self.threshold,
+                "shapes": [{**e, "shape": "x".join(map(str, e["shape"]))}
+                           for e in shapes],
+            }
+
+
 class GenerateEngine:
     """Stateful serving wrapper around the functional core for ONE model:
     params on one device, shape bucketing, the paged session store, and a
@@ -771,6 +887,10 @@ class GenerateEngine:
         self.quantize_weights = bool(quantize_weights)
         self.quantize_kv = bool(quantize_kv)
         self.params = params.to(self.device)
+        # the roofline's weight stream and the int8 savings read the
+        # weights as given, before quantization
+        self._raw_param_dtype = self.params.dtype
+        self._raw_param_bytes = params_nbytes(self.params)
         if self.quantize_weights:
             self.params = quantize_params(self.params, cfg)
         self.tokenizer = tokenizer
@@ -779,7 +899,7 @@ class GenerateEngine:
                                     if b <= self.max_seq)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
-        self._rng_lock = threading.Lock()
+        self._rng_lock = named_lock("engine.rng")
         # KV dtype follows the params (bf16 serving, fp32 parity tests);
         # an int8 pool keeps scales beside its pages, and the dense working
         # caches stay at the params dtype
@@ -791,19 +911,30 @@ class GenerateEngine:
         self.sessions = SessionStore(
             max_tokens=max(PAGE, min(session_max_bytes // token_bytes,
                                      32 * self.max_seq)))
+        self.sessions.model = cfg.name    # metric label
         # sessioned calls (lookup, allocation, pool writes, store-back)
         # are one atomic unit per engine
-        self._paged_lock = threading.Lock()
+        self._paged_lock = named_lock("engine.paged")
         # Cross-session prefix sharing through the radix prefix cache
         # (SessionStore.match_prefix / insert_prefix): on by default for
         # full-attention models, as in the JAX engine; the flag gates both
         # the lookups and the store-back inserts
         self.prefix_sharing = True
-        self._grammar_lock = threading.Lock()
+        self._grammar_lock = named_lock("cache.grammar")
         self._json_cache: dict = {}
         self.last_prefill_tokens = 0   # suffix tokens actually computed
         self.last_prefill_s = 0.0
         self.last_decode_s = 0.0
+        # first-shape ledger and padding-waste counts (real chunk tokens
+        # against the device slots the chosen path processed)
+        self.compiles = CompileRegistry(cfg.name)
+        self.pad_real_tokens = 0
+        self.pad_padded_tokens = 0
+        self.pad_ticks = 0
+        # per-call hand-off from _run_unified to _record_telemetry /
+        # _note_padding; thread-local, so a sessionless call running
+        # beside a sessioned chunk cannot take its shape key
+        self._pending = threading.local()
         # Paged-tier gates (max prompt tokens of the batch): MEASURED data
         # from a calibration file (utils/calibration.py, env
         # QUORACLE_PAGED_CALIB), as in the JAX engine. No file: the direct
@@ -820,6 +951,19 @@ class GenerateEngine:
             # (the int8 ragged kernel on the card, its twin on the CPU),
             # whatever the gates say; gather stays the fallback
             self.unified_min_tokens = 0
+            from quoracle_tpu_torch.infra.telemetry import (
+                QUANT_KV_BYTES_PER_TOKEN,
+            )
+            QUANT_KV_BYTES_PER_TOKEN.set(float(token_bytes),
+                                         model=cfg.name)
+        if self.quantize_weights:
+            from quoracle_tpu_torch.infra.telemetry import (
+                QUANT_BYTES_SAVED_TOTAL,
+            )
+            QUANT_BYTES_SAVED_TOTAL.inc(
+                max(0, self._raw_param_bytes
+                    - params_nbytes(self.params)),
+                model=cfg.name, tier="weights")
         # equality/fallback seams of the JAX engine: pin the gather tier
         # (decode, and with it unified) or the gather prefill
         self._force_gather_decode = False
@@ -1148,12 +1292,16 @@ class GenerateEngine:
                         # and must run through the chunk forward
                         cap = (len(prompts[i]) - 1 if vk is None
                                else len(prompts[i]) - vk[i])
+                        t_pl = time.monotonic()
                         if self.sessions.tier is not None:
                             # a tiered lookup may page blocks into the
                             # pool, which must exist first
                             self._ensure_pool()
                         d = (self.sessions.match_prefix(prompts[i], cap)
                              if cap > 0 else None)
+                        PREFIX_LOOKUP_MS.observe(
+                            (time.monotonic() - t_pl) * 1000,
+                            model=cfg.name)
                         if d is not None:
                             sess_rows[i] = d
                             reuse_abs[i] = len(d.tokens)
@@ -1188,6 +1336,9 @@ class GenerateEngine:
                               self.prompt_buckets) + max_new
         page = self.sessions.page
         maxp = -(-cache_len // page)      # pages per row (paged path)
+        if paged:
+            # the paged extent: the shape key and roofline context
+            cache_len = maxp * page
 
         tokens = np.full((B, T), self.tokenizer.pad_id, np.int32)
         pre_arr = np.zeros((B,), np.int32)
@@ -1265,6 +1416,35 @@ class GenerateEngine:
         self.last_prefill_s = t_prefill - t0
         self.last_decode_s = now - t_prefill
         latency = now - t0
+        # padding waste: chunk-token slots the device processed this call
+        # against its real tokens (the unified tier's flat token budget
+        # replaces the [B, T] rectangle)
+        padded_toks = getattr(self._pending, "padded_tokens", None)
+        self._pending.padded_tokens = None
+        self._note_padding(sum(max(1, len(s)) for s in suffixes),
+                           B * T if padded_toks is None else padded_toks)
+        # chip-ms: each phase's measured wall split across the rows by
+        # real tokens, padding on the overhead key; reads the row keys
+        # the batcher declared on this thread, host counts only
+        chip_ms_rows = costobs.charge_step(
+            self, n=n,
+            prefill_weights=([max(1, len(s)) for s in suffixes[:n]]
+                             if vrun is None else [int(k) for k in vk]),
+            decode_weights=[int(n_emitted[i]) for i in range(n)],
+            padded_prefill=(B * T if padded_toks is None
+                            else padded_toks),
+            padded_decode=(B * vrun[1] if vrun is not None
+                           else B * max_new),
+            cache_len=cache_len, verify=vrun is not None,
+            prefill_bucket=vrun[1] if vrun is not None else T,
+            decode_bucket=max_new)
+        # liveness: tokens the device produced this call
+        introspect.beat(f"engine.tokens:{cfg.name}",
+                        sum(int(n_emitted[i]) for i in range(n)))
+        self._record_telemetry(n, B, T, cache_len,
+                               vrun[1] if vrun is not None else max_new,
+                               "verify" if vrun is not None else paged,
+                               n_emitted, latency)
 
         if verify is not None:
             vids, vprobs = vout
@@ -1275,6 +1455,7 @@ class GenerateEngine:
                 "probs": (np.asarray(vprobs[i, :vk[i]], np.float32)
                           if vprobs is not None else None),
                 "n_cached": reuse_abs[i],
+                "chip_ms": chip_ms_rows[i],
             } for i in range(n)]
 
         stop_set = {cfg.eos_token_id, *cfg.stop_token_ids}
@@ -1299,8 +1480,78 @@ class GenerateEngine:
                 json_state=(int(jstate_f[i]) - grammar_bases[i]
                             if constrain_json is not None
                             and constrain_json[i] else -1),
+                chip_ms=chip_ms_rows[i],
             ))
         return results
+
+    def _record_telemetry(self, n: int, B: int, T: int, cache_len: int,
+                          max_new: int, paged, n_emitted,
+                          latency: float) -> None:
+        """Per-call observations: device phase walls, per-wave prefill
+        token throughput, per-emitted-token decode time, and the call's
+        shape key in the first-shape ledger (a first sight emits the
+        ``generate.first_shape_compile`` span). Pure observation of host
+        counts: no RNG, no device work."""
+        name = self.cfg.name
+        PREFILL_MS.observe(self.last_prefill_s * 1000, model=name)
+        DECODE_MS.observe(self.last_decode_s * 1000, model=name)
+        if self.last_prefill_s > 0 and self.last_prefill_tokens:
+            PREFILL_TOKENS_PER_S.observe(
+                self.last_prefill_tokens / self.last_prefill_s, model=name)
+        steps = max((int(n_emitted[i]) for i in range(n)), default=0)
+        if steps > 0 and self.last_decode_s > 0:
+            DECODE_STEP_MS.observe(self.last_decode_s * 1000 / steps,
+                                   model=name)
+        # the unified tier keys its calls on (flat token budget, table
+        # width, decode bound), as the JAX engine keys its programs
+        shape = getattr(self._pending, "shape_key", None)
+        self._pending.shape_key = None
+        if shape is None:
+            shape = (B, T, cache_len, max_new, paged)
+        first = self.compiles.record(shape, latency * 1000)
+        if first:
+            JIT_COMPILES.inc(model=name)
+            if self.quantize_kv:
+                from quoracle_tpu_torch.infra.telemetry import (
+                    QUANT_DEQUANT_COMPILES_TOTAL,
+                )
+                QUANT_DEQUANT_COMPILES_TOTAL.inc(model=name)
+        if first and TRACER.active():
+            # only while a sink listens: with none, no span is built
+            TRACER.emit(
+                "generate.first_shape_compile", latency * 1000,
+                model=name, phase="compile",
+                shape=f"B{B}xT{T}xC{cache_len}xN{max_new}"
+                      + ("p" if paged else ""))
+
+    def _note_padding(self, real: int, padded: int) -> None:
+        """Account one call's chunk-token padding waste: ``real`` tokens
+        the caller submitted against ``padded`` device slots the chosen
+        path processed ([B·T] for the bucketed paths, the flat token
+        budget for the unified tier)."""
+        from quoracle_tpu_torch.infra.telemetry import (
+            SCHED_PAD_WASTE_RATIO, SCHED_PADDED_TOKENS_TOTAL,
+            SCHED_REAL_TOKENS_TOTAL,
+        )
+        name = self.cfg.name
+        self.pad_real_tokens += int(real)
+        self.pad_padded_tokens += int(padded)
+        self.pad_ticks += 1
+        SCHED_REAL_TOKENS_TOTAL.inc(int(real), model=name)
+        SCHED_PADDED_TOKENS_TOTAL.inc(int(padded), model=name)
+        SCHED_PAD_WASTE_RATIO.set(
+            (padded - real) / padded if padded else 0.0, model=name)
+
+    def padding_stats(self) -> dict:
+        """Cumulative padding-waste view: what raggedness reclaims."""
+        padded = self.pad_padded_tokens
+        return {
+            "ticks": self.pad_ticks,
+            "real_tokens": self.pad_real_tokens,
+            "padded_tokens": padded,
+            "waste_ratio": (round(1 - self.pad_real_tokens / padded, 4)
+                            if padded else None),
+        }
 
     def _run_dense(self, tokens, chunk_arr, cache_len, samp_np, jstate_np,
                    json_table, generator, max_new):
@@ -1931,6 +2182,10 @@ class GenerateEngine:
                 widx[i] = cur + np.clip(
                     s - int(k_arr[i]) + np.arange(kmax), 0, s - 1)
             cur += nb * TQ
+        self._pending.padded_tokens = TB
+        self._pending.shape_key = (
+            ("ragged_verify", TB, maxp_p2, verify[1]) if verify is not None
+            else ("ragged", TB, maxp_p2, max_new))
 
         def put(a):
             return torch.as_tensor(a, device=dev)

@@ -29,15 +29,21 @@ every pool member, as in the JAX backend: eviction demotes sessions to
 host memory, a touch restores them by page-in, prefix blocks persist to a
 disk store a restarted process warms from; ``kv_stats`` and
 ``prefetch_sessions`` report and warm them.
-``MockBackend`` is the scripted test backend. Left for later slices: VLM
-rows.
+Observability as in the JAX backend: each member's slice of a round runs
+under a ``backend.member`` span, parented on the caller's span (the
+consensus round) across the member-thread hop, with the member's phase
+walls emitted as retroactive ``generate.prefill``/``generate.decode``
+spans; the rows carry their chip-ms keys (``task_id``, ``decide``, tenant
+and class) to the engine's charge site, and ``QueryResult.chip_ms`` is
+the row's charge. ``MockBackend`` is the scripted test backend. Left for
+later slices: VLM rows, the event bus (``attach_bus``) and the mock's
+fault-injection seam and span (Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
-import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor, wait
 from typing import Callable, Optional, Sequence
@@ -45,7 +51,10 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from quoracle_tpu_torch.infra import costobs
+from quoracle_tpu_torch.infra.locks import named_lock
 from quoracle_tpu_torch.infra.resources import effective_headroom_fraction
+from quoracle_tpu_torch.infra.telemetry import TRACER
 from quoracle_tpu_torch.models import loader
 from quoracle_tpu_torch.models.config import OUTPUT_FLOOR, get_model_config
 from quoracle_tpu_torch.models.embeddings import (
@@ -66,8 +75,19 @@ from quoracle_tpu_torch.models.transformer import init_params
 from quoracle_tpu_torch.serving.admission import (
     AdmissionController, AdmissionError, DeadlineExceededError,
 )
-from quoracle_tpu_torch.serving.qos import QoSConfig, WeightedFairPolicy
+from quoracle_tpu_torch.serving.qos import (
+    QoSConfig, WeightedFairPolicy, class_name,
+)
 from quoracle_tpu_torch.serving.slo import SLOTracker
+
+
+def _row_key(r: dict) -> tuple:
+    """Chip-ms attribution key of one generate-row dict: integer QoS
+    priorities render as class names, the budget plane's vocabulary."""
+    return (str(r.get("tenant") or "-"),
+            class_name(r.get("priority") if r.get("priority") is not None
+                       else 1),
+            str(r.get("task_id") or "-"), str(r.get("decide") or "-"))
 
 
 @dataclasses.dataclass
@@ -78,9 +98,11 @@ class QueryRequest:
     continuous batcher at admission (and by its admission controller).
     ``priority`` orders the baton batcher's per-submission retry and,
     under ``qos``, the weighted-fair queue and the controller's shed
-    ladder, which also reads ``tenant``; ``task_id`` and ``decide`` ride
-    on the built rows; ``trace`` and ``tree`` are kept so the dataclass
-    matches the JAX package's, and nothing reads them yet."""
+    ladder, which also reads ``tenant``; ``task_id`` and ``decide`` are
+    the row's chip-ms attribution keys, ``tree`` its tree context
+    (infra/treeobs.py); ``trace`` is a compact trace context
+    ({"trace_id", "span_id"}) a caller from another process stamps, kept
+    as in the JAX package. None of them changes what the row computes."""
     model_spec: str                    # "xla:llama-3-8b"
     messages: list[dict]               # chat messages (system injected)
     temperature: float = 1.0
@@ -109,8 +131,10 @@ class Usage:
 class QueryResult:
     """One row's answer. ``spec_rounds`` and ``spec_accepted_tokens``
     count the draft/verify rounds the row rode and the draft tokens the
-    target accepted (0 without speculation); ``chip_ms`` stays 0 until the
-    chip-economics ledger is ported."""
+    target accepted (0 without speculation); ``chip_ms`` is the row's
+    share of the measured device wall of the steps it rode
+    (infra/costobs.py; 0.0 with accounting off and on the batch-1
+    speculative decoder, which runs its own steps)."""
     model_spec: str
     text: str = ""
     usage: Usage = dataclasses.field(default_factory=Usage)
@@ -211,8 +235,8 @@ class _MemberBatcher:
 
     def __init__(self, engine: GenerateEngine):
         self.engine = engine
-        self._serve = threading.Lock()
-        self._plock = threading.Lock()
+        self._serve = named_lock("member.serve")
+        self._plock = named_lock("member.pending")
         # pending SUBMISSIONS (one per query() caller), not flattened rows:
         # a merged-batch failure can then retry per submission, keeping one
         # agent's pathological round from poisoning its neighbours'
@@ -258,6 +282,9 @@ class _MemberBatcher:
         if not live:
             return
         rows = [r for r, _ in live]
+        # declare the merged batch's chip-ms keys on the serving thread
+        # for the engine's charge site
+        costobs.set_row_keys([_row_key(r) for r in rows])
         gens = self.engine.generate(
             [r["prompt"] for r in rows],
             temperature=[r["temperature"] for r in rows],
@@ -594,19 +621,46 @@ class TorchBackend(ModelBackend):
             by_model.setdefault(r.model_spec, []).append(i)
         results: list[Optional[QueryResult]] = [None] * len(requests)
         groups = list(by_model.items())
+        # the caller's span (the consensus round) is thread-local to THIS
+        # thread: capture it here and rebind it in each member thread
+        parent = TRACER.current()
         if self.overlap and len(groups) > 1:
             with ThreadPoolExecutor(max_workers=len(groups),
                                     thread_name_prefix="pool-member") as ex:
                 list(ex.map(lambda g: self._query_member(
-                    g[0], g[1], requests, results), groups))
+                    g[0], g[1], requests, results, parent), groups))
         else:
             for spec, idxs in groups:
-                self._query_member(spec, idxs, requests, results)
+                self._query_member(spec, idxs, requests, results, parent)
         return [r for r in results if r is not None]
 
     def _query_member(self, spec: str, idxs: list[int],
                       requests: Sequence[QueryRequest],
-                      results: list[Optional[QueryResult]]) -> None:
+                      results: list[Optional[QueryResult]],
+                      parent=None) -> None:
+        """One member's slice of the round in a ``backend.member`` span
+        (rebinding ``parent``, the span captured on the query() thread).
+        The member's phase walls enter the trace retroactively from the
+        QueryResult timings (the fences live in generate.py)."""
+        with TRACER.use(parent):
+            with TRACER.span("backend.member", model=spec) as msp:
+                self._query_member_impl(spec, idxs, requests, results)
+                done = [results[i] for i in idxs
+                        if results[i] is not None and results[i].ok]
+                msp.attrs.update(
+                    n_rows=len(idxs),
+                    cached_tokens=sum(r.cached_tokens for r in done))
+                if done and (done[0].prefill_ms or done[0].decode_ms):
+                    # phase timings are per batch (the same for all the
+                    # member's rows): one retroactive span per phase
+                    TRACER.emit("generate.prefill", done[0].prefill_ms,
+                                parent=msp, phase="prefill", model=spec)
+                    TRACER.emit("generate.decode", done[0].decode_ms,
+                                parent=msp, phase="decode", model=spec)
+
+    def _query_member_impl(self, spec: str, idxs: list[int],
+                           requests: Sequence[QueryRequest],
+                           results: list[Optional[QueryResult]]) -> None:
         """Writes into disjoint ``results`` positions, so concurrent
         member threads are safe."""
         if spec not in self.engines or spec not in self._batchers:
@@ -680,6 +734,7 @@ class TorchBackend(ModelBackend):
                 "priority": r.priority, "tenant": r.tenant,
                 "deadline_s": deadline_s,
                 "task_id": r.task_id, "decide": r.decide,
+                "tree": r.tree,
             })
             live_idxs.append(i)
         return rows, live_idxs
@@ -771,7 +826,9 @@ class TorchBackend(ModelBackend):
                 constrain_json=r["constrain_json"],
                 action_enum=r["action_enum"],
                 priority=r["priority"], tenant=r["tenant"],
-                deadline_s=r["deadline_s"]))
+                deadline_s=r["deadline_s"],
+                task_id=r.get("task_id"), decide=r.get("decide"),
+                tree=r.get("tree")))
         self._collect(spec, futs, live_idxs, results, t0)
 
     def _collect(self, spec: str, futs: list[Future], live_idxs: list[int],
@@ -813,7 +870,8 @@ class TorchBackend(ModelBackend):
                 latency_ms=latency_ms, prefill_ms=prefill_ms,
                 decode_ms=decode_ms, cached_tokens=g.n_cached_tokens,
                 spec_rounds=g.spec_rounds,
-                spec_accepted_tokens=g.spec_accepted_tokens)
+                spec_accepted_tokens=g.spec_accepted_tokens,
+                chip_ms=g.chip_ms)
 
     def embed(self, texts: Sequence[str]) -> list[np.ndarray]:
         return self.embedder.embed(texts)

@@ -54,10 +54,17 @@ thread in PyTorch, so the loop pins the device of the engine's weights
 before its first chunk; every forward it reaches runs under the engine's
 own ``torch.no_grad`` decorators. A row resuming a hibernated session
 warms it at submit (``engine.prefetch_session``, tiered KV), overlapping
-the page-in with its queue wait. Left out of this copy, each marked where
-it stood: the tracer spans, wait clocks, tree, fleet and cost attribution
-and the flight-recorder records (Queue 1 item 8), and the fault-injection
-tick (item 9).
+the page-in with its queue wait.
+
+Observability rides the loop as in the JAX batcher: the queue-wait,
+sampled decode-tick and decode spans (only while a tracer sink listens),
+the row's wait clock (infra/introspect.py) and heartbeats, the chip-ms
+row keys the engine's charge site consumes (infra/costobs.py), the
+tenant's error budget, the tree node's wait rollup (infra/treeobs.py)
+and the flight-recorder records of admits, retires, sheds, deadline
+drops, row failures and speculator errors. None of it touches what a row
+computes. Left out of this copy: the fault-injection tick (Queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -66,13 +73,16 @@ import dataclasses
 import threading
 import time
 from concurrent.futures import Future
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 
+from quoracle_tpu_torch.infra import costobs, fleetobs, introspect, treeobs
+from quoracle_tpu_torch.infra.flightrec import FLIGHT
+from quoracle_tpu_torch.infra.locks import named_lock
 from quoracle_tpu_torch.infra.telemetry import (
     QOS_ADMIT_WAIT_MS, QOS_SHED_TOTAL, SCHED_ADMIT_WAIT_MS,
-    SCHED_QUEUE_DEPTH, SCHED_ROWS_TOTAL, SCHED_SLOTS_BUSY,
+    SCHED_QUEUE_DEPTH, SCHED_ROWS_TOTAL, SCHED_SLOTS_BUSY, TRACER,
 )
 from quoracle_tpu_torch.models.generate import (
     ContextOverflowError, GenResult,
@@ -112,6 +122,22 @@ class _Row:
     spec_rounds: int = 0
     spec_drafted: int = 0
     spec_accepted: int = 0
+    # the submitter's trace context: queue-wait and decode spans emitted
+    # from the worker thread parent onto it; t_admit anchors the decode
+    # span so queue wait is never counted twice
+    trace: Optional[Any] = None
+    t_admit: float = 0.0
+    # chip economics: task/decide attribution keys from the consensus
+    # layer, and this row's share of measured device wall over its chunks
+    task_id: Optional[str] = None
+    decide: Optional[str] = None
+    chip_ms: float = 0.0
+    # wait-state decomposition: the row's integer-ns wait ledger, opened
+    # at submit while introspect is on (None when off), closed at retire
+    waits: Optional[Any] = None
+    # the submitting agent's tree context dict (treeobs), so the retire
+    # books this row's waits to its tree node
+    tree: Optional[dict] = None
 
 
 class ContinuousBatcher:
@@ -144,7 +170,7 @@ class ContinuousBatcher:
         self.speculator = speculator
         self._live: list[_Row] = []
         self._seq = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("batcher")
         self._wake = threading.Event()
         self._stop = False
         # health telemetry: monotonic progress/outcome counters. ``steps``
@@ -166,13 +192,17 @@ class ContinuousBatcher:
                action_enum: Optional[Sequence[str]] = None,
                priority=None, tenant: str = "default",
                deadline_s: Optional[float] = None,
-               initial_json_state: Optional[int] = None) -> Future:
+               initial_json_state: Optional[int] = None,
+               task_id: Optional[str] = None,
+               decide: Optional[str] = None,
+               tree: Optional[dict] = None) -> Future:
         """``initial_json_state`` resumes a constrained row MID-GRAMMAR:
         the prompt's tail already contains generated JSON and decoding
         must continue from that grammar state, not from the block start —
         exactly the state the chunked loop threads between its own chunks
-        via GenResult.json_state. (The JAX batcher also takes task, decide
-        and tree attribution keys here, for planes of Queue 1 item 8.)"""
+        via GenResult.json_state. ``task_id`` and ``decide`` are the
+        row's chip-ms attribution keys, ``tree`` its tree context
+        (treeobs); none of them changes what the row computes."""
         row = _Row(prompt=list(prompt), temperature=temperature,
                    top_p=top_p, max_new=max(1, max_new_tokens),
                    session_id=session_id or self._own_session_id(),
@@ -180,8 +210,16 @@ class ContinuousBatcher:
                    future=Future(), t_submit=time.monotonic(),
                    priority=int(coerce_priority(priority)),
                    tenant=tenant, deadline_s=deadline_s,
-                   json_state=initial_json_state)
+                   json_state=initial_json_state,
+                   task_id=task_id, decide=decide,
+                   tree=(tree if treeobs.enabled() else None),
+                   # trace capture only while something listens: the
+                   # untraced fast path allocates nothing
+                   trace=(fleetobs.TraceContext.current()
+                          if TRACER.active() else None))
         row.owns_session = session_id is None
+        if introspect.enabled():
+            row.waits = introspect.WaitClock()
         # Per-row admission check: an over-window prompt must fail ONLY
         # its own future — inside a shared chunk the engine's
         # ContextOverflowError would poison every live row's in-flight
@@ -195,17 +233,24 @@ class ContinuousBatcher:
         # reject on the row's OWN future, never silent queue growth. The
         # controller may clamp the class to the tenant's floor.
         if self.admission is not None:
+            t_adm = (time.monotonic_ns()
+                     if row.waits is not None else 0)
             try:
                 row.priority = int(self.admission.admit(
                     tenant=row.tenant, priority=row.priority,
                     deadline_s=row.deadline_s,
                     queue_depth=self._policy.qsize()))
+                if row.waits is not None:
+                    row.waits.note("admission",
+                                   time.monotonic_ns() - t_adm)
             except AdmissionError as e:
                 row.future.set_exception(e)
                 self.failed += 1
                 SCHED_ROWS_TOTAL.inc(model=self._model, status="failed")
-                # (the JAX batcher books the shed against the tenant's
-                # error budget here: Queue 1 item 8)
+                # a shed burns the tenant class's error budget
+                costobs.BUDGET.record(row.tenant,
+                                      class_name(row.priority),
+                                      ok=False, t=time.monotonic())
                 return row.future
         # Reject-after-closed UNDER THE LOCK: close() flips _stop under
         # this same lock, so a row can only enter the queue strictly
@@ -272,10 +317,11 @@ class ContinuousBatcher:
 
     def stats(self) -> dict:
         """Point-in-time health snapshot (racy reads of worker-owned
-        state — a snapshot, not an invariant). ``padding`` stays None
-        until the engine counts real against padded chunk tokens (the JAX
-        engine's ``padding_stats``, Queue 1 item 8); ``speculative`` is
-        the speculator's ``stats()``, None without one."""
+        state — a snapshot, not an invariant). ``padding`` is the
+        engine's real against padded chunk tokens (``padding_stats``);
+        ``speculative`` is the speculator's ``stats()``, None without
+        one."""
+        padding = getattr(self.engine, "padding_stats", None)
         return {
             "queued": self._policy.qsize(),
             "live": len(self._live),
@@ -286,7 +332,7 @@ class ContinuousBatcher:
             "failed": self.failed,
             "closed": self._stop,
             "qos": self._policy.snapshot(),
-            "padding": None,
+            "padding": padding() if padding is not None else None,
             "speculative": (self.speculator.stats()
                             if self.speculator is not None else None),
         }
@@ -302,6 +348,7 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------
 
     def _admit(self) -> None:
+        admitted = 0
         while len(self._live) < self.max_slots:
             row = self._policy.pop()
             if row is None:
@@ -321,16 +368,40 @@ class ContinuousBatcher:
                 SCHED_ROWS_TOTAL.inc(model=self._model, status="failed")
                 QOS_SHED_TOTAL.inc(cls=class_name(row.priority),
                                    tenant=row.tenant, reason="deadline")
-                # (the JAX batcher records the drop in its flight recorder
-                # and the tenant's error budget here: Queue 1 item 8)
+                FLIGHT.record("qos_deadline_drop", model=self._model,
+                              cls=class_name(row.priority),
+                              tenant=row.tenant,
+                              waited_ms=round(
+                                  (now - row.t_submit) * 1000, 1))
+                costobs.BUDGET.record(row.tenant,
+                                      class_name(row.priority),
+                                      ok=False, t=now)
                 continue
             wait_ms = (now - row.t_submit) * 1000
             SCHED_ADMIT_WAIT_MS.observe(wait_ms, model=self._model)
             QOS_ADMIT_WAIT_MS.observe(wait_ms,
                                       cls=class_name(row.priority))
-            # (the JAX batcher stamps the admit time and emits the row's
-            # queue-wait span here: Queue 1 item 8)
+            row.t_admit = now
+            if row.waits is not None:
+                # batch-queue wait = submit→admit minus the admission
+                # call's own wall (already booked as "admission")
+                row.waits.note(
+                    "queue",
+                    int(wait_ms * 1e6)
+                    - row.waits.waits.get("admission", 0))
+            if TRACER.active():
+                # retroactive queue-wait span, parented on the
+                # submitter's (possibly remote) trace context
+                TRACER.emit("sched.queue_wait", wait_ms,
+                            parent=row.trace,
+                            ts=time.time() - wait_ms / 1000.0,
+                            session=row.session_id, model=self._model,
+                            cls=class_name(row.priority))
             self._live.append(row)
+            admitted += 1
+        if admitted:
+            FLIGHT.record("sched_admit", model=self._model, rows=admitted,
+                          live=len(self._live))
         SCHED_QUEUE_DEPTH.set(self._policy.qsize(), model=self._model)
         SCHED_SLOTS_BUSY.set(len(self._live), model=self._model)
 
@@ -348,15 +419,27 @@ class ContinuousBatcher:
                 self._wake.wait(timeout=0.2)
                 self._wake.clear()
                 continue
-            # (the JAX batcher samples a decode-tick span here: Queue 1
-            # item 8)
+            # sampled decode-tick span: 1 in N ticks
+            # (QUORACLE_TRACE_DECODE_SAMPLE, keyed on the step counter —
+            # deterministic, no RNG) so decode traffic cannot starve
+            # consensus traces out of the bounded span rings
+            t_tick = (time.monotonic()
+                      if TRACER.active() and fleetobs.sample_tick(
+                          self.steps) else None)
+            n_rows = len(self._live)
             try:
                 self._live = self._step(self._live)
             except Exception:             # noqa: BLE001 — isolate, don't
                 self._live = self._isolate_failure(self._live)  # nuke all
+            if t_tick is not None:
+                TRACER.emit("sched.decode_tick",
+                            (time.monotonic() - t_tick) * 1000,
+                            model=self._model, rows=n_rows,
+                            step=self.steps)
             self.steps += 1               # watchdog progress signal
-            # (the JAX batcher beats its liveness heartbeat here, item 8,
-            # and fires its fault-injection tick, item 9)
+            introspect.beat(f"sched.tick:{self._model}")
+            # (the JAX batcher fires its fault-injection tick here:
+            # Queue 1 item 9)
         # worker exit (close()): the worker owns _live, so it fails any
         # remaining rows itself — close() only takes over when this
         # thread is confirmed dead
@@ -392,6 +475,8 @@ class ContinuousBatcher:
                 self._drop_row_sessions(row)
                 self.failed += 1
                 SCHED_ROWS_TOTAL.inc(model=self._model, status="failed")
+                FLIGHT.record("sched_row_failed", model=self._model,
+                              session=row.session_id, error=repr(e))
         return survivors
 
     def _drop_row_sessions(self, row) -> None:
@@ -420,19 +505,50 @@ class ContinuousBatcher:
                 spec_rounds=row.spec_rounds,
                 spec_drafted_tokens=row.spec_drafted,
                 spec_accepted_tokens=row.spec_accepted,
+                chip_ms=round(row.chip_ms, 6),
             ))
         self._drop_row_sessions(row)
         self.retired += 1
+        # error budget: a retire past its deadline is an SLO miss;
+        # everything else is budget-ok
+        t_done = time.monotonic()
+        costobs.BUDGET.record(
+            row.tenant, class_name(row.priority),
+            ok=not (row.deadline_s is not None and t_done > row.deadline_s),
+            t=t_done)
         SCHED_ROWS_TOTAL.inc(model=self._model, status="retired")
-        # (the JAX batcher books the retire against the tenant's error
-        # budget, closes the row's wait ledger, emits its decode span and
-        # records the retire in its flight recorder here: Queue 1 item 8)
+        # wait-state decomposition: close the row's wait ledger (named
+        # waits + exact remainder sum to its wall) and ride it on the
+        # decode span
+        closed = None
+        if row.waits is not None:
+            closed = row.waits.close()
+            introspect.record_row_waits(self._model, closed)
+            introspect.beat(f"sched.retired:{self._model}")
+            if row.tree is not None and treeobs.enabled():
+                treeobs.charge_row_waits(row.tree, closed)
+        if TRACER.active():
+            # one decode span per row lifetime, anchored at admission
+            dur_ms = (time.monotonic()
+                      - (row.t_admit or row.t_submit)) * 1000
+            extra = ({"wall_ns": closed["wall_ns"],
+                      "waits_ns": closed["waits_ns"]}
+                     if closed is not None else {})
+            TRACER.emit("sched.decode", dur_ms, parent=row.trace,
+                        ts=time.time() - dur_ms / 1000.0,
+                        session=row.session_id, model=self._model,
+                        tokens=len(row.emitted), finish=finish_reason,
+                        **extra)
         if self.slo is not None:
             # per-class tail tracking (serving/slo.py): feeds the
             # INTERACTIVE-burn → BATCH-demotion control loop
             self.slo.observe(
                 row.priority,
                 (time.monotonic() - row.t_submit) * 1000)
+        FLIGHT.record("sched_retire", model=self._model,
+                      session=row.session_id,
+                      n_tokens=len(row.emitted),
+                      finish=finish_reason)
 
     def _step(self, rows: list) -> list:
         """One decode tick. Under speculative serving the tick splits:
@@ -455,9 +571,15 @@ class ContinuousBatcher:
                 else:
                     spec.note_fallback(reason)
             if spec_rows:
-                # (the JAX batcher books the round's wall into the rows'
-                # wait clocks here: Queue 1 item 8)
+                t_sp = (time.monotonic_ns()
+                        if any(r.waits is not None for r in spec_rows)
+                        else None)
+                if t_sp is not None:
+                    introspect.drain_inner_waits()
                 finishes, leftover = self._spec_step(spec_rows)
+                if t_sp is not None:
+                    self._book_step_waits(
+                        spec_rows, time.monotonic_ns() - t_sp)
                 if leftover:            # speculator failed mid-tick:
                     lids = set(map(id, leftover))   # decode those vanilla
                     spec_rows = [r for r in spec_rows
@@ -504,18 +626,44 @@ class ContinuousBatcher:
                     and spec.ineligible_reason(
                         len(r.prompt) + len(r.emitted), r.temperature,
                         r.top_p) is None]
-        except Exception:    # noqa: BLE001 — isolate, don't kill rows
+        except Exception as e:    # noqa: BLE001 — isolate, don't kill rows
             spec.note_fallback("error", len(active))
-            # (the JAX batcher records the error in its flight recorder
-            # here: Queue 1 item 8)
+            FLIGHT.record("spec_error", model=self._model, error=repr(e))
             leftover = [r for r in active if finishes.get(id(r)) is None]
             return finishes, leftover
         return finishes, []
+
+    def _row_key(self, row) -> tuple:
+        """Chip-ms attribution key: the integer priority renders as its
+        QoS class name, the budget plane's vocabulary."""
+        return (str(row.tenant or "-"), class_name(row.priority),
+                str(row.task_id or "-"), str(row.decide or "-"))
+
+    def _book_step_waits(self, rows: list, step_ns: int) -> None:
+        """Partition one engine call's wall across its rows' wait
+        ledgers. Every row waits the WHOLE call, so each is booked the
+        full wall — split into the KV-restore and contended-lock walls
+        this thread accumulated inside the call, the rest as dispatch."""
+        restore_ns, lock_ns = introspect.drain_inner_waits()
+        dispatch_ns = max(0, step_ns - restore_ns - lock_ns)
+        for r in rows:
+            if r.waits is None:
+                continue
+            r.waits.note("dispatch", dispatch_ns)
+            r.waits.note("kv_restore", restore_ns)
+            r.waits.note("lock", lock_ns)
 
     def _plain_step(self, rows: list) -> list:
         prompts = [r.prompt + r.emitted for r in rows]
         budgets = [min(self.chunk, r.max_new - len(r.emitted))
                    for r in rows]
+        t_step = (time.monotonic_ns()
+                  if any(r.waits is not None for r in rows) else None)
+        if t_step is not None:
+            introspect.drain_inner_waits()
+        # declare this chunk's attribution keys on the worker thread —
+        # the engine's charge site consumes them (one call, one set)
+        costobs.set_row_keys([self._row_key(r) for r in rows])
         results = self.engine.generate(
             prompts,
             temperature=[r.temperature for r in rows],
@@ -526,10 +674,13 @@ class ContinuousBatcher:
             action_enums=[r.action_enum for r in rows],
             initial_json_state=[r.json_state for r in rows],
         )
+        if t_step is not None:
+            self._book_step_waits(rows, time.monotonic_ns() - t_step)
         still = []
         for row, res, budget in zip(rows, results, budgets):
             if row.n_cached_first is None:
                 row.n_cached_first = res.n_cached_tokens
+            row.chip_ms += res.chip_ms
             row.emitted.extend(res.token_ids)
             row.json_state = (res.json_state
                               if res.json_state >= 0 else row.json_state)

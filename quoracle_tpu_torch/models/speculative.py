@@ -42,22 +42,25 @@ Two integrations, as in the JAX package:
   on the unified tier) per round, adaptive K with vanilla fallback.
 
 The draft and the target must share one tokenizer and vocab, and both
-must use full attention. Left out of this copy, each marked where it
-stood: the chip-economics charges (``costobs``) and the flight-recorder
-records (Queue 1 item 8), and the training-flywheel capture of rounds
-(``CAPTURE``, ``spec_example``; item 11).
+must use full attention. The speculator declares the rows' chip-ms keys
+before each engine call (``costobs``), adds each call's charge to the
+rows, and records re-probes and disengages in the flight recorder. Left
+out of this copy: the training-flywheel capture of rounds (``CAPTURE``,
+``spec_example``; Queue 1 item 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from quoracle_tpu_torch.infra import costobs
+from quoracle_tpu_torch.infra.flightrec import FLIGHT
+from quoracle_tpu_torch.infra.locks import named_lock
 from quoracle_tpu_torch.infra.telemetry import (
     SPEC_ACCEPTANCE, SPEC_ACCEPTED, SPEC_DRAFTED, SPEC_ENGAGED,
     SPEC_FALLBACK_TOTAL, SPEC_K, SPEC_ROUNDS, SPEC_TOKENS_PER_ROUND,
@@ -70,6 +73,16 @@ from quoracle_tpu_torch.models.sampling import sample_tokens
 from quoracle_tpu_torch.models.transformer import (
     KVCache, Transformer, forward_hidden, init_cache, project_logits,
 )
+
+
+def _row_keys(rows) -> list:
+    """Chip-ms attribution keys for batcher rows: integer QoS priorities
+    render as class names, the budget plane's vocabulary."""
+    from quoracle_tpu_torch.serving.qos import class_name
+    return [(str(getattr(r, "tenant", None) or "-"),
+             class_name(getattr(r, "priority", 1)),
+             str(getattr(r, "task_id", None) or "-"),
+             str(getattr(r, "decide", None) or "-")) for r in rows]
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -132,7 +145,7 @@ class SpeculativeDecoder:
                               else draft_params.dtype)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
-        self.lock = threading.Lock()
+        self.lock = named_lock("spec.decoder")
         self._sessions: dict = {}
         self._grammar_cache: dict = {}
 
@@ -552,7 +565,7 @@ class BatchedSpeculator:
         self.ewma_alpha = float(ewma_alpha)
         self.reprobe_after = int(reprobe_after)
         self._rng_np = np.random.default_rng(seed)
-        self._lock = threading.Lock()
+        self._lock = named_lock("spec.adaptive")
         self._k = self.k_init
         self._engaged = True
         self._ewma: Optional[float] = None
@@ -620,8 +633,7 @@ class BatchedSpeculator:
             self.reprobes += 1
         SPEC_ENGAGED.set(1.0, model=self.model)
         SPEC_K.set(self._k, model=self.model)
-        # (the JAX speculator records the re-probe in its flight recorder
-        # here: Queue 1 item 8)
+        FLIGHT.record("spec_reprobe", model=self.model, k=self.k_min)
 
     def drop_session(self, session_id: str) -> None:
         """Release the DRAFT engine's session for a retired row (the
@@ -677,8 +689,9 @@ class BatchedSpeculator:
         eos = self.draft.cfg.eos_token_id
         ctxs = [list(r.prompt) + list(r.emitted) for r in rows]
         k_req = [max(1, min(K, r.max_new - len(r.emitted))) for r in rows]
-        # (the JAX speculator declares the rows' chip-economics keys before
-        # each engine call here: Queue 1 item 8)
+        # chip-ms keys: the active set shrinks between rounds, so they
+        # are declared per engine call (one declaration, one call)
+        costobs.set_row_keys(_row_keys(rows))
         drafts = self.draft.generate(
             ctxs, temperature=0.0, top_p=1.0, max_new_tokens=k_req,
             session_ids=[r.session_id for r in rows],
@@ -686,7 +699,8 @@ class BatchedSpeculator:
             action_enums=[r.action_enum for r in rows],
             initial_json_state=[r.json_state for r in rows])
         proposals = []
-        for g, kq in zip(drafts, k_req):
+        for r, g, kq in zip(rows, drafts, k_req):
+            r.chip_ms = getattr(r, "chip_ms", 0.0) + g.chip_ms
             p = list(g.token_ids)
             if g.finish_reason == "stop" and len(p) < kq:
                 # the engine pops the terminal stop id; re-propose A stop
@@ -695,6 +709,7 @@ class BatchedSpeculator:
                 p.append(eos)
             proposals.append(p or [eos])
         need_probs = any(r.temperature > 0 for r in rows)
+        costobs.set_row_keys(_row_keys(rows))
         vres = self.target.verify_chunk(
             [c + p[:-1] for c, p in zip(ctxs, proposals)],
             [r.session_id for r in rows],
@@ -709,6 +724,7 @@ class BatchedSpeculator:
         drafted = accepted = committed_total = 0
         for r, props, v in zip(rows, proposals, vres):
             ids, probs = v["ids"], v["probs"]
+            r.chip_ms = getattr(r, "chip_ms", 0.0) + v.get("chip_ms", 0.0)
             if r.n_cached_first is None:
                 r.n_cached_first = v["n_cached"]
             j = 0
@@ -808,9 +824,9 @@ class BatchedSpeculator:
             self._vanilla_ticks = 0
             self._ewma = None
             self.disengages += 1
-            self._k = self.k_init
-            # (the JAX speculator records the disengage, with the EWMA and
-            # the K it had, in its flight recorder here: Queue 1 item 8)
+            k_was, self._k = self._k, self.k_init
+            FLIGHT.record("spec_disengage", model=self.model,
+                          ewma=round(ewma, 3), k=k_was)
             return True
         if ewma < self.shrink_below and self._k > self.k_min:
             self._k -= 1

@@ -23,21 +23,23 @@ Signals (refreshed at most every ``refresh_s``, so admit() stays cheap):
   on the CPU, where the signal simply doesn't fire).
 
 Every decision lands in telemetry (``quoracle_qos_{admitted,shed}_total``
-by class/tenant/reason). Left out, each marked where it stood: the
-fault-injection seam of the signal refresh (Queue 1 item 9), the
-error-budget burn signals (``SignalSnapshot.budget_burn`` is ``{}``,
-what the JAX package gives with its cost plane off), the liveness
-heartbeat and the flight-recorder record of every shed (Queue 1 item 8).
+by class/tenant/reason), every shed in the flight recorder (``qos_shed``),
+and each admission beats the ``qos.admit`` heartbeat.
+``SignalSnapshot.budget_burn`` carries the cost plane's error-budget burn
+signals (infra/costobs.py ``BUDGET``), observed only. Left out: the
+fault-injection seam of the signal refresh (Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 import zlib
 from typing import Any, Callable, Optional
 
+from quoracle_tpu_torch.infra import costobs, introspect
+from quoracle_tpu_torch.infra.flightrec import FLIGHT
+from quoracle_tpu_torch.infra.locks import named_lock
 from quoracle_tpu_torch.infra.telemetry import (
     QOS_ADMITTED_TOTAL, QOS_SHED_TOTAL, SCHED_ADMIT_WAIT_MS, quantile,
 )
@@ -144,9 +146,8 @@ class SignalSnapshot:
     admitted: int
     shed: int
     # OBSERVED signal only: worst error-budget burn rate per priority
-    # class from the JAX package's cost plane, which the port does not
-    # have yet (Queue 1 item 8), so always {} here. The shed ladder does
-    # NOT read it.
+    # class from the cost plane (infra/costobs.py); {} with the plane
+    # off. The shed ladder does NOT read it.
     budget_burn: dict = dataclasses.field(default_factory=dict)
 
     def age_s(self, now: Optional[float] = None) -> float:
@@ -195,7 +196,7 @@ class AdmissionController:
                  model: str = ""):
         self.config = config or AdmissionConfig()
         self.model = model
-        self._lock = threading.Lock()
+        self._lock = named_lock("qos.admission")
         self._tenants: dict[str, TenantPolicy] = {}
         self._buckets: dict[str, Any] = {}
         for name, pol in (tenants or {}).items():
@@ -204,7 +205,7 @@ class AdmissionController:
         self._headroom_fn = headroom_fn
         self._depth_sources: dict[str, Callable[[], int]] = {}
         # cached signals (refreshed under _sig_lock, read without)
-        self._sig_lock = threading.Lock()
+        self._sig_lock = named_lock("qos.signals")
         self._t_refresh = 0.0
         self._t_hbm = 0.0
         self._wait_counts: Optional[list] = None
@@ -294,9 +295,7 @@ class AdmissionController:
                     self._t_refresh = 0.0
         self.refresh_signals(now0)
         depth = self.queue_depth()
-        # (the JAX package reads its error-budget burn signals here when
-        # its cost plane is on: Queue 1 item 8)
-        burn: dict = {}
+        burn = costobs.BUDGET.burn_signals() if costobs.enabled() else {}
         with self._sig_lock:
             return SignalSnapshot(
                 ts=now0, refreshed_ts=self._t_refresh,
@@ -382,8 +381,8 @@ class AdmissionController:
         with self._sig_lock:
             self.admitted += 1
         QOS_ADMITTED_TOTAL.inc(cls=cls.name.lower(), tenant=tenant)
-        # (the JAX package beats its liveness heartbeat "qos.admit" here:
-        # Queue 1 item 8)
+        # liveness: admissions flowing
+        introspect.beat("qos.admit")
         return cls
 
     def _shed(self, cls: Priority, tenant: str, depth: int,
@@ -400,8 +399,9 @@ class AdmissionController:
             self.shed += 1
         QOS_SHED_TOTAL.inc(cls=cls.name.lower(), tenant=tenant,
                            reason=reason)
-        # (the JAX package records a "qos_shed" flight-recorder event
-        # with retry_ms here: Queue 1 item 8)
+        FLIGHT.record("qos_shed", cls=cls.name.lower(), tenant=tenant,
+                      reason=reason, retry_after_ms=retry_ms,
+                      model=self.model)
 
     # -- reads -----------------------------------------------------------
 

@@ -26,19 +26,30 @@ decode engine lost mid-row can be replaced by adopting the same envelope
 elsewhere. The ledger lock is bookkeeping only; device work happens under
 the engines' own paged and store locks, taken after it or not at all.
 
-Left out of this copy: the ``CLUSTER_HANDOFF*`` instruments, the
-``kv_handoff_*`` flight records, the tracer spans and the int8 byte
-savings counter (Queue 1 item 8); the "handoff.export" fault seam, the
-wire envelope and the cluster that drives handoffs across replicas (item
-9). The envelope's ``trace`` and ``tree`` contexts stay None.
+Observability as in the JAX broker: the ``CLUSTER_HANDOFF*``
+instruments, the ``kv_handoff_export``/``_adopt``/``_reject`` flight
+records, the retroactive ``kv.export`` and ``kv.adopt`` spans (only while
+a tracer sink listens) and the int8 byte-savings counter. The envelope
+carries the exporting thread's trace and tree contexts (``trace``,
+``tree``), so the adopting side's spans and waits land in the same trace
+and tree node. Left out of this copy: the "handoff.export" fault seam,
+the wire envelope and the cluster that drives handoffs across replicas
+(Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from typing import Any, Optional
+
+from quoracle_tpu_torch.infra import fleetobs, treeobs
+from quoracle_tpu_torch.infra.flightrec import FLIGHT
+from quoracle_tpu_torch.infra.locks import named_lock
+from quoracle_tpu_torch.infra.telemetry import (
+    CLUSTER_HANDOFF_MS, CLUSTER_HANDOFFS_TOTAL, QUANT_BYTES_SAVED_TOTAL,
+    TRACER,
+)
 
 
 class HandoffError(RuntimeError):
@@ -66,8 +77,12 @@ class HandoffEnvelope:
     json_state: Optional[int] = None
     src_replica: str = ""
     ts: float = 0.0
-    trace: Optional[dict] = None          # tracing: Queue 1 item 8
-    tree: Optional[dict] = None           # tree lineage: Queue 1 item 8
+    # {"trace_id", "span_id"} of the exporting thread's span, so the
+    # adopting side's restore and decode spans land in the same trace
+    trace: Optional[dict] = None
+    # the owning agent's tree context (treeobs.TreeContext.to_dict), so
+    # the continuation books its waits to the same tree node
+    tree: Optional[dict] = None
 
     @property
     def n_tokens(self) -> int:
@@ -79,7 +94,7 @@ class KVHandoff:
     ledger of in-flight envelopes."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = named_lock("handoff")
         self._inflight: dict[str, HandoffEnvelope] = {}
         self.exports = 0
         self.adopts = 0
@@ -97,20 +112,42 @@ class KVHandoff:
             raise HandoffError(
                 f"engine {engine.cfg.name} has no KV tier attached",
                 reason="no_tier")
+        t0 = time.monotonic()
         with engine._paged_lock:
             entry = tier.export_session(session_id)
         if entry is None:
+            CLUSTER_HANDOFFS_TOTAL.inc(model=model_spec,
+                                       status="export_failed")
             raise HandoffError(
                 f"session {session_id!r} not exportable from "
                 f"{engine.cfg.name}", reason="export_failed")
+        ctx = fleetobs.TraceContext.current()
+        tctx = treeobs.current() if treeobs.enabled() else None
         env = HandoffEnvelope(
             session_id=session_id, model_spec=model_spec,
             signature=engine.kv_signature(), entry=entry,
             json_state=json_state, src_replica=src_replica,
-            ts=time.monotonic())
+            ts=time.monotonic(),
+            trace=ctx.to_dict() if ctx is not None else None,
+            tree=tctx.to_dict() if tctx is not None else None)
+        if getattr(entry, "k_scale", None) is not None:
+            # an int8 envelope ships about half its bf16 twin's bytes
+            payload = int(entry.k.nbytes) + int(entry.v.nbytes)
+            QUANT_BYTES_SAVED_TOTAL.inc(
+                max(0, 2 * payload - entry.nbytes),
+                model=model_spec, tier="handoff")
         with self._lock:
             self._inflight[self._key(model_spec, session_id)] = env
             self.exports += 1
+        export_ms = (time.monotonic() - t0) * 1000
+        FLIGHT.record("kv_handoff_export", model=model_spec,
+                      session=session_id, replica=src_replica,
+                      tokens=env.n_tokens, ms=round(export_ms, 2))
+        if TRACER.active():
+            TRACER.emit("kv.export", export_ms,
+                        ts=time.time() - export_ms / 1000.0,
+                        session=session_id, model=model_spec,
+                        replica=src_replica, tokens=env.n_tokens)
         return env
 
     def adopt(self, engine, env: HandoffEnvelope,
@@ -123,6 +160,12 @@ class KVHandoff:
         if sig != env.signature:
             with self._lock:
                 self.rejects += 1
+            CLUSTER_HANDOFFS_TOTAL.inc(model=env.model_spec,
+                                       status="signature_mismatch")
+            FLIGHT.record("kv_handoff_reject", model=env.model_spec,
+                          session=env.session_id,
+                          src_signature=env.signature, dst_signature=sig,
+                          replica=dst_replica)
             raise HandoffError(
                 f"KV signature mismatch: the source produced "
                 f"{env.signature!r}, the destination expects {sig!r}",
@@ -132,10 +175,28 @@ class KVHandoff:
             raise HandoffError(
                 f"destination engine {engine.cfg.name} has no KV tier",
                 reason="no_tier")
+        t0 = time.monotonic()
         tier.adopt_session(env.session_id, env.entry)
         engine.prefetch_session(env.session_id)
+        ms = (time.monotonic() - t0) * 1000
         with self._lock:
             self.adopts += 1
+        CLUSTER_HANDOFFS_TOTAL.inc(model=env.model_spec, status="ok")
+        CLUSTER_HANDOFF_MS.observe(
+            ms + max(0.0, (t0 - env.ts) * 1000), model=env.model_spec)
+        FLIGHT.record("kv_handoff_adopt", model=env.model_spec,
+                      session=env.session_id, replica=dst_replica,
+                      tokens=env.n_tokens, ms=round(ms, 2))
+        if TRACER.active():
+            # parent onto the exporting side's context when this thread
+            # carries none (the envelope's trace travelled with the pages)
+            TRACER.emit("kv.adopt", ms,
+                        parent=(TRACER.current()
+                                or fleetobs.TraceContext.from_dict(
+                                    env.trace)),
+                        ts=time.time() - ms / 1000.0,
+                        session=env.session_id, model=env.model_spec,
+                        replica=dst_replica, tokens=env.n_tokens)
 
     # -- ledger ------------------------------------------------------------
 
@@ -153,6 +214,7 @@ class KVHandoff:
     def note_replaced(self, model_spec: str) -> None:
         with self._lock:
             self.replaced += 1
+        CLUSTER_HANDOFFS_TOTAL.inc(model=model_spec, status="replaced")
 
     def forget(self, model_spec: str, session_id: str) -> None:
         """The row retired (or failed for good): drop its envelope."""

@@ -61,11 +61,15 @@ Disk writes never happen under those locks: demote and persist copy
 pages host-side and queue the npz write to a daemon spill writer;
 ``flush_spills`` drains it.
 
-Left out of this copy, each marked where it stood: the ``KV_*``
-instruments, the quantized byte-savings counter, the flight-recorder
-records, tracer spans and the cost and introspection hooks (Queue 1 item
-8); the fault-injection seams and the fleet prefix service's rung and
-publish target (item 9).
+Observability as in the JAX tier: the ``KV_*`` counters and the restore
+latency histogram, the int8 byte-savings counter of each tier move, the
+``kv_demote``/``kv_restore``/``kv_disk_spill``/``kv_disk_corrupt``
+flight records, the retroactive ``kv.restore`` span (only while a tracer
+sink listens), the restore's chip-ms charge (``costobs.charge_restore``)
+and its wait on the dispatching thread (``introspect.note_restore``).
+Left out of this copy, each marked where it stood: the fault-injection
+seams and the fleet prefix service's rung and publish target (Queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -83,6 +87,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from quoracle_tpu_torch.infra import costobs, introspect
+from quoracle_tpu_torch.infra.flightrec import FLIGHT
+from quoracle_tpu_torch.infra.locks import named_lock
+from quoracle_tpu_torch.infra.telemetry import (
+    KV_DEMOTES_TOTAL, KV_DISK_LOADS_TOTAL, KV_DISK_SPILLS_TOTAL,
+    KV_HOST_EVICTIONS_TOTAL, KV_RESTORE_MS, KV_RESTORES_TOTAL,
+    QUANT_BYTES_SAVED_TOTAL, TRACER,
+)
 from quoracle_tpu_torch.models.quant import entry_nbytes
 
 logger = logging.getLogger(__name__)
@@ -176,18 +188,19 @@ class HostPageStore:
     def shrink(self, spill_fn=None) -> None:
         """Evict LRU entries until under budget: prefix blocks first
         (spillable through ``spill_fn``), then sessions, oldest first
-        within each kind. (The JAX store counts each eviction in
-        ``KV_HOST_EVICTIONS_TOTAL`` here: Queue 1 item 8.)"""
+        within each kind."""
         while self.bytes > self.budget_bytes and self.prefixes:
             key, e = self.prefixes.popitem(last=False)
             self.bytes -= e.nbytes
             self.evicted_prefixes += 1
+            KV_HOST_EVICTIONS_TOTAL.inc(model=self.model, kind="prefix")
             if spill_fn is not None:
                 spill_fn(key, e)
         while self.bytes > self.budget_bytes and self.sessions:
             _, e = self.sessions.popitem(last=False)
             self.bytes -= e.nbytes
             self.evicted_sessions += 1
+            KV_HOST_EVICTIONS_TOTAL.inc(model=self.model, kind="session")
 
     def headroom(self) -> int:
         return max(0, self.budget_bytes - self.bytes)
@@ -234,7 +247,7 @@ class DiskPrefixStore:
         self.loads = 0
         self.corrupt = 0
         self.pruned = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("tier.disk")
         self._scan_entries = 0
         self._scan_bytes = 0
         self._scan_ts = 0.0
@@ -403,10 +416,13 @@ class DiskPrefixStore:
                 os.utime(path)            # LRU touch for budget pruning
             except OSError:
                 pass
+            KV_DISK_LOADS_TOTAL.inc(model=self.model, status="ok")
             return (k, v) if ks is None else (k, v, ks, vs)
         except Exception:                 # noqa: BLE001 — corrupt entry
             self.corrupt += 1
             logger.warning("corrupt disk prefix entry skipped: %s", path)
+            KV_DISK_LOADS_TOTAL.inc(model=self.model, status="corrupt")
+            FLIGHT.record("kv_disk_corrupt", path=path, model=self.model)
             try:
                 sz = os.path.getsize(path)
                 os.unlink(path)
@@ -522,13 +538,12 @@ class TierManager:
     def demote_session(self, key: str, sess) -> bool:
         """Copy a victim session's KV host-side before its pages release
         (called from SessionStore.alloc's ladder with both locks held).
-        The caller releases the pages: only the victim's references drop.
-        (The JAX tier counts, flight-records and books the int8 savings of
-        each demote here: Queue 1 item 8.)"""
+        The caller releases the pages: only the victim's references drop."""
         st = self.store
         pages = [p for p in sess.pages if p]
         if not pages or st.k is None:
             return False
+        t0 = time.monotonic()
         try:
             k, v, ks, vs = self._gather_host(pages)
         except Exception:                 # noqa: BLE001 — best-effort
@@ -539,6 +554,11 @@ class TierManager:
         self.host.put_session(key, entry,
                               spill_fn=self._spill_prefix_entry)
         self.demoted_sessions += 1
+        KV_DEMOTES_TOTAL.inc(model=self.model, kind="session")
+        self._note_bytes_saved("demote", entry)
+        FLIGHT.record("kv_demote", model=self.model, what="session",
+                      session=key, pages=len(pages),
+                      ms=round((time.monotonic() - t0) * 1000, 2))
         return True
 
     def export_session(self, key: str) -> Optional[_HostSession]:
@@ -584,10 +604,12 @@ class TierManager:
         """Page a hibernated session back into the pool and re-register it.
         Returns the live session, or None (no pages to be had, the entry
         gone, or a failed page-in: the caller re-prefills, which is always
-        correct). Assumes the engine's paged lock is held. (The JAX tier
-        fires its "kvtier.restore" fault seam first: Queue 1 item 9; and
-        after a restore counts it, times it, charges its cost and emits
-        its span: item 8.)"""
+        correct). Assumes the engine's paged lock is held. A restore is
+        counted, timed, charged to the model's ledger, booked as a
+        kv_restore wait on this thread, flight-recorded and, while a
+        tracer sink listens, emitted as a ``kv.restore`` span. (The JAX
+        tier fires its "kvtier.restore" fault seam first: Queue 1
+        item 9.)"""
         st = self.store
         with st.lock:
             e = self.host.sessions.get(key)
@@ -602,6 +624,7 @@ class TierManager:
             if e is None:                 # raced a discard
                 st._release(pages)
                 return None
+            t0 = time.monotonic()
             try:
                 self._scatter_device(pages, e.k, e.v, e.k_scale,
                                      e.v_scale)
@@ -615,6 +638,23 @@ class TierManager:
             sess = st.register_restored(key, list(e.tokens), pages,
                                         e.start_pos)
             self.restored_sessions += 1
+            ms = (time.monotonic() - t0) * 1000
+        KV_RESTORES_TOTAL.inc(model=self.model, kind="session",
+                              source="host")
+        KV_RESTORE_MS.observe(ms, model=self.model, kind="session")
+        costobs.charge_restore(self.model, ms, source="host")
+        # the restore wall waits on the DISPATCHING thread: the batcher
+        # books it against the step's rows; bytes feed the heartbeat
+        introspect.note_restore(ms, nbytes=int(e.k.nbytes)
+                                + int(e.v.nbytes))
+        FLIGHT.record("kv_restore", model=self.model, what="session",
+                      session=key, pages=len(pages), ms=round(ms, 2))
+        if TRACER.active():
+            # retroactive: the caller holds the store lock's caller's
+            # locks, so never a bound span
+            TRACER.emit("kv.restore", ms, ts=time.time() - ms / 1000.0,
+                        session=key, model=self.model,
+                        pages=len(pages))
         return sess
 
     # -- prefix-block tiering -------------------------------------------
@@ -632,14 +672,28 @@ class TierManager:
             finally:
                 self._spill_q.task_done()
 
+    def _note_bytes_saved(self, tier: str, entry) -> None:
+        """Int8 byte economy: each tier move of an int8 entry counts the
+        bf16-equivalent bytes it avoided holding or shipping
+        (2·payload − (payload + scales)). No-op for float entries."""
+        if entry.k.dtype != torch.int8:
+            return
+        payload = int(entry.k.nbytes) + int(entry.v.nbytes)
+        QUANT_BYTES_SAVED_TOTAL.inc(max(0, 2 * payload - entry.nbytes),
+                                    model=self.model, tier=tier)
+
     def _write_block(self, key: str, entry: _HostBlock) -> None:
         """The spill writer's side: the atomic, content-addressed disk
-        write, never under the store or paged locks. (The JAX tier counts
-        and flight-records each spill here, item 8, and publishes the
-        block to the fleet prefix service, item 9.)"""
-        if self.disk is not None:
-            self.disk.save(key, entry.tokens, entry.k, entry.v,
-                           entry.k_scale, entry.v_scale)
+        write, never under the store or paged locks. (The JAX tier also
+        publishes the block to the fleet prefix service: Queue 1
+        item 9.)"""
+        if self.disk is not None \
+                and self.disk.save(key, entry.tokens, entry.k, entry.v,
+                                   entry.k_scale, entry.v_scale):
+            KV_DISK_SPILLS_TOTAL.inc(model=self.model)
+            FLIGHT.record("kv_disk_spill", model=self.model,
+                          tokens=len(entry.tokens))
+            self._note_bytes_saved("disk_spill", entry)
 
     def _enqueue_spill(self, key: str, entry: _HostBlock) -> None:
         if self._spill_q is None:
@@ -684,6 +738,9 @@ class TierManager:
                             None if vs is None else vs[:, 0]),
             spill_fn=self._spill_prefix_entry)
         self.demoted_prefix_pages += 1
+        KV_DEMOTES_TOTAL.inc(model=self.model, kind="prefix")
+        FLIGHT.record("kv_demote", model=self.model, what="prefix",
+                      tokens=len(tokens))
 
     def persist_block(self, tokens: Sequence[int], page: int) -> None:
         """Insert-time persistence: a block newly cached in the radix tree
@@ -732,10 +789,12 @@ class TierManager:
                 break                     # do not thrash a tiny pool
             attempted.add(key)
             blk = self.host.get_prefix(key)
+            source = "host"
             if blk is None and self.disk is not None:
                 loaded = self.disk.load(key, prefix)
                 if loaded is not None:
                     blk = _HostBlock(prefix, *loaded)
+                    source = "disk"
             # (the JAX tier asks the fleet prefix service next: Queue 1
             # item 9)
             if blk is None:
@@ -756,6 +815,7 @@ class TierManager:
                 if shrinks > 8:
                     break
                 continue
+            t0 = time.monotonic()
             try:
                 self._scatter_device(
                     pages, blk.k[:, None], blk.v[:, None],
@@ -776,6 +836,16 @@ class TierManager:
             st._release(pages)
             restored += 1
             self.restored_prefix_pages += 1
+            ms = (time.monotonic() - t0) * 1000
+            KV_RESTORES_TOTAL.inc(model=self.model, kind="prefix",
+                                  source=source)
+            KV_RESTORE_MS.observe(ms, model=self.model, kind="prefix")
+            costobs.charge_restore(self.model, ms, source=source)
+            introspect.note_restore(ms, nbytes=int(blk.k.nbytes)
+                                    + int(blk.v.nbytes))
+        if restored:
+            FLIGHT.record("kv_restore", model=self.model, what="prefix",
+                          blocks=restored)
         return restored
 
     # -- reads -------------------------------------------------------------

@@ -17,19 +17,19 @@ inside:
   burns).
 
 The baton batcher (models/runtime.py) reads only the classes and their
-coercion. The JAX module's ``named_lock`` is a plain ``threading.Lock``
-here.
+coercion. The locks are the port's named locks (infra/locks.py), so a
+contended wait books into a row's ``lock`` wait.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-import threading
 import time
 from collections import deque
 from typing import Any, Callable, Optional
 
+from quoracle_tpu_torch.infra.locks import named_lock
 from quoracle_tpu_torch.infra.telemetry import QOS_QUEUE_DEPTH
 
 
@@ -116,7 +116,7 @@ class TokenBucket:
         self.burst = max(float(burst), 1.0)
         self._tokens = self.burst
         self._t_last = time.monotonic()
-        self._lock = threading.Lock()
+        self._lock = named_lock("qos.bucket")
 
     def _refill(self, now: float) -> None:
         self._tokens = min(self.burst,
@@ -208,7 +208,7 @@ class FifoPolicy(AdmissionPolicy):
 
     def __init__(self) -> None:
         self._q: deque = deque()
-        self._lock = threading.Lock()
+        self._lock = named_lock("qos.queue")
 
     def put(self, row: Any) -> None:
         with self._lock:
@@ -271,7 +271,7 @@ class WeightedFairPolicy(AdmissionPolicy):
                                                 for p in self._order}
         self._cursor = 0
         self._fresh = True          # cursor just arrived (earn credit once)
-        self._lock = threading.Lock()
+        self._lock = named_lock("qos.queue")
         self.served: dict[Priority, int] = {p: 0 for p in self._order}
         self.aged_served = 0
 

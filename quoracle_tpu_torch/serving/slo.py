@@ -12,17 +12,18 @@ dropping it. The demotion releases with hysteresis (tail back under
 ``recover_ratio × target``) so the weights don't flap at the boundary.
 
 Every demotion counts in ``quoracle_qos_demotions_total``; the live tail
-estimates and multipliers are gauges (infra/telemetry.py). The JAX
-package also records each demote and restore in its flight recorder,
-which the port does not have yet (Queue 1 item 8).
+estimates and multipliers are gauges (infra/telemetry.py), and each
+demote and restore is recorded in the flight recorder with the
+INTERACTIVE tail.
 """
 
 from __future__ import annotations
 
 import math
-import threading
 from typing import Optional
 
+from quoracle_tpu_torch.infra.flightrec import FLIGHT
+from quoracle_tpu_torch.infra.locks import named_lock
 from quoracle_tpu_torch.infra.telemetry import (
     QOS_CLASS_TAIL_MS, QOS_DEMOTIONS_TOTAL, QOS_WEIGHT_MULTIPLIER,
 )
@@ -61,7 +62,7 @@ class SLOTracker:
         self._count: dict[Priority, int] = {p: 0 for p in Priority}
         self._demoted = False
         self.demotions = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("qos.slo")
         for p in Priority:
             QOS_WEIGHT_MULTIPLIER.set(1.0, cls=p.name.lower())
 
@@ -110,10 +111,16 @@ class SLOTracker:
         return None
 
     def _record_flip(self, demoted: bool) -> None:
-        # (the JAX package records "qos_demote" / "qos_restore" with the
-        # INTERACTIVE tail in its flight recorder here: Queue 1 item 8)
+        tail = self.tail_ms(Priority.INTERACTIVE)
         if demoted:
             QOS_DEMOTIONS_TOTAL.inc()
+            FLIGHT.record("qos_demote",
+                          interactive_tail_ms=round(tail, 1),
+                          target_ms=self.targets_ms[Priority.INTERACTIVE],
+                          demote_to=self.demote_to)
+        else:
+            FLIGHT.record("qos_restore",
+                          interactive_tail_ms=round(tail, 1))
         for p in (Priority.BATCH, Priority.BACKGROUND):
             QOS_WEIGHT_MULTIPLIER.set(
                 self.demote_to if demoted else 1.0, cls=p.name.lower())

@@ -43,8 +43,7 @@ from quoracle_tpu_torch.models import runtime as trt
 POOL = jrt.MockBackend.DEFAULT_POOL
 
 # fields that differ between two runs of one package: ids, wall times and
-# measured device times (the JAX backend's chip ledger books chip_ms; the
-# port has no ledger yet)
+# measured device times (each package's chip ledger books its own chip_ms)
 OUTCOME_IDS_AND_TIMES = ("decide_id", "latency_ms", "prefill_ms",
                          "decode_ms", "chip_ms", "member_chip_ms",
                          "member_latency_ms")
@@ -56,8 +55,9 @@ MEMBER_TIMES = ("latency_ms", "chip_ms")
 def outcome_view(o) -> dict:
     """A ConsensusOutcome of either package as plain data, without the
     fields that hold ids or times (the audit record's too, and each
-    member's in it). ``task_id`` goes because the JAX engine falls back
-    to its tracer's trace id, which the port has no tracer for."""
+    member's in it). ``task_id`` goes because both engines fall back to
+    their own tracer's current trace id (tests/test_torch_quality.py holds
+    that fallback equal)."""
     d = dataclasses.asdict(o)
     for k in OUTCOME_IDS_AND_TIMES:
         d.pop(k)

@@ -52,7 +52,13 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.models.loader",
              "quoracle_tpu_torch.models.make_checkpoint",
              "quoracle_tpu_torch.serving.kvtier",
-             "quoracle_tpu_torch.serving.handoff"):
+             "quoracle_tpu_torch.serving.handoff",
+             "quoracle_tpu_torch.infra.locks",
+             "quoracle_tpu_torch.infra.flightrec",
+             "quoracle_tpu_torch.infra.fleetobs",
+             "quoracle_tpu_torch.infra.costobs",
+             "quoracle_tpu_torch.infra.treeobs",
+             "quoracle_tpu_torch.infra.introspect"):
     assert name in names, name
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join({repo!r}, "chip_smoke.py"))
@@ -71,5 +77,5 @@ def test_port_and_chip_smoke_import_no_jax():
         env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 50, out.stdout          # every module was imported
+    assert int(n) >= 56, out.stdout          # every module was imported
     assert bad.strip() == "[]", out.stdout

@@ -238,11 +238,13 @@ def test_controller_rate_limits_tenant_and_clamps_class(clock):
 
 
 def test_controller_sheds_on_low_headroom_bulk_only(clock, monkeypatch):
-    """The headroom shed, and the signal snapshot the shed ladder reads.
-    The port has no cost plane, so its snapshot's budget burn is {}: what
-    the JAX controller gives with its cost accounting off."""
+    """The headroom shed, and the signal snapshot the shed ladder reads,
+    with both packages' cost planes off (their budget burn is then {};
+    tests/test_torch_costobs.py holds the burn signals equal)."""
     from quoracle_tpu.infra import costobs
+    from quoracle_tpu_torch.infra import costobs as tcostobs
     monkeypatch.setattr(costobs._STATE, "enabled", False)
+    monkeypatch.setattr(tcostobs._STATE, "enabled", False)
 
     def script(pkg):
         ctrl = pkg.adm.AdmissionController(
