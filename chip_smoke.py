@@ -196,6 +196,30 @@ never prints its last line):
              under build/ (removed after); the memory attribution of the
              serve and pool backends (named parts plus other equal the
              card's used bytes, none negative); the exposition's series
+  agent      the agent layer (agent/, actions/, context/, infra/bus,
+             budget, costs) over the decide pool with an event bus
+             attached, allowed actions {"wait"} (build_system_prompt's
+             prompt for that set), every agent's consensus budget set to
+             DECIDE_MAX_TOKENS: a root agent started by AgentSupervisor
+             takes two user messages, two ticks (each one
+             agent.decide_tick span traced to the task with
+             consensus.decide under it, the audit's task_id the task, a
+             DECISION and its RESULT in every member's history, one
+             serving_round a query round; the second resumes on
+             llama-3-8b and gemma-7b; ragged ran, the paged and int8
+             kernels did not); a second root over a seeded ~1,800-token
+             history with llama-3-8b's window cut to the output floor +
+             AGENT_HISTORY_ROOM condenses (the reflector's query on the
+             card, flash from its sessionless prefill; the history fits
+             after, the decide "ok"); the root spawns a child through
+             spawn_child (the root's decision scripted) whose tick is
+             the model's at its depth's QoS class, the tree registry
+             shows both, and dismiss_child (scripted) terminates it:
+             escrow conserved, the child's pages back (free + cached
+             pages as before the spawn); one tick of an agent over the
+             serve phase's llama-3-8b at full depth. Each tick's wall
+             ms, rounds, members' cached tokens, prefill and decode ms,
+             the reflection's and the embedder's ms, the launches
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -302,8 +326,8 @@ never prints its last line):
              within 1e-5 at the 8, 64 and 256-token buckets. Engines of
              one tokenizer share the JSON grammar's host table
 
-in that order but for batch, continuous, obs and spec, which run after
-prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
+in that order but for batch, continuous, obs, agent and spec, which run
+after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
 line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
@@ -317,7 +341,8 @@ decide`` runs the decide phase (llama-3-8b built anew) and the reference
 decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
 ``--only calib``, ``--only batch``, ``--only continuous``, ``--only
-spec``, ``--only tiers`` and ``--only obs`` run that phase after the
+spec``, ``--only tiers``, ``--only obs`` and ``--only agent`` run that
+phase after the
 build, over weights drawn here (no last line); ``--only reference`` runs
 the reference phase after the build (no last line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
 the build (no last line). Every
@@ -326,6 +351,7 @@ False, and cudnn's too). The script imports torch and the port, never
 JAX or the JAX package.
 """
 
+import asyncio
 import dataclasses
 import gc
 import itertools
@@ -3840,6 +3866,526 @@ def phase_obs(torch, R, backend, pool_backend) -> dict:
                            "metrics": len(O.tel.METRICS._metrics)}}
 
 
+# ---------------------------------------------------------------------------
+# agent: the agent layer's decide loop on the card
+# ---------------------------------------------------------------------------
+
+AGENT_TASK = "task-agent"
+AGENT_HISTORY_ROOM = 1500   # history tokens llama-3-8b's cut window leaves
+                            # above the output floor (the condensing agent)
+AGENT_SEED_ENTRIES = 14     # seeded user entries of the condensing agent
+AGENT_HUNG_S = 600.0        # declares a tick hung; never decides a result
+
+
+def agent_modules():
+    from quoracle_tpu_torch.actions.schema import ACTIONS
+    from quoracle_tpu_torch.agent import (
+        AgentConfig, AgentDeps, AgentRegistry, AgentSupervisor,
+    )
+    from quoracle_tpu_torch.consensus.engine import ConsensusOutcome
+    from quoracle_tpu_torch.consensus.result import Decision
+    from quoracle_tpu_torch.context.history import (
+        SUMMARY, USER, AgentContext, HistoryEntry,
+    )
+    from quoracle_tpu_torch.context.token_manager import TokenManager
+    from quoracle_tpu_torch.infra import telemetry, treeobs
+    from quoracle_tpu_torch.infra.budget import Escrow
+    from quoracle_tpu_torch.infra.bus import AgentEvents, EventBus
+    from quoracle_tpu_torch.infra.costs import CostRecorder
+    from quoracle_tpu_torch.models.config import OUTPUT_FLOOR
+    from decimal import Decimal
+    return types.SimpleNamespace(**{k: v for k, v in locals().items()})
+
+
+class AgentWatch:
+    """What an agent phase observes, through the port's own seams: each
+    ``backend.query`` call (its session, each member's cached tokens,
+    prefill and decode ms, the call's ms), each ``backend.embed`` call's
+    ms, the bus's events and the tracer's spans. The supervisor it
+    returns wraps every agent it starts (children too): the consensus
+    budget is set to DECIDE_MAX_TOKENS (random-weight members rarely
+    close their JSON early), each decide's outcome is kept (a scripted
+    one is returned instead when the phase queued one for that agent),
+    and each handled mailbox message wakes the phase's loop."""
+
+    def __init__(self, A, backends: list, bus):
+        self.A = A
+        self.calls: list = []
+        self.embed_ms: list = []
+        self.events: list = []
+        self.spans: list = []
+        self.outcomes: dict = {}
+        self.scripts: dict = {}
+        self.busy: dict = {}
+        self.wake = None
+        self.loop = None
+        self.backends = backends
+        for b in backends:
+            self._spy(b)
+        bus.subscribe("*", self._on_event)
+        A.telemetry.TRACER.add_sink(self.spans.append)
+
+    def _spy(self, b) -> None:
+        query, embed = b.query, b.embed
+
+        def timed_query(requests):
+            t0 = time.monotonic()
+            res = query(requests)
+            self.calls.append({
+                "session": requests[0].session_id if requests else None,
+                "ms": (time.monotonic() - t0) * 1e3,
+                "members": {r.model_spec: {
+                    "cached": r.cached_tokens, "prefill_ms": r.prefill_ms,
+                    "decode_ms": r.decode_ms, "ok": r.ok}
+                    for r in res}})
+            return res
+
+        def timed_embed(texts):
+            t0 = time.monotonic()
+            try:
+                return embed(texts)
+            finally:
+                self.embed_ms.append((time.monotonic() - t0) * 1e3)
+        b.query, b.embed = timed_query, timed_embed
+
+    def _on_event(self, topic, event) -> None:
+        self.events.append((topic, event))
+        self._poke()
+
+    def _poke(self) -> None:
+        if self.wake is not None:
+            self.loop.call_soon_threadsafe(self.wake.set)
+
+    def close(self) -> None:
+        for b in self.backends:
+            del b.query, b.embed
+        self.A.telemetry.TRACER.remove_sink(self.spans.append)
+
+    def supervisor(self, deps):
+        watch, A = self, self.A
+
+        class Supervisor(A.AgentSupervisor):
+            async def start_agent(self, config):
+                core = await super().start_agent(config)
+                watch.instrument(core)
+                return core
+        return Supervisor(deps)
+
+    def instrument(self, core) -> None:
+        aid = core.agent_id
+        core.engine.config.max_tokens = DECIDE_MAX_TOKENS
+        decide = core.engine.decide
+
+        def kept_decide(messages):
+            queued = self.scripts.get(aid)
+            out = queued.pop(0) if queued else decide(messages)
+            self.outcomes.setdefault(aid, []).append(out)
+            return out
+        core.engine.decide = kept_decide
+        dispatch = core._dispatch
+
+        async def woken_dispatch(msg):
+            self.busy[aid] = self.busy.get(aid, 0) + 1
+            try:
+                await dispatch(msg)
+            finally:
+                self.busy[aid] -= 1
+                self._poke()
+        core._dispatch = woken_dispatch
+
+    def idle(self, core) -> bool:
+        return (not core.pending_actions and not core.consensus_scheduled
+                and not self.busy.get(core.agent_id) and core.mailbox.empty())
+
+    async def until(self, cond) -> None:
+        self.loop = asyncio.get_running_loop()
+        if self.wake is None:
+            self.wake = asyncio.Event()
+        deadline = self.loop.time() + AGENT_HUNG_S
+        while not cond():
+            self.wake.clear()
+            if cond():
+                return
+            left = deadline - self.loop.time()
+            if left <= 0:
+                raise AssertionError("an agent tick hung")
+            try:
+                await asyncio.wait_for(self.wake.wait(), left)
+            except asyncio.TimeoutError:
+                pass
+
+    async def tick(self, core, msg: dict) -> dict:
+        """Post ``msg`` and wait for the agent to execute a decision and
+        go idle. Returns the tick's record: the decide spans, the
+        backend calls and the decision."""
+        pool = core.config.model_pool
+        mark = (len(self.calls), len(self.spans), len(self.embed_ms),
+                len(self.events), len(self.outcomes.get(core.agent_id, [])))
+
+        def n_results():
+            return [sum(1 for e in core.ctx.history(m) if e.kind == "result")
+                    for m in pool]
+        before = n_results()
+        t0 = time.monotonic()
+        core.post(msg)
+        await self.until(lambda: all(a > b for a, b in zip(
+            n_results(), before)) and self.idle(core))
+        wall_ms = (time.monotonic() - t0) * 1e3
+        mine = [s for s in self.spans[mark[1]:]
+                if s.get("agent_id") == core.agent_id]
+        ticks = [s for s in mine if s["name"] == "agent.decide_tick"]
+        tick_ids = {s["span_id"] for s in ticks}
+        decides = [s for s in self.spans[mark[1]:]
+                   if s["name"] == "consensus.decide"
+                   and s["parent_id"] in tick_ids]
+        outs = self.outcomes.get(core.agent_id, [])[mark[4]:]
+        calls = [c for c in self.calls[mark[0]:]
+                 if c["session"] in (core.agent_id, None)]
+        events = self.events[mark[3]:]
+        last = {m: [e.kind for e in core.ctx.history(m)][-2:] for m in pool}
+        return {
+            "agent": core.agent_id, "wall_ms": wall_ms, "posted": msg,
+            "tick_spans": [{"trace_id": s["trace_id"],
+                            "ms": s["duration_ms"]} for s in ticks],
+            "decide_spans": len(decides),
+            "outcomes": [{"status": o.status, "rounds": o.rounds_used,
+                          "scripted": o.decide_id is None and not o.audit,
+                          "task_id": (o.audit or {}).get("task_id"),
+                          "cached_tokens": o.cached_tokens,
+                          "prefill_ms": o.prefill_ms,
+                          "decode_ms": o.decode_ms,
+                          "decision": None if o.decision is None else
+                          {"action": o.decision.action,
+                           "params": o.decision.params}}
+                         for o in outs],
+            "calls": calls,
+            "serving_rounds": sum(1 for t, e in events
+                                  if e["event"] == "serving_round"),
+            "queries": sum(1 for c in self.calls[mark[0]:]),
+            "embed_ms": self.embed_ms[mark[2]:],
+            "events": sorted({e["event"] for t, e in events
+                              if e.get("agent_id") == core.agent_id}),
+            "history_tail": last}
+
+
+def agent_tick_ok(rec: dict, task: str) -> bool:
+    """A model-decided tick: every cycle opened one agent.decide_tick
+    span traced to the task with one consensus.decide under it, the last
+    decide ended "ok" with its audit under the task, and every member's
+    history gained a DECISION and its RESULT."""
+    outs = rec["outcomes"]
+    return (outs and outs[-1]["status"] == "ok"
+            and len(rec["tick_spans"]) == len(outs) == rec["decide_spans"]
+            and all(s["trace_id"] == task for s in rec["tick_spans"])
+            and all(o["task_id"] == task for o in outs)
+            and all(t == ["decision", "result"]
+                    for t in rec["history_tail"].values())
+            and {"action_started", "action_completed"} <= set(rec["events"]))
+
+
+def scripted_outcome(A, action: str, params: dict):
+    """A decide the phase scripts for the root (the spawn and the
+    dismissal; random-weight members cannot write their params)."""
+    return A.ConsensusOutcome(status="ok", decision=A.Decision(
+        kind="consensus", action=action, params=params, wait=True,
+        confidence=1.0, cluster_size=1, total_responses=1, rounds_used=1,
+        reasoning="scripted by chip_smoke"))
+
+
+def pages_view(backend) -> dict:
+    return {spec: {"free": e.sessions.free_pages(),
+                   "cached": e.sessions.prefix_cache.stats()["cached_pages"],
+                   "sessions": len(e.sessions)}
+            for spec, e in backend.engines.items()}
+
+
+def condense_context(A, backend, pool: list):
+    """AGENT_SEED_ENTRIES distinct user entries (a long status log) for
+    every member: about 1,800 tokens of history under llama-3-8b's
+    tokenizer, past the cut window's AGENT_HISTORY_ROOM."""
+    ctx = A.AgentContext()
+    for k in range(AGENT_SEED_ENTRIES):
+        text = (f"Status report {k}: build {1000 + 37 * k} finished; "
+                + " ".join(f"module-{k}-{i} passed {3 * i + k} checks in "
+                           f"{11 * i + k} ms;" for i in range(8)))
+        ctx.append_all(A.HistoryEntry(kind=A.USER, content=text), pool)
+    return ctx
+
+
+def agent_backend(R, base_backend, pool: list):
+    """A TorchBackend over engines of its own that share ``base_backend``'s
+    weights (no copy), embedder and grammar tables, seeded as its engines
+    were: the agent phase samples and fills prefix caches, and the phases
+    after it must find the base engines as they left them (over the
+    decide pool's own engines, the spec phase's sampled decide drew
+    other tokens on the H100 and ended all_invalid)."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    engines = {}
+    for spec in pool:
+        base = base_backend.engines[spec]
+        engines[spec] = GenerateEngine(
+            base.cfg, base.params, base.tokenizer,
+            seed=base._generator.initial_seed(), device=base.device)
+        engines[spec]._json_cache = base._json_cache
+    return R.TorchBackend(pool, device=base_backend.device, engines=engines,
+                          embedder=base_backend.embedder)
+
+
+def phase_agent(torch, R, kernels, serve_backend, decide_backend) -> dict:
+    """The agent layer on the card: AgentCore's decide loop through the
+    supervisor, the action router and the bus, over the decide pool
+    (llama-3-8b, mistral-7b, gemma-7b at full width, DEPTH_CUT layers)
+    and, for one tick, over the serve phase's llama-3-8b at full depth,
+    each on engines of the phase's own over those weights
+    (``agent_backend``).
+    Allowed actions {"wait"} (build_system_prompt's prompt for that set).
+    A root agent runs two ticks (the second resumes), a second root
+    condenses a seeded history under a cut llama window (the reflector's
+    query on the card, flash from its sessionless prefill), the first
+    root spawns a child (its decision scripted) whose tick is the
+    model's, then dismisses it (scripted), and one agent ticks at full
+    depth. Every tick must execute its decision; the spans, the bus's
+    serving rounds, the tree registry, the escrow, the child's pages and
+    the kernels' launches are checked."""
+    A = agent_modules()
+    t_phase = time.monotonic()
+    pool_backend = agent_backend(R, decide_backend, DECIDE_POOL)
+    backend = agent_backend(R, serve_backend, [MODEL])
+    # the obs phase leaves the tree plane off; this phase reads it
+    tree_was_on = A.treeobs.enabled()
+    A.treeobs.reset()
+    A.treeobs.enable()
+    # the members' grammar tables for {"wait"}, as the decide phase
+    # builds them (a hit after it): built at first use on the members'
+    # threads they cost tick 1 ~40 s on the H100 (--only agent)
+    t0 = time.monotonic()
+    for b, pool in ((pool_backend, DECIDE_POOL), (backend, [MODEL])):
+        for spec in pool:
+            b.engines[spec]._json_table_device((("wait",),))
+    grammar_s = time.monotonic() - t0
+    bus = A.EventBus()
+    events = A.AgentEvents(bus)
+    registry, escrow = A.AgentRegistry(), A.Escrow()
+    costs = A.CostRecorder(escrow=escrow, events=events)
+    forbidden = tuple(a for a in A.ACTIONS if a != "wait")
+    for b in (pool_backend, backend):
+        b.attach_bus(bus)
+    watch = AgentWatch(A, [pool_backend, backend], bus)
+
+    def deps_for(b, limit_fn=None):
+        return A.AgentDeps(
+            backend=b, registry=registry, supervisor=None, events=events,
+            escrow=escrow, costs=costs, token_manager=A.TokenManager(
+                b.count_tokens,
+                context_limit_fn=limit_fn or b.context_window))
+
+    cut_window = A.OUTPUT_FLOOR + AGENT_HISTORY_ROOM
+
+    def cut_llama(spec):
+        return cut_window if spec == MODEL else \
+            pool_backend.context_window(spec)
+
+    report = {"phase": "agent", "pool": DECIDE_POOL,
+              "depth": DEPTH_CUT, "max_tokens": DECIDE_MAX_TOKENS,
+              "grammar_prebuild_s": grammar_s}
+
+    marks = {}
+
+    def mark(name):
+        marks[name] = kernels.launch_counts()
+
+    async def main():
+        deps = deps_for(pool_backend)
+        sup = watch.supervisor(deps)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        mark("start")
+        root = await sup.start_agent(A.AgentConfig(
+            agent_id="agent-root", task_id=AGENT_TASK,
+            model_pool=list(DECIDE_POOL), forbidden_actions=forbidden,
+            budget_mode="root", budget_limit="100"))
+        ticks = []
+        for text in ("Task: keep the build green. Decide the next step.",
+                     "The build is still green. Decide the next step."):
+            ticks.append(await watch.tick(root, {
+                "type": "user_message", "from": "user", "content": text}))
+        mark("root")
+        report["root_ticks"] = ticks
+
+        # condensation: a second root, its llama window cut
+        cdeps = deps_for(pool_backend, cut_llama)
+        csup = watch.supervisor(cdeps)
+        ccore = await csup.start_agent(A.AgentConfig(
+            agent_id="agent-condense", task_id="task-condense",
+            model_pool=list(DECIDE_POOL), forbidden_actions=forbidden,
+            restored_context=condense_context(A, pool_backend,
+                                              DECIDE_POOL)))
+        tm = cdeps.token_manager
+        before = tm.history_tokens(MODEL, ccore.ctx.history(MODEL))
+        crec = await watch.tick(ccore, {
+            "type": "user_message", "from": "user",
+            "content": "Summarize where the build stands, then decide."})
+        hist = ccore.ctx.history(MODEL)
+        after = tm.history_tokens(MODEL, hist)
+        reflect = [c for c in crec["calls"] if c["session"] is None]
+        report["condense"] = {
+            "window": cut_window, "history_tokens": [before, after],
+            "summary_head": hist[0].kind == A.SUMMARY,
+            "fits": tm.dynamic_max_tokens(
+                MODEL, after, pool_backend.output_limit(MODEL)) is not None,
+            "reflect_queries": len(reflect),
+            "reflect_ms": sum(c["ms"] for c in reflect),
+            "embed_ms": crec["embed_ms"], "lessons": len(
+                ccore.ctx.context_lessons.get(MODEL, [])),
+            "tick": crec}
+        mark("condense")
+        await csup.terminate_agent("agent-condense")
+
+        # a child: spawned and dismissed by scripted root decisions
+        pages0 = pages_view(pool_backend)
+        root_spent0 = escrow.get("agent-root").spent
+        watch.scripts["agent-root"] = [scripted_outcome(
+            A, "spawn_child", {
+                "task_description": "Keep the build green: decide your "
+                                    "next step.",
+                "success_criteria": "a decision executed",
+                "immediate_context": "you were just spawned",
+                "approach_guidance": "wait for events", "profile": "worker",
+                "budget": "1"})]
+        spawn = await watch.tick(root, {
+            "type": "user_message", "from": "user",
+            "content": "Spawn a worker."})
+        spawn_result = str(root.ctx.history(MODEL)[-1].content)[:200]
+        await watch.until(lambda: len(registry) >= 2 and root.children)
+        child_id = root.children[0]["agent_id"]
+        child = registry.lookup(child_id).core
+        await watch.until(lambda: any(
+            e.kind == "result" for e in child.ctx.history(MODEL))
+            and watch.idle(child))
+        cticks = [s for s in watch.spans
+                  if s["name"] == "agent.decide_tick"
+                  and s.get("agent_id") == child_id]
+        couts = watch.outcomes.get(child_id, [])
+        tree = A.treeobs.tree_payload(AGENT_TASK)
+        child_cost = costs.total_for(child_id)
+        mark("child")
+        watch.scripts["agent-root"] = [scripted_outcome(
+            A, "dismiss_child", {"child_id": child_id})]
+        dismiss = await watch.tick(root, {
+            "type": "user_message", "from": "user",
+            "content": "The worker is done: dismiss it."})
+        pages1 = pages_view(pool_backend)
+        root_b = escrow.get("agent-root")
+        report["child"] = {
+            "spawn_result": spawn_result,
+            "ticks": len(cticks), "tick_ms": [s["duration_ms"]
+                                              for s in cticks],
+            "outcomes": [{"status": o.status, "rounds": o.rounds_used,
+                          "task_id": (o.audit or {}).get("task_id")}
+                         for o in couts],
+            "priority": child.engine.config.priority,
+            "root_priority": root.engine.config.priority,
+            "calls": [c for c in watch.calls if c["session"] == child_id],
+            "tree": {n["node_id"]: [n["parent_id"], n["depth"]]
+                     for n in tree.get("nodes", [])},
+            "registered": [r.agent_id for r in registry.all()],
+            "child_cost": str(child_cost),
+            "escrow": root_b.snapshot(),
+            "root_spent": [str(root_spent0), str(root_b.spent)],
+            "conserved": (root_b.committed == 0
+                          and root_b.spent == root_spent0
+                          + min(A.Decimal("1"), child_cost)
+                          and root_b.available
+                          == root_b.limit - root_b.spent),
+            "pages": [pages0, pages1],
+            "dismiss": str(root.ctx.history(MODEL)[-1].content)[:200]}
+        report["spawn_tick"], report["dismiss_tick"] = spawn, dismiss
+        mark("dismiss")
+
+        # one tick at full depth over the serve phase's backend
+        fdeps = deps_for(backend)
+        fsup = watch.supervisor(fdeps)
+        fcore = await fsup.start_agent(A.AgentConfig(
+            agent_id="agent-full", task_id="task-full",
+            model_pool=[MODEL], forbidden_actions=forbidden))
+        report["full_depth"] = await watch.tick(fcore, {
+            "type": "user_message", "from": "user",
+            "content": "Task: keep the build green. Decide the next step."})
+        torch.cuda.synchronize()
+        mark("full")
+        await fsup.terminate_agent("agent-full")
+        await sup.terminate_tree("agent-root", by="chip_smoke")
+        report["costs"] = {a: str(costs.total_for(a)) for a in (
+            "agent-root", child_id, "agent-condense", "agent-full")}
+        return child_id
+
+    try:
+        child_id = asyncio.run(main())
+    finally:
+        watch.close()
+        if not tree_was_on:
+            A.treeobs.disable()
+    report["seconds"] = time.monotonic() - t_phase
+    order = ["start", "root", "condense", "child", "dismiss", "full"]
+    report["section_launches"] = {
+        b: {k: marks[b][k] - marks[a][k] for k in marks[b]}
+        for a, b in zip(order, order[1:])}
+    report["launches"] = marks["full"]
+    root_l = report["section_launches"]["root"]
+    report["nvidia_smi"] = nvidia_smi()
+    ticks = report["root_ticks"]
+    tick2 = ticks[1]["calls"][0]["members"] if ticks[1]["calls"] else {}
+    child = report["child"]
+    pages_ok = all(
+        p1["free"] + p1["cached"] == p0["free"] + p0["cached"]
+        for p0, p1 in zip(child["pages"][0].values(),
+                          child["pages"][1].values()))
+    checks = {
+        "root_ticks": all(agent_tick_ok(t, AGENT_TASK) for t in ticks),
+        "resumed": all(tick2.get(m, {}).get("cached", 0) > 0
+                       for m in (MODEL, DECIDE_POOL[-1])),
+        "serving_rounds": all(t["serving_rounds"] == t["queries"] >= 1
+                              for t in ticks),
+        "lifecycle": {"agent_spawned", "action_started",
+                      "action_completed"} <= {e["event"] for _, e in
+                                              watch.events},
+        "root_kernels": (root_l["ragged_fwd"] > 0 and all(
+            root_l[k] == 0 for k in
+            ("paged_fwd", "paged_prefill_fwd", "ragged_q8_fwd"))),
+        "condensed": (report["condense"]["summary_head"]
+                      and report["condense"]["fits"]
+                      and report["condense"]["reflect_queries"] >= 1
+                      and agent_tick_ok(report["condense"]["tick"],
+                                        "task-condense")),
+        "condense_flash":
+            report["section_launches"]["condense"]["flash_fwd"] > 0,
+        "child": (child["ticks"] >= 1 and child["outcomes"]
+                  and child["outcomes"][-1]["status"] == "ok"
+                  and child["outcomes"][-1]["task_id"] == AGENT_TASK
+                  and child["tree"] == {"agent-root": [None, 0],
+                                        child_id: ["agent-root", 1]}
+                  and child["priority"] > child["root_priority"]),
+        "scripted_executed": all(
+            t["outcomes"] and t["outcomes"][-1]["status"] == "ok"
+            and all(h == ["decision", "result"]
+                    for h in t["history_tail"].values())
+            for t in (report["spawn_tick"], report["dismiss_tick"])),
+        "dismissed": (child_id not in child["registered"]
+                      and all(pool_backend.engines[s].sessions.get(child_id)
+                              is None for s in DECIDE_POOL)),
+        "pages_back": pages_ok, "escrow": child["conserved"],
+        "full_depth": agent_tick_ok(report["full_depth"], "task-full"),
+    }
+    report["checks"] = checks
+    del pool_backend, backend, watch
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        emit(report)
+        raise AssertionError(f"the agent phase failed its checks: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return report
+
+
 def phase_sweep(torch, F, P) -> dict:
     """Each kernel's time and bound over the lengths it serves, bf16 at
     llama-3-8b attention geometry: ragged decode ticks (tq=1, 3 live rows
@@ -4988,7 +5534,8 @@ def ptxas_entries(log: str) -> list:
 def main(argv) -> int:
     only = None
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
-              "continuous", "spec", "ckpt", "tiers", "obs", "reference")
+              "continuous", "spec", "ckpt", "tiers", "obs", "agent",
+              "reference")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -5060,6 +5607,11 @@ def main(argv) -> int:
         emit(phase_obs(torch, R, backend,
                        decide_pool_backend(torch, R, backend)[0]))
         return 0
+    if only == "agent":
+        backend = R.TorchBackend([MODEL], seed=0)
+        emit(phase_agent(torch, R, kernels, backend,
+                         decide_pool_backend(torch, R, backend)[0]))
+        return 0
     if only == "reference":
         emit(phase_reference(torch, R))
         return 0
@@ -5111,6 +5663,8 @@ def main(argv) -> int:
         baton_decide_ms=[d["latency_ms"] for d in decide_report["decides"]])
     emit(continuous_report)
     emit(phase_obs(torch, R, backend, pool_backend))
+    agent_report = phase_agent(torch, R, kernels, backend, pool_backend)
+    emit(agent_report)
     # phase_spec releases the decide pool once its decide has run
     pools = [pool_backend]
     del pool_backend
@@ -5131,6 +5685,7 @@ def main(argv) -> int:
             continuous_report["serve"]["launches"][e["name"]]
             + continuous_report["pool"]["launches"][e["name"]])
         e["spec_launches"] = spec_report["launches"][e["name"]]
+        e["agent_launches"] = agent_report["launches"][e["name"]]
         if e["name"] == "ragged_fwd":
             e["verify"] = spec_report["verify_ticks"]["ragged_fwd_bf16"]
             e["verify_fp32"] = spec_report["verify_ticks"]["ragged_fwd"]

@@ -1,6 +1,8 @@
 """Actions layer of the PyTorch port: the action vocabulary (schemas,
-validation, consensus merge rules), as data and pure logic. Execution
-(routers, executors) is not ported yet."""
+validation, consensus merge rules) and its execution (the per-action
+router in router.py, the executors in executors.py). The world actions
+(``actions/world.py``: fetch_web, call_api, call_mcp, answer_engine,
+generate_images) are not ported yet (Queue 1 item 9, second bullet)."""
 
 from quoracle_tpu_torch.actions.schema import (  # noqa: F401
     ACTIONS,
@@ -9,3 +11,6 @@ from quoracle_tpu_torch.actions.schema import (  # noqa: F401
     batchable_sync_actions,
     get_schema,
 )
+
+# Executor registration side effects: importing this fills EXECUTORS.
+from quoracle_tpu_torch.actions import executors as _executors  # noqa: E402,F401

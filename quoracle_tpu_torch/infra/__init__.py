@@ -2,5 +2,6 @@
 untrusted content (injection.py), named locks (locks.py), metrics and
 tracing (telemetry.py), the flight recorder (flightrec.py), the fleet,
 cost, tree and liveness planes (fleetobs.py, costobs.py, treeobs.py,
-introspect.py) and device-memory accounting (resources.py). The event bus
-is not ported yet."""
+introspect.py), device-memory accounting (resources.py), the event bus
+(bus.py), escrow and costs (budget.py, costs.py) and secrets
+(security.py)."""

@@ -35,15 +35,20 @@ consensus round) across the member-thread hop, with the member's phase
 walls emitted as retroactive ``generate.prefill``/``generate.decode``
 spans; the rows carry their chip-ms keys (``task_id``, ``decide``, tenant
 and class) to the engine's charge site, and ``QueryResult.chip_ms`` is
-the row's charge. ``MockBackend`` is the scripted test backend. Left for
-later slices: VLM rows, the event bus (``attach_bus``) and the mock's
-fault-injection seam and span (Queue 1 item 9).
+the row's charge. ``attach_bus`` gives the backend an event bus
+(infra/bus.py): each query round then broadcasts one ``serving_round``
+event on ``TOPIC_SERVING`` with every queried member's phase timings,
+free pages and prefix-cache counters, as the JAX backend does.
+``MockBackend`` is the scripted test backend, with the JAX mock's
+``backend.member`` span. Left for later slices: VLM rows and the mock's
+fault-injection seam (the chaos plane, Queue 1 item 9, third bullet).
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
+import logging
 import time
 from concurrent.futures import Future, ThreadPoolExecutor, wait
 from typing import Callable, Optional, Sequence
@@ -79,6 +84,8 @@ from quoracle_tpu_torch.serving.qos import (
     QoSConfig, WeightedFairPolicy, class_name,
 )
 from quoracle_tpu_torch.serving.slo import SLOTracker
+
+logger = logging.getLogger(__name__)
 
 
 def _row_key(r: dict) -> tuple:
@@ -413,6 +420,7 @@ class TorchBackend(ModelBackend):
         self.quantize_weights = bool(quantize_weights)
         self.quantize_kv = bool(quantize_kv)
         self.engines: dict[str, GenerateEngine] = dict(engines or {})
+        self._bus = None          # attach_bus: serving-telemetry broadcasts
 
         def weights(cfg, seed_i: int):
             # an entry with a checkpoint serves its own weights, as in the
@@ -632,7 +640,38 @@ class TorchBackend(ModelBackend):
         else:
             for spec, idxs in groups:
                 self._query_member(spec, idxs, requests, results, parent)
+        self._broadcast_serving(by_model)
         return [r for r in results if r is not None]
+
+    def attach_bus(self, bus) -> None:
+        self._bus = bus
+
+    def _broadcast_serving(self, by_model: dict) -> None:
+        """One TOPIC_SERVING event per query round: each queried member's
+        phase timings and free pages, and its radix prefix cache's
+        counters, as the JAX backend broadcasts them. Never raises into
+        the serving path."""
+        if self._bus is None:
+            return
+        try:
+            from quoracle_tpu_torch.infra.bus import TOPIC_SERVING
+            members = {}
+            for spec in by_model:
+                e = self.engines.get(spec)
+                if e is None:
+                    continue
+                members[spec] = {
+                    "prefill_tokens": e.last_prefill_tokens,
+                    "prefill_ms": round(e.last_prefill_s * 1000, 1),
+                    "decode_ms": round(e.last_decode_s * 1000, 1),
+                    "kv_free_pages": e.sessions.free_pages(),
+                    "prefix_cache": e.sessions.prefix_cache.stats(),
+                }
+            self._bus.broadcast(TOPIC_SERVING, {
+                "event": "serving_round", "ts": time.time(),
+                "members": members})
+        except Exception:                 # noqa: BLE001 — telemetry only
+            logger.exception("serving telemetry broadcast failed")
 
     def _query_member(self, spec: str, idxs: list[int],
                       requests: Sequence[QueryRequest],
@@ -911,11 +950,11 @@ class MockBackend(ModelBackend):
     wait-action JSON so agent loops terminate. Per-model scripts drive
     disagreement/malformed/invalid scenarios (``"__error__"`` scripts a
     backend failure); every call is recorded in ``calls`` for assertion.
-    The embedder defaults to ``HashingEmbedder``.
-
-    The JAX package's MockBackend also fires a fault-injection point per
-    member and opens a tracer span per member; the port has neither the
-    chaos plane nor the tracer yet, so this copy leaves both out.
+    The embedder defaults to ``HashingEmbedder``. Each row runs under a
+    ``backend.member`` span, as in the JAX mock, so agent span trees over
+    mocks match the serving backend's (decide → round → member). The JAX
+    mock also fires a fault-injection point per member; the port has no
+    chaos plane yet (Queue 1 item 9, third bullet).
     """
 
     DEFAULT_POOL = ["mock:consensus-model-1", "mock:consensus-model-2",
@@ -938,14 +977,15 @@ class MockBackend(ModelBackend):
         out = []
         for r in requests:
             self.calls.append(r)
-            script = self._scripts.get(r.model_spec)
-            if script:
-                text = script.pop(0)
-            elif self._respond is not None:
-                text = self._respond(r)
-            else:
-                text = ('{"action": "wait", "params": {"duration": 1}, '
-                        '"reasoning": "mock default"}')
+            with TRACER.span("backend.member", model=r.model_spec):
+                script = self._scripts.get(r.model_spec)
+                if script:
+                    text = script.pop(0)
+                elif self._respond is not None:
+                    text = self._respond(r)
+                else:
+                    text = ('{"action": "wait", "params": {"duration": 1}, '
+                            '"reasoning": "mock default"}')
             if text == "__error__":
                 out.append(QueryResult(model_spec=r.model_spec,
                                        error="scripted failure"))

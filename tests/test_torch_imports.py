@@ -2,8 +2,9 @@
 chip_smoke.py, in a fresh interpreter loads neither JAX nor the JAX
 package, nor the libraries the JAX package reads checkpoints with
 (``safetensors``, ``tokenizers``, ``transformers``, ``regex``,
-``ml_dtypes``), which the card's machine lacks. (Only the parity tests
-import them.)"""
+``ml_dtypes``), which the card's machine lacks, nor PyYAML, which it may
+lack (the skills actions import it when they read a SKILL.md). (Only
+the parity tests import them.)"""
 
 import os
 import subprocess
@@ -58,13 +59,36 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.infra.fleetobs",
              "quoracle_tpu_torch.infra.costobs",
              "quoracle_tpu_torch.infra.treeobs",
-             "quoracle_tpu_torch.infra.introspect"):
+             "quoracle_tpu_torch.infra.introspect",
+             "quoracle_tpu_torch.utils.normalize",
+             "quoracle_tpu_torch.infra.bus",
+             "quoracle_tpu_torch.infra.budget",
+             "quoracle_tpu_torch.infra.costs",
+             "quoracle_tpu_torch.infra.security",
+             "quoracle_tpu_torch.context",
+             "quoracle_tpu_torch.context.history",
+             "quoracle_tpu_torch.context.token_manager",
+             "quoracle_tpu_torch.context.lessons",
+             "quoracle_tpu_torch.context.reflector",
+             "quoracle_tpu_torch.context.condensation",
+             "quoracle_tpu_torch.context.context_manager",
+             "quoracle_tpu_torch.context.message_builder",
+             "quoracle_tpu_torch.context.history_transfer",
+             "quoracle_tpu_torch.governance.fields",
+             "quoracle_tpu_torch.governance.skills",
+             "quoracle_tpu_torch.actions.router",
+             "quoracle_tpu_torch.actions.executors",
+             "quoracle_tpu_torch.agent",
+             "quoracle_tpu_torch.agent.state",
+             "quoracle_tpu_torch.agent.registry",
+             "quoracle_tpu_torch.agent.core",
+             "quoracle_tpu_torch.agent.supervisor"):
     assert name in names, name
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join({repo!r}, "chip_smoke.py"))
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 BANNED = ("jax", "jaxlib", "quoracle_tpu", "safetensors", "tokenizers",
-          "transformers", "regex", "ml_dtypes")
+          "transformers", "regex", "ml_dtypes", "yaml")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 print(len(names), bad)
 """
@@ -77,5 +101,5 @@ def test_port_and_chip_smoke_import_no_jax():
         env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 56, out.stdout          # every module was imported
+    assert int(n) >= 83, out.stdout          # every module was imported
     assert bad.strip() == "[]", out.stdout
