@@ -210,7 +210,8 @@ never prints its last line):
              kernels did not); a second root over a seeded ~1,800-token
              history with llama-3-8b's window cut to the output floor +
              AGENT_HISTORY_ROOM condenses (the reflector's query on the
-             card, flash from its sessionless prefill; the history fits
+             card at AGENT_REFLECTION_TOKENS new tokens, flash from its
+             sessionless prefill; the history fits
              after, the decide "ok"); the root spawns a child through
              spawn_child (the root's decision scripted) whose tick is
              the model's at its depth's QoS class, the tree registry
@@ -220,6 +221,25 @@ never prints its last line):
              serve phase's llama-3-8b at full depth. Each tick's wall
              ms, rounds, members' cached tokens, prefill and decode ms,
              the reflection's and the embedder's ms, the launches
+  runtime    runtime.Runtime (persistence, TaskManager, EventHistory, the
+             StallWatchdog, the world actions' seams) over the decide
+             pool on engines of its own, a keyed database in a temporary
+             directory outside the checkout (removed after): runtime A
+             creates a task whose first tick must end "ok", then pauses
+             it (sessions dropped, free + cached pages as before, the row
+             "paused"); runtime B restores it over the same file and
+             backend (every member's history equal entry for entry) and
+             it ticks "ok" again (prefill and cached tokens reported);
+             left "running", it is revived by runtime C's boot() and
+             ticks "ok"; each tick's decode steps and ms a step a member
+             reported; persisted costs equal the escrow's spent,
+             EventHistory holds the lifecycle and action events, no
+             watchdog trip (the pool's baton batcher gives it no
+             source); ragged ran, the paged and int8 kernels did not; a
+             torch Runtime without a device builds its engines on cuda,
+             and its continuous loop's source, held by the watchdog,
+             advances over one query without a trip. vault_active says
+             whether cryptography is there
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -326,8 +346,8 @@ never prints its last line):
              within 1e-5 at the 8, 64 and 256-token buckets. Engines of
              one tokenizer share the JSON grammar's host table
 
-in that order but for batch, continuous, obs, agent and spec, which run
-after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
+in that order but for batch, continuous, obs, agent, runtime and spec,
+which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
 line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
@@ -341,8 +361,8 @@ decide`` runs the decide phase (llama-3-8b built anew) and the reference
 decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
 ``--only calib``, ``--only batch``, ``--only continuous``, ``--only
-spec``, ``--only tiers``, ``--only obs`` and ``--only agent`` run that
-phase after the
+spec``, ``--only tiers``, ``--only obs``, ``--only agent`` and ``--only
+runtime`` run that phase after the
 build, over weights drawn here (no last line); ``--only reference`` runs
 the reference phase after the build (no last line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
 the build (no last line). Every
@@ -365,6 +385,7 @@ import threading
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 START = time.monotonic()
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -3875,6 +3896,11 @@ AGENT_HISTORY_ROOM = 1500   # history tokens llama-3-8b's cut window leaves
                             # above the output floor (the condensing agent)
 AGENT_SEED_ENTRIES = 14     # seeded user entries of the condensing agent
 AGENT_HUNG_S = 600.0        # declares a tick hung; never decides a result
+# new tokens of the condensing tick's reflection queries (the reflector's
+# own budget is 1,024): with random weights they never parse, so the
+# reflector runs three of them to the budget; at 1,024 they took 54.5 s
+# of the agent phase on the H100. Cut for the runtime phase
+AGENT_REFLECTION_TOKENS = 256
 
 
 def agent_modules():
@@ -3887,6 +3913,7 @@ def agent_modules():
     from quoracle_tpu_torch.context.history import (
         SUMMARY, USER, AgentContext, HistoryEntry,
     )
+    from quoracle_tpu_torch.context import reflector
     from quoracle_tpu_torch.context.token_manager import TokenManager
     from quoracle_tpu_torch.infra import telemetry, treeobs
     from quoracle_tpu_torch.infra.budget import Escrow
@@ -3935,6 +3962,8 @@ class AgentWatch:
                 "session": requests[0].session_id if requests else None,
                 "ms": (time.monotonic() - t0) * 1e3,
                 "members": {r.model_spec: {
+                    "prompt": r.usage.prompt_tokens,
+                    "completion": r.usage.completion_tokens,
                     "cached": r.cached_tokens, "prefill_ms": r.prefill_ms,
                     "decode_ms": r.decode_ms, "ok": r.ok}
                     for r in res}})
@@ -3961,11 +3990,17 @@ class AgentWatch:
             del b.query, b.embed
         self.A.telemetry.TRACER.remove_sink(self.spans.append)
 
-    def supervisor(self, deps):
+    def supervisor(self, deps, forbidden: Optional[tuple] = None):
+        """An AgentSupervisor of ``deps`` (it becomes ``deps.supervisor``)
+        that instruments every agent it starts; with ``forbidden``, each
+        one (created, restored or revived) gets those forbidden
+        actions first."""
         watch, A = self, self.A
 
         class Supervisor(A.AgentSupervisor):
             async def start_agent(self, config):
+                if forbidden is not None:
+                    config.forbidden_actions = forbidden
                 core = await super().start_agent(config)
                 watch.instrument(core)
                 return core
@@ -4014,10 +4049,12 @@ class AgentWatch:
             except asyncio.TimeoutError:
                 pass
 
-    async def tick(self, core, msg: dict) -> dict:
-        """Post ``msg`` and wait for the agent to execute a decision and
-        go idle. Returns the tick's record: the decide spans, the
-        backend calls and the decision."""
+    async def tick(self, core, msg: Optional[dict]) -> dict:
+        """Post ``msg`` (None: the caller already posted the message the
+        agent has not handled yet, as ``TaskManager.create_task`` does)
+        and wait for the agent to execute a decision and go idle. Returns
+        the tick's record: the decide spans, the backend calls and the
+        decision."""
         pool = core.config.model_pool
         mark = (len(self.calls), len(self.spans), len(self.embed_ms),
                 len(self.events), len(self.outcomes.get(core.agent_id, [])))
@@ -4027,7 +4064,8 @@ class AgentWatch:
                     for m in pool]
         before = n_results()
         t0 = time.monotonic()
-        core.post(msg)
+        if msg is not None:
+            core.post(msg)
         await self.until(lambda: all(a > b for a, b in zip(
             n_results(), before)) and self.idle(core))
         wall_ms = (time.monotonic() - t0) * 1e3
@@ -4222,9 +4260,15 @@ def phase_agent(torch, R, kernels, serve_backend, decide_backend) -> dict:
                                               DECIDE_POOL)))
         tm = cdeps.token_manager
         before = tm.history_tokens(MODEL, ccore.ctx.history(MODEL))
-        crec = await watch.tick(ccore, {
-            "type": "user_message", "from": "user",
-            "content": "Summarize where the build stands, then decide."})
+        budget = A.reflector.REFLECTION_MAX_OUTPUT_TOKENS
+        A.reflector.REFLECTION_MAX_OUTPUT_TOKENS = AGENT_REFLECTION_TOKENS
+        try:
+            crec = await watch.tick(ccore, {
+                "type": "user_message", "from": "user",
+                "content": "Summarize where the build stands, then "
+                           "decide."})
+        finally:
+            A.reflector.REFLECTION_MAX_OUTPUT_TOKENS = budget
         hist = ccore.ctx.history(MODEL)
         after = tm.history_tokens(MODEL, hist)
         reflect = [c for c in crec["calls"] if c["session"] is None]
@@ -4235,6 +4279,7 @@ def phase_agent(torch, R, kernels, serve_backend, decide_backend) -> dict:
                 MODEL, after, pool_backend.output_limit(MODEL)) is not None,
             "reflect_queries": len(reflect),
             "reflect_ms": sum(c["ms"] for c in reflect),
+            "reflect_tokens": AGENT_REFLECTION_TOKENS,
             "embed_ms": crec["embed_ms"], "lessons": len(
                 ccore.ctx.context_lessons.get(MODEL, [])),
             "tick": crec}
@@ -4382,6 +4427,272 @@ def phase_agent(torch, R, kernels, serve_backend, decide_backend) -> dict:
     if not all(checks.values()):
         emit(report)
         raise AssertionError(f"the agent phase failed its checks: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return report
+
+
+# the runtime phase's three messages: the task's description, then the
+# user's message to the restored agent and to the revived one. With
+# "The build is green again. Decide the next step." the revived tick's
+# first decide ended all_invalid (36.5 of its 43.1 s on the H100); with
+# this one all three ticks were "ok" in one round
+RUNTIME_MESSAGES = ("Task: keep the build green. Decide the next step.",
+                    "The build is still green. Decide the next step.",
+                    "Decide the next step.")
+
+
+def json_entries(core, pool: list) -> dict:
+    """Each member's history, entry for entry, as JSON (what the
+    database holds: kind, content, ts, action_type)."""
+    return {m: [json.dumps([e.kind, e.content, e.ts, e.action_type],
+                           sort_keys=True, default=str)
+                for e in core.ctx.history(m)] for m in pool}
+
+
+def decode_steps(tick: dict) -> dict:
+    """Each member's decode in one tick: the agent's query calls, the
+    tokens decoded (one step each), their decode ms and ms a step."""
+    out = {}
+    for c in tick["calls"]:
+        if c["session"] != tick["agent"]:
+            continue
+        for m, st in c["members"].items():
+            d = out.setdefault(m, {"calls": 0, "steps": 0, "decode_ms": 0.0})
+            d["calls"] += 1
+            d["steps"] += st["completion"]
+            d["decode_ms"] += st["decode_ms"]
+    for d in out.values():
+        d["ms_per_step"] = d["decode_ms"] / d["steps"] if d["steps"] else None
+    return out
+
+
+def phase_runtime(torch, R, kernels, decide_backend) -> dict:
+    """The runtime and what it wires (runtime.py's Runtime over
+    persistence/, the world actions' seams, EventHistory and the
+    StallWatchdog) on the card, over the decide pool (llama-3-8b,
+    mistral-7b, gemma-7b at full width, DEPTH_CUT layers) on engines of
+    the phase's own over its weights (``agent_backend``), allowed actions
+    {"wait"}, DECIDE_MAX_TOKENS a member. The database is a file in a
+    temporary directory outside the checkout (removed after), its vault
+    keyed. Runtime A creates a task (TaskManager.create_task: the row,
+    the root agent, its first message); its first tick must end "ok"
+    with a DECISION and its RESULT; then pause_task: the agent stops, its
+    KV sessions are dropped, every member's free + cached pages are as
+    before the task, the row reads "paused". Runtime B, a new stack over
+    the same file and backend, restore_task's the tree: every member's
+    history equal, entry for entry, to A's at the pause; a user message
+    gives a second tick ("ok"; its prefill and cached tokens and wall ms
+    reported). The task, left "running" (its agents stopped without a
+    status change: a crash), is revived by runtime C's boot() and decides
+    once more. Each tick's decode steps and ms a step are reported a
+    member. The costs persisted for the task equal the escrow's spent;
+    EventHistory holds the task's lifecycle and action events; the
+    StallWatchdog has the backend's sources (none under the baton
+    batcher) and no trip. ragged_fwd must have launched and the paged and
+    int8 kernels not (flash_fwd counted). Last,
+    Runtime(RuntimeConfig(backend="torch", continuous=True,
+    model_pool=["xla:tiny", <tiny at head dim 128>])) builds its own
+    TorchBackend, whose engines must sit on cuda (the entry point's
+    device default); its watchdog holds the continuous loops' sources,
+    one of which a query advances with no trip; closed at once."""
+    import importlib.util
+    from quoracle_tpu_torch import runtime as RT
+    A = agent_modules()
+    t_phase = time.monotonic()
+    pool_backend = agent_backend(R, decide_backend, DECIDE_POOL)
+    t0 = time.monotonic()
+    for spec in DECIDE_POOL:
+        pool_backend.engines[spec]._json_table_device((("wait",),))
+    grammar_s = time.monotonic() - t0
+    forbidden = tuple(a for a in A.ACTIONS if a != "wait")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-runtime-")
+    config = RT.RuntimeConfig(db_path=os.path.join(tmp, "runtime.db"),
+                              encryption_key="chip-smoke-runtime",
+                              backend="torch")
+    report = {"phase": "runtime", "pool": DECIDE_POOL, "depth": DEPTH_CUT,
+              "max_tokens": DECIDE_MAX_TOKENS,
+              "grammar_prebuild_s": grammar_s,
+              "cryptography": importlib.util.find_spec("cryptography")
+              is not None}
+    watchdogs = []
+
+    def stack():
+        rt = RT.Runtime(config, backend=pool_backend)
+        watch = AgentWatch(A, [pool_backend], rt.bus)
+        # TaskManager starts agents through deps.supervisor
+        rt.supervisor = watch.supervisor(rt.deps, forbidden)
+        return rt, watch
+
+    def close(rt, watch):
+        watchdogs.append({"status": rt.watchdog.status(),
+                          "backend_sources": sorted(
+                              n for n, _ in pool_backend.watchdog_sources())})
+        watch.close()
+        rt.close()
+
+    async def main():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        pages0 = pages_view(pool_backend)
+        # A: create, the first tick, pause
+        rt, watch = stack()
+        report["vault_active"] = rt.db.vault.active
+        t0 = time.monotonic()
+        task_id, root = await rt.tasks.create_task(
+            RUNTIME_MESSAGES[0], model_pool=list(DECIDE_POOL))
+        report["create_ms"] = (time.monotonic() - t0) * 1e3
+        tick1 = await watch.tick(root, None)
+        t0 = time.monotonic()
+        stopped = await rt.tasks.pause_task(task_id)
+        report["pause"] = {
+            "ms": (time.monotonic() - t0) * 1e3, "stopped": stopped,
+            "row": rt.store.get_task(task_id)["status"],
+            "sessions_dropped": all(
+                e.sessions.get(root.agent_id) is None
+                for e in pool_backend.engines.values()),
+            "pages": [pages0, pages_view(pool_backend)]}
+        at_pause = json_entries(root, DECIDE_POOL)
+        report["history_a"] = {
+            "lifecycle": [(e["event"], e.get("status"))
+                          for e in rt.history.replay_lifecycle()],
+            "actions": [(e["event"], e.get("action"))
+                        for e in rt.history.replay_actions()
+                        if e.get("agent_id") == root.agent_id],
+            "traces": len(rt.history.replay_traces(task_id))}
+        close(rt, watch)
+
+        # B: a new stack over the same file and backend
+        rt, watch = stack()
+        t0 = time.monotonic()
+        restored_n = await rt.tasks.restore_task(task_id)
+        report["restore_ms"] = (time.monotonic() - t0) * 1e3
+        core = rt.registry.lookup(root.agent_id).core
+        report["restored"] = {
+            "agents": restored_n,
+            "equal": json_entries(core, DECIDE_POOL) == at_pause,
+            "entries": {m: len(v) for m, v in at_pause.items()}}
+        tick2 = await watch.tick(core, {
+            "type": "user_message", "from": "user",
+            "content": RUNTIME_MESSAGES[1]})
+        calls = [c for c in tick2["calls"] if c["session"] == core.agent_id]
+        report["restored_tick"] = {
+            "wall_ms": tick2["wall_ms"],
+            "members": {m: {"prefill": st["prompt"] - st["cached"],
+                            "cached": st["cached"]}
+                        for m, st in calls[0]["members"].items()}
+            if calls else {}}
+        await rt.supervisor.stop_all(task_id)     # a crash: still running
+        report["left_running"] = rt.store.get_task(task_id)["status"]
+        close(rt, watch)
+
+        # C: boot revival
+        rt, watch = stack()
+        revival = await rt.boot()
+        core = rt.registry.lookup(root.agent_id).core
+        tick3 = await watch.tick(core, {
+            "type": "user_message", "from": "user",
+            "content": RUNTIME_MESSAGES[2]})
+        torch.cuda.synchronize()
+        report["launches"] = kernels.launch_counts()
+        report["revival"] = {"revived": [t == task_id
+                                         for t in revival["revived"]],
+                             "failed": revival["failed"]}
+        report["costs"] = {
+            "persisted": str(rt.store.costs_for_task(task_id)),
+            "escrow_spent": str(rt.escrow.get(root.agent_id).spent)}
+        await rt.tasks.pause_task(task_id)
+        report["status"] = rt.status()
+        close(rt, watch)
+        report["ticks"] = [tick1, tick2, tick3]
+        report["decode"] = [decode_steps(t) for t in report["ticks"]]
+        return task_id
+
+    try:
+        task_id = asyncio.run(main())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the entry point's device default: its own backend, on the card.
+    # The pool's baton batcher has no decode loop, so the watchdogs
+    # above have no source to watch; this backend runs the continuous
+    # loop, whose sources the watchdog holds, and one query of tiny at
+    # the kernels' head dim 128 (tiny's own 16 is below it) must
+    # advance its source without a trip
+    from quoracle_tpu_torch.models import config as C
+    tiny128 = "xla:" + C.register_model(dataclasses.replace(
+        C.get_model_config("xla:tiny"), name="tiny-hd128", dim=256,
+        n_heads=2, n_kv_heads=1, head_dim=128)).name
+    rt = RT.Runtime(RT.RuntimeConfig(backend="torch", continuous=True,
+                                     model_pool=["xla:tiny", tiny128]))
+    report["device_default"] = {spec: e.device.type
+                                for spec, e in rt.backend.engines.items()}
+    progress = dict(rt.backend.watchdog_sources())[f"decode-loop:{tiny128}"]
+    p0 = progress()
+    res = rt.backend.query([R.QueryRequest(
+        tiny128, [{"role": "user", "content": RUNTIME_MESSAGES[2]}],
+        temperature=0.0, max_tokens=16)])
+    report["loop_watchdog"] = {
+        "ok": res[0].ok, "error": res[0].error,
+        "progress": [p0, progress()],
+        "scan_tripped": rt.watchdog.check_now(),
+        "status": rt.watchdog.status()}
+    rt.close()
+    rt.backend.close()
+    del rt
+    report["seconds"] = time.monotonic() - t_phase
+    report["nvidia_smi"] = nvidia_smi()
+    report["watchdogs"] = watchdogs
+    pause, launches = report["pause"], report["launches"]
+    checks = {
+        "tick1": agent_tick_ok(report["ticks"][0], task_id),
+        "paused": (pause["stopped"] == 1 and pause["row"] == "paused"
+                   and pause["sessions_dropped"]),
+        "pages_back": all(
+            p1["free"] + p1["cached"] == p0["free"] + p0["cached"]
+            for p0, p1 in zip(pause["pages"][0].values(),
+                              pause["pages"][1].values())),
+        "restored": (report["restored"]["agents"] == 1
+                     and report["restored"]["equal"]),
+        "tick2": agent_tick_ok(report["ticks"][1], task_id),
+        "left_running": report["left_running"] == "running",
+        "revived": report["revival"] == {"revived": [True], "failed": []},
+        "tick3": agent_tick_ok(report["ticks"][2], task_id),
+        "costs": (report["costs"]["persisted"]
+                  == report["costs"]["escrow_spent"]
+                  and A.Decimal(report["costs"]["persisted"]) > 0),
+        "event_history": (
+            {("agent_spawned", None), ("task_status_changed", "running"),
+             ("task_status_changed", "paused")}
+            <= set(map(tuple, report["history_a"]["lifecycle"]))
+            and {("action_started", "wait"), ("action_completed", "wait")}
+            <= set(map(tuple, report["history_a"]["actions"]))
+            and report["history_a"]["traces"] > 0),
+        # vacuous under the baton batcher (no sources on either side)
+        "watchdog_baton": len(watchdogs) == 3 and all(
+            w["status"]["sources"] == w["backend_sources"]
+            and w["status"]["trips"] == 0 for w in watchdogs),
+        "watchdog_loop": (
+            report["loop_watchdog"]["ok"]
+            and report["loop_watchdog"]["status"]["sources"]
+            == sorted(f"decode-loop:{m}" for m in ("xla:tiny", tiny128))
+            and report["loop_watchdog"]["status"]["running"]
+            and report["loop_watchdog"]["progress"][1][1]
+            > report["loop_watchdog"]["progress"][0][1]
+            and report["loop_watchdog"]["scan_tripped"] == []
+            and report["loop_watchdog"]["status"]["trips"] == 0),
+        "status": report["status"]["tasks"].get(task_id) == "paused",
+        "kernels": launches["ragged_fwd"] > 0 and all(
+            launches[k] == 0 for k in
+            ("paged_fwd", "paged_prefill_fwd", "ragged_q8_fwd")),
+        "device_default": report["device_default"] == {
+            "xla:tiny": "cuda", tiny128: "cuda"},
+        "cleaned": not os.path.exists(tmp),
+    }
+    report["checks"] = checks
+    del pool_backend
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        emit(report)
+        raise AssertionError(f"the runtime phase failed its checks: "
                              f"{[k for k, v in checks.items() if not v]}")
     return report
 
@@ -5535,7 +5846,7 @@ def main(argv) -> int:
     only = None
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
               "continuous", "spec", "ckpt", "tiers", "obs", "agent",
-              "reference")
+              "runtime", "reference")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -5612,6 +5923,11 @@ def main(argv) -> int:
         emit(phase_agent(torch, R, kernels, backend,
                          decide_pool_backend(torch, R, backend)[0]))
         return 0
+    if only == "runtime":
+        backend = R.TorchBackend([MODEL], seed=0)
+        emit(phase_runtime(torch, R, kernels,
+                           decide_pool_backend(torch, R, backend)[0]))
+        return 0
     if only == "reference":
         emit(phase_reference(torch, R))
         return 0
@@ -5665,6 +5981,8 @@ def main(argv) -> int:
     emit(phase_obs(torch, R, backend, pool_backend))
     agent_report = phase_agent(torch, R, kernels, backend, pool_backend)
     emit(agent_report)
+    runtime_report = phase_runtime(torch, R, kernels, pool_backend)
+    emit(runtime_report)
     # phase_spec releases the decide pool once its decide has run
     pools = [pool_backend]
     del pool_backend
@@ -5686,6 +6004,7 @@ def main(argv) -> int:
             + continuous_report["pool"]["launches"][e["name"]])
         e["spec_launches"] = spec_report["launches"][e["name"]]
         e["agent_launches"] = agent_report["launches"][e["name"]]
+        e["runtime_launches"] = runtime_report["launches"][e["name"]]
         if e["name"] == "ragged_fwd":
             e["verify"] = spec_report["verify_ticks"]["ragged_fwd_bf16"]
             e["verify_fp32"] = spec_report["verify_ticks"]["ragged_fwd"]

@@ -1,8 +1,8 @@
 """Actions layer of the PyTorch port: the action vocabulary (schemas,
 validation, consensus merge rules) and its execution (the per-action
-router in router.py, the executors in executors.py). The world actions
-(``actions/world.py``: fetch_web, call_api, call_mcp, answer_engine,
-generate_images) are not ported yet (Queue 1 item 9, second bullet)."""
+router in router.py, the executors in executors.py, and the world-facing
+ones in world.py: fetch_web, call_api, call_mcp, answer_engine,
+generate_images)."""
 
 from quoracle_tpu_torch.actions.schema import (  # noqa: F401
     ACTIONS,
@@ -14,3 +14,4 @@ from quoracle_tpu_torch.actions.schema import (  # noqa: F401
 
 # Executor registration side effects: importing this fills EXECUTORS.
 from quoracle_tpu_torch.actions import executors as _executors  # noqa: E402,F401
+from quoracle_tpu_torch.actions import world as _world  # noqa: E402,F401

@@ -19,11 +19,12 @@ answer_engine, generate_images) and the skills actions live in
 actions/world.py / the skills subsystem and register themselves here.
 
 The PyTorch port's copy of ``quoracle_tpu/actions/executors.py``, with
-the seventeen executors registered here. Left for a later slice (Queue 1
-item 9, second bullet): the world actions (``actions/world.py``) and grove
-confinement and topology (``governance/grove.py``); the port's agents run
-without a grove (``AgentCore`` refuses a ``grove_path``), so the grove
-branches of the file, shell and spawn executors are not copied.
+the seventeen executors registered here (the world actions register from
+``actions/world.py``). Left for a later slice (ROADMAP Queue 1 item 9,
+second bullet): grove confinement and topology (``governance/grove.py``);
+the port's agents run without a grove (``AgentCore`` refuses a
+``grove_path``), so the grove branches of the file, shell and spawn
+executors are not copied.
 """
 
 from __future__ import annotations

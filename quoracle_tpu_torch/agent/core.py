@@ -29,9 +29,8 @@ consensus_handler.ex:64,126-152,264-292) rebuilt as an asyncio actor:
   rounds batch into the same engine.
 
 The PyTorch port's copy of ``quoracle_tpu/agent/core.py``. Left for a
-later slice (Queue 1 item 9, second bullet): groves (an
-``AgentConfig.grove_path`` raises ``NotImplementedError``) and persistence
-(``AgentDeps.persistence`` stays None in the port).
+later slice (ROADMAP Queue 1 item 9, second bullet): groves (an
+``AgentConfig.grove_path`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations

@@ -105,12 +105,16 @@ class AgentDeps:
     costs: CostRecorder
     token_manager: TokenManager
     secrets: SecretStore = dataclasses.field(default_factory=SecretStore)
-    persistence: Any = None          # persistence layer (not ported yet:
-                                     # None in the port)
+    persistence: Any = None          # persistence layer
+    # (The JAX AgentDeps also carries a grove override; groves are not
+    # ported yet: ROADMAP Queue 1 item 9, second bullet.)
     skills: Any = None               # global SkillsLoader (optional)
-    # The JAX AgentDeps also carries the grove override and the world
-    # actions' seams (http, ssrf_check, mcp, credentials, images); the
-    # port has neither yet (Queue 1 item 9, second bullet).
+    # world-facing seams (actions/world.py)
+    http: Any = None                 # HttpFn transport; None = zero-egress
+    ssrf_check: bool = True          # reference web.ex optional SSRF check
+    mcp: Any = None                  # MCPManager
+    credentials: Any = None          # CredentialStore (call_api/MCP auth)
+    images: Any = None               # ImageBackend
     # test seams (reference injectable consensus_fn / delay_fn)
     consensus_fn: Optional[Callable] = None
     shell_sync_threshold_s: float = 0.1   # reference actions/shell.ex:13

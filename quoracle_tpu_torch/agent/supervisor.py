@@ -89,8 +89,14 @@ class AgentSupervisor:
         drop = getattr(self.deps.backend, "drop_session", None)
         if drop is not None:
             drop(agent_id)
-        # (The JAX supervisor also releases the agent's MCP connections;
-        # the port has no MCP manager yet.)
+        # MCP teardown (reference: per-agent Client GenServers die with
+        # their agent): connections only this agent used close now.
+        mcp = getattr(self.deps, "mcp", None)
+        if mcp is not None:
+            try:
+                await mcp.release_agent(agent_id)
+            except Exception:
+                logger.exception("MCP release for %s failed", agent_id)
         return True
 
     # -- tree termination (reference tree_terminator.ex) -------------------

@@ -264,7 +264,6 @@ def register_hf_checkpoint(path: str, name: Optional[str] = None
                            ) -> ModelConfig:
     """Register a checkpoint directory in the port's catalog as
     ``xla:<name>``. Weights load when an engine is built (TorchBackend
-    reads ``cfg.checkpoint_path``), not here. (The JAX package's
-    top-level runtime calls this for ``--checkpoint``; that runtime's
-    port is ROADMAP Queue 1 item 9.)"""
+    reads ``cfg.checkpoint_path``), not here. ``runtime.Runtime`` calls
+    this for each of ``RuntimeConfig.checkpoints``."""
     return register_model(_read_config(path, name))

@@ -1,7 +1,10 @@
 """Shared helpers of the agent-layer parity tests (tests/test_torch_bus.py,
 test_torch_context.py, test_torch_actions_exec.py, test_torch_agent.py,
-test_torch_agent_e2e.py): each package's agent-layer modules under one
-namespace, an event-driven wait, and a view that drops ids and times.
+test_torch_agent_e2e.py, test_torch_world_actions.py,
+test_torch_persistence.py, test_torch_runtime.py): each package's
+agent-layer modules and the layers above them (world actions,
+persistence, the runtime) under one namespace, an event-driven wait, and
+a view that drops ids and times.
 
 Waiting never polls a clock: ``Watch`` wakes whenever an agent of either
 package finishes handling a mailbox message (every state change of an
@@ -12,6 +15,7 @@ the timeout only bounds a hung run; it never decides a result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -35,6 +39,11 @@ MODULES = {
     "skills": "governance.skills",
     "capabilities": "governance.capabilities", "runtime": "models.runtime",
     "normalize": "utils.normalize", "cengine": "consensus.engine",
+    "world": "actions.world", "http": "infra.http", "mcp": "infra.mcp",
+    "html_md": "utils.html_md", "images": "models.images",
+    "db": "persistence.db", "store": "persistence.store",
+    "tasks": "persistence.tasks", "event_history": "infra.event_history",
+    "rt": "runtime",
 }
 
 
@@ -62,6 +71,7 @@ WAIT_FOREVER = j("wait", {}, wait=False)
 
 # ids and times: random per run, so the comparison drops them
 _ID_RES = [(re.compile(r"agent-[0-9a-f]{12}"), "agent-*"),
+           (re.compile(r"task-[0-9a-f]{12}"), "task-*"),
            (re.compile(r"action-[0-9a-f]{12}"), "action-*"),
            (re.compile(r"cmd-[0-9a-f]{10}"), "cmd-*"),
            (re.compile(r'(NO_EXECUTE id=\\*")[0-9a-f]{8}'), r"\1*"),
@@ -317,3 +327,75 @@ class Env:
             except KeyError:
                 pass
         return view(out)
+
+
+# The persistence layer's tables (persistence/db.py), for comparing two
+# packages' databases row by row.
+TABLES = ("tasks", "agents", "logs", "messages", "actions", "agent_costs",
+          "secrets", "secret_usage", "credentials", "profiles",
+          "model_settings", "consensus_audit")
+JSON_COLUMNS = {"task_fields", "agent_fields", "config", "ace_state",
+                "data", "params", "content", "targets", "record"}
+ROW_TIMES = TIME_KEYS | {"updated_at", "completed_at"}
+
+
+def row_view(row) -> dict:
+    out = {}
+    for k in row.keys():
+        if k in ROW_TIMES:
+            continue
+        v = row[k]
+        if isinstance(v, (bytes, memoryview)):
+            v = "<blob>"
+        elif k in JSON_COLUMNS or (k == "value" and isinstance(v, str)):
+            v = json.loads(v)
+        out[k] = v
+    return view(out)
+
+
+def db_view(db) -> dict:
+    """Every table's rows, ids and times dropped, as a sorted multiset
+    (agents' broadcasts reach the durable writer from several threads)."""
+    return {t: sorted((row_view(r) for r in db.query(f"SELECT * FROM {t}")),
+                      key=lambda d: json.dumps(d, sort_keys=True))
+            for t in TABLES}
+
+
+@contextlib.contextmanager
+def process_hooks_restored():
+    """Both packages' process-wide hooks as they were before the block.
+    A ``Runtime`` installs them, as a node's composition root should:
+    ``FLIGHT.install()`` (a tracer sink, the excepthook and the
+    SIGTERM/SIGQUIT chains), ``fleetobs.ensure_ring()`` (the span ring's
+    sink) and ``introspect.start`` (stall-detector watches). Tests that
+    build runtimes restore them, so that a later test in the same worker
+    finds the tracer with no sink."""
+    import signal
+    import sys
+    saved = []
+    for pkg in BOTH:
+        flight = importlib.import_module(f"{pkg.name}.infra.flightrec")
+        fleet = importlib.import_module(f"{pkg.name}.infra.fleetobs")
+        intro = importlib.import_module(f"{pkg.name}.infra.introspect")
+        saved.append((pkg, flight, fleet, intro,
+                      list(pkg.telemetry.TRACER._sinks),
+                      flight.FLIGHT._installed, fleet._ring_installed,
+                      set(intro.STALLS._watches)))
+    hook = sys.excepthook
+    handlers = {s: signal.getsignal(s)
+                for s in (signal.SIGTERM, signal.SIGQUIT)}
+    try:
+        yield
+    finally:
+        for pkg, flight, fleet, intro, sinks, installed, ring, watches \
+                in saved:
+            for fn in list(pkg.telemetry.TRACER._sinks):
+                if fn not in sinks:
+                    pkg.telemetry.TRACER.remove_sink(fn)
+            flight.FLIGHT._installed = installed
+            fleet._ring_installed = ring
+            for name in set(intro.STALLS._watches) - watches:
+                intro.STALLS.unwatch(name)
+        sys.excepthook = hook
+        for s, h in handlers.items():
+            signal.signal(s, h)

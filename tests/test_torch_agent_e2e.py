@@ -1,8 +1,9 @@
 """An agent's decide loop over the port's ``TorchBackend(device="cpu")``
 against the JAX agent's over ``TPUBackend``: tests/test_e2e_tpu_agent.py's
-cases 1, 2 and 4 (:36, :86, :193) on ``xla:tiny`` + ``xla:tiny-gemma``
-with the same fp32 weights (tests/_torch_parity.py). Case 3 (pause and
-restore) needs the persistence layer, which the port does not have yet.
+four cases (:36, :86, :133, :193) on ``xla:tiny`` + ``xla:tiny-gemma``
+with the same fp32 weights (tests/_torch_parity.py); case 3 (pause and
+restore) runs through each package's ``Runtime``. Also
+``answer_engine`` over each real backend.
 
 Both packages' engines run on the unified ragged tier without prefix
 sharing, and the decides are greedy (both consensus engines'
@@ -15,6 +16,7 @@ tokens, cost entries (the ``Decimal`` amounts from each backend's usage)
 and ``serving_round`` events (ms dropped). One more test holds the
 executor thread, which runs every decide tick, to no autograd."""
 
+import dataclasses
 import functools
 import threading
 
@@ -23,7 +25,8 @@ import pytest
 import torch
 
 from _agent_parity import (
-    BOTH, JAX, PORT, Env, idle, install_watch, run, view,
+    BOTH, JAX, PORT, Env, first_difference, history_view, idle,
+    install_watch, new_watch, process_hooks_restored, run, view,
 )
 from _torch_parity import both_configs, shared_params
 from quoracle_tpu.models import embeddings as jemb
@@ -52,32 +55,45 @@ def greedy(monkeypatch):
         jtr.init_cache, dtype=jnp.float32))
 
 
-def engines(pkg, pool):
+def engines(pkg, pool, window=None):
     out = {}
     for spec in pool:
         name = spec.split(":")[1]
         jcfg, tcfg = both_configs(name)
         jparams, model = shared_params(name, seed=7)
+        kw = {}
+        if window:
+            jcfg = dataclasses.replace(jcfg, context_window=window)
+            tcfg = dataclasses.replace(tcfg, context_window=window)
+            kw["max_seq"] = window
         if pkg is JAX:
-            e = jgen.GenerateEngine(jcfg, jparams, jtok.get_tokenizer(spec))
+            e = jgen.GenerateEngine(jcfg, jparams, jtok.get_tokenizer(spec),
+                                    **kw)
         else:
             e = tgen.GenerateEngine(tcfg, model, ttok.get_tokenizer(spec),
-                                    device="cpu")
+                                    device="cpu", **kw)
         e.unified_min_tokens = 0
         e.prefix_sharing = False
         out[spec] = e
     return out
 
 
-def backend(pkg, pool=POOL, **kw):
-    engs = engines(pkg, pool)
+def backend(pkg, pool=POOL, window=None, **kw):
+    """Each package's real backend over the shared weights. ``window``
+    widens the members' context window (engines, and the backend's
+    answer to ``context_window``) over the same weights."""
+    engs = engines(pkg, pool, window)
     if pkg is JAX:
         e0 = engs[pool[0]]
-        return pkg.runtime.TPUBackend(
+        b = pkg.runtime.TPUBackend(
             list(pool), engines=engs, embedder=jemb.EmbeddingEncoder(
                 e0.cfg, e0.params, e0.tokenizer), **kw)
-    return pkg.runtime.TorchBackend(list(pool), device="cpu", engines=engs,
-                                    **kw)
+    else:
+        b = pkg.runtime.TorchBackend(list(pool), device="cpu", engines=engs,
+                                     **kw)
+    if window:
+        b.context_window = lambda spec: window
+    return b
 
 
 def wait_only(pkg):
@@ -264,3 +280,150 @@ def test_decide_tick_on_the_executor_thread_builds_no_autograd(greedy):
     threads = {n for n, _, _ in seen}
     assert threading.current_thread().name not in threads
     assert not any(g or r for _, g, r in seen)
+
+
+def _wait_only_core(pkg, core):
+    """The JAX file's seams on a task's agent: only ``wait`` allowed, the
+    compact prompt, the output budget, two refinement rounds."""
+    core.config.capability_groups = []
+    core.config.forbidden_actions = wait_only(pkg)
+    core.engine = core._build_engine()
+    core.config.max_refinement_rounds = 2
+    core._system_prompt = PROMPT
+    core.engine.config.max_tokens = MAX_TOKENS
+
+
+def test_pause_restore_on_both_backends_through_the_runtime(greedy,
+                                                            tmp_path):
+    """Case 3 (:133), through each package's ``Runtime`` over its real
+    backend (``TorchBackend(device="cpu")`` and ``TPUBackend`` on the
+    same weights): an agent decides and executes, its task pauses (KV
+    sessions dropped), a second runtime over the same database file and
+    backend restores it with the history intact, and it decides again
+    after a message, re-prefilling from the history. Decisions,
+    histories and each round's cached tokens equal. The members' window
+    is widened from 512 to 1,024 tokens over the same weights: the
+    restored tick's prompt (469 tokens with the compact system prompt)
+    leaves 43 tokens of tiny's window, in which no greedy answer closes
+    its JSON, and the tick then condenses and fails on both packages
+    alike."""
+    def case(pkg):
+        async def main():
+            b = backend(pkg, window=1024)
+            cached, prompt = [], []
+            orig = b.query
+
+            def query(requests):
+                res = orig(requests)
+                cached.append({r.model_spec: r.cached_tokens for r in res})
+                prompt.append({r.model_spec: r.usage.prompt_tokens
+                               for r in res})
+                return res
+            b.query = query
+            path = str(tmp_path / f"{pkg.name[-5:]}.db")
+            cfg = pkg.rt.RuntimeConfig(db_path=path, encryption_key="k" * 16)
+            rt = pkg.rt.Runtime(cfg, backend=b)
+            w = new_watch(rt.deps)
+            task_id, root = await rt.tasks.create_task(
+                "decide actions on the real backend", model_pool=list(POOL))
+            _wait_only_core(pkg, root)
+
+            def decided(core):
+                h = core.ctx.history(POOL[0])
+                return any(e.kind == "decision" for e in h) \
+                    and any(e.kind == "result" for e in h) and idle(core)
+            await w.until(lambda: decided(root), timeout=300)
+            out = {"before": {m: history_view(root, m) for m in POOL},
+                   "status": rt.status()}
+            await rt.tasks.pause_task(task_id)
+            out["rounds_before_pause"] = len(cached)
+            out["dropped"] = [e.sessions.get(root.agent_id) is None
+                              for e in b.engines.values()]
+            out["paused"] = rt.status()
+            rt.close()
+
+            rt2 = pkg.rt.Runtime(cfg, backend=b)
+            w2 = new_watch(rt2.deps)
+            out["restored_n"] = await rt2.tasks.restore_task(task_id)
+            restored = rt2.registry.agents_for_task(task_id)[0].core
+            out["restored"] = {m: history_view(restored, m) for m in POOL}
+            _wait_only_core(pkg, restored)
+            n0 = len([e for e in restored.ctx.history(POOL[0])
+                      if e.kind == "decision"])
+            restored.post({"type": "user_message", "from": "user",
+                           "content": "continue deciding"})
+            await w2.until(lambda: len(
+                [e for e in restored.ctx.history(POOL[0])
+                 if e.kind == "decision"]) > n0 and idle(restored),
+                timeout=300)
+            out["after"] = {m: history_view(restored, m) for m in POOL}
+            await rt2.tasks.pause_task(task_id)
+            out["cached"], out["prompt"] = cached, prompt
+            out["costs"] = str(rt2.store.costs_for_task(task_id))
+            out["final"] = rt2.status()
+            rt2.close()
+            return out
+        return main()
+    with process_hooks_restored():
+        got = [run(case(pkg), timeout=900) for pkg in BOTH]
+    for g in got:        # the backend's name is each package's own
+        for key in ("status", "paused", "final"):
+            assert g[key].pop("backend") in ("TPUBackend", "TorchBackend")
+    a, b = view(got[0]), view(got[1])
+    assert b == a, first_difference(a, b)
+    port = got[1]
+    assert port["restored"] == port["before"]
+    assert all(port["dropped"]) and port["restored_n"] == 1
+    decisions = [c for k, _, c in port["after"][POOL[0]] if k == "decision"]
+    assert len(decisions) >= 2 and all(d["action"] == "wait"
+                                       for d in decisions)
+    assert list(port["paused"]["tasks"].values()) == ["paused"]
+    # the restored agent re-prefilled: the pause dropped its sessions, so
+    # its first round served less than the whole prompt from resident KV
+    first = port["rounds_before_pause"]
+    assert first >= 1 and len(port["cached"]) > first
+    assert all(port["cached"][first][m] < port["prompt"][first][m]
+               for m in port["prompt"][first])
+
+
+def test_answer_engine_on_both_backends(greedy, monkeypatch):
+    """``answer_engine`` over each package's real backend: its
+    sessionless query (the dense path; flash on the card) gives the same
+    text at temperature 0 (the executor samples at 0.3; the test pins
+    its request to greedy and 24 tokens, as the decides' temperature is
+    pinned)."""
+    import types
+
+    for pkg in BOTH:
+        real = pkg.runtime.QueryRequest
+
+        def greedy_request(*a, _real=real, **kw):
+            return dataclasses.replace(_real(*a, **kw), temperature=0.0,
+                                       max_tokens=24)
+        monkeypatch.setattr(pkg.runtime, "QueryRequest", greedy_request)
+
+    def case(pkg):
+        async def main():
+            b = backend(pkg, ["xla:tiny"])
+            env = Env(pkg, b)
+            core = types.SimpleNamespace(
+                deps=env.deps, agent_id="agent-ae",
+                config=pkg.state.AgentConfig(agent_id="agent-ae",
+                                             task_id="task-ae",
+                                             model_pool=["xla:tiny"]))
+            res = await pkg.world.answer_engine_action(
+                core, None, {"query": "what is two plus two?",
+                             "focus": "arithmetic"})
+            env.close()
+            return res, [(c.amount > 0, c.cost_type, c.input_tokens,
+                          c.output_tokens, c.description)
+                         for c in env.deps.costs.entries_for("agent-ae")]
+        return main()
+    got = [run(case(pkg), timeout=600) for pkg in BOTH]
+    assert view(got[1]) == view(got[0])
+    res, costs = got[1]
+    assert res["status"] == "ok" and res["answer"]
+    assert res["model"] == "xla:tiny" and res["sources"] == []
+    (paid, kind, _, out_tokens, what), = costs
+    assert paid and kind == "model" and what == "answer_engine"
+    assert 0 < out_tokens <= 24

@@ -3,8 +3,9 @@ chip_smoke.py, in a fresh interpreter loads neither JAX nor the JAX
 package, nor the libraries the JAX package reads checkpoints with
 (``safetensors``, ``tokenizers``, ``transformers``, ``regex``,
 ``ml_dtypes``), which the card's machine lacks, nor PyYAML, which it may
-lack (the skills actions import it when they read a SKILL.md). (Only
-the parity tests import them.)"""
+lack (the skills actions import it when they read a SKILL.md), nor
+``cryptography``, which it may lack (the persistence vault imports it
+when it is given a key). (Only the parity tests import them.)"""
 
 import os
 import subprocess
@@ -82,13 +83,24 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.agent.state",
              "quoracle_tpu_torch.agent.registry",
              "quoracle_tpu_torch.agent.core",
-             "quoracle_tpu_torch.agent.supervisor"):
+             "quoracle_tpu_torch.agent.supervisor",
+             "quoracle_tpu_torch.persistence",
+             "quoracle_tpu_torch.persistence.db",
+             "quoracle_tpu_torch.persistence.store",
+             "quoracle_tpu_torch.persistence.tasks",
+             "quoracle_tpu_torch.infra.event_history",
+             "quoracle_tpu_torch.infra.http",
+             "quoracle_tpu_torch.infra.mcp",
+             "quoracle_tpu_torch.utils.html_md",
+             "quoracle_tpu_torch.models.images",
+             "quoracle_tpu_torch.actions.world",
+             "quoracle_tpu_torch.runtime"):
     assert name in names, name
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join({repo!r}, "chip_smoke.py"))
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 BANNED = ("jax", "jaxlib", "quoracle_tpu", "safetensors", "tokenizers",
-          "transformers", "regex", "ml_dtypes", "yaml")
+          "transformers", "regex", "ml_dtypes", "yaml", "cryptography")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 print(len(names), bad)
 """
@@ -101,5 +113,5 @@ def test_port_and_chip_smoke_import_no_jax():
         env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 83, out.stdout          # every module was imported
+    assert int(n) >= 94, out.stdout          # every module was imported
     assert bad.strip() == "[]", out.stdout

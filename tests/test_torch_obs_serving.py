@@ -17,10 +17,14 @@ deltas of the ``KV_*``, ``SCHED_*``, ``SPEC_*``, ``QOS_*``, ``PREFIX_*``
 and ``QUANT_*`` families, the flight records (kinds and fields, times
 dropped), ``padding_stats``, and the span tree of one decide (names,
 parents and attributes, ids and times dropped) with the audit record's
-``task_id`` equal to the trace id.
+``task_id`` equal to the trace id. The serving script runs both engine
+modules on one scripted clock (``StepClock``), so the compile
+registries' storm window holds the same misses on both sides, and
+``compile_storm`` fires on both, whatever the machine's load.
 """
 
 import contextlib
+import itertools
 import types
 
 import pytest
@@ -304,9 +308,26 @@ def _serving_script(pkg):
             eng.padding_stats(), eng2.padding_stats())
 
 
-def test_serving_counters_flight_records_and_padding_equal_jax():
+class StepClock:
+    """A scripted ``time`` for both engine modules: every reading is one
+    millisecond after the last (thread-safe: ``next`` on a count), so the
+    compile registries' 120 s storm window sees the same misses on both
+    sides whatever the machine's load."""
+
+    def __init__(self):
+        self._ticks = itertools.count()
+
+    def monotonic(self):
+        return 1000.0 + next(self._ticks) * 1e-3
+
+    def time(self):
+        return self.monotonic()
+
+
+def test_serving_counters_flight_records_and_padding_equal_jax(monkeypatch):
     out = {}
     for pkg in PKGS:
+        monkeypatch.setattr(pkg.gen, "time", StepClock())
         before = _family_state(pkg)
         pkg.fr.FLIGHT.record("marker", m="serving")
         res = _serving_script(pkg)
@@ -320,7 +341,7 @@ def test_serving_counters_flight_records_and_padding_equal_jax():
     assert {"kv", "sched", "spec", "qos", "prefix", "quant"} <= fams
     kinds = {e["kind"] for e in tfl}
     assert {"kv_demote", "kv_restore", "sched_admit", "sched_retire",
-            "qos_shed"} <= kinds
+            "qos_shed", "compile_storm"} <= kinds
 
 
 def _backend(pkg, pool):
