@@ -88,7 +88,7 @@ never prints its last line):
              counters and occupancy, the tier of each call and the
              launches (zeroed before each round); with sharing, fewer
              prefill tokens and pool pages; (2) copy-on-write through a
-             2-layer fp32 cut of llama-3-8b on the GPU and the CPU: a
+             1-layer fp32 cut of llama-3-8b on the GPU and the CPU: a
              session diverges inside a page an adopter shares, the page is
              copied (cow_copies) and the call runs on gather, the
              adopter's pages stay bit-identical on the card, and both
@@ -166,8 +166,8 @@ never prints its last line):
              batch-1 SpeculativeDecoder over a 322-token prompt must
              equal vanilla and launch flash; (3) llama-3-8b in bf16 at
              full depth over the serve phase's weights: one JSON row of
-             256 new tokens through the loop, spec off and on, and
-             through the batch-1 decoder: wall ms, ms per committed
+             SPEC_LONG_TOKENS new tokens through the loop, spec off and
+             on, and through the batch-1 decoder: wall ms, ms per committed
              token, rounds, acceptance, tokens a round, K after every
              round and the first differing token (recorded, not
              failed). The first verify tick's ragged inputs (fp32 and
@@ -223,8 +223,9 @@ never prints its last line):
              the reflection's and the embedder's ms, the launches
   runtime    runtime.Runtime (persistence, TaskManager, EventHistory, the
              StallWatchdog, the world actions' seams) over the decide
-             pool on engines of its own, a keyed database in a temporary
-             directory outside the checkout (removed after): runtime A
+             pool on engines of its own (members in turn), a keyed
+             database in a temporary directory outside the checkout
+             (removed after): runtime A
              creates a task whose first tick must end "ok", then pauses
              it (sessions dropped, free + cached pages as before, the row
              "paused"); runtime B restores it over the same file and
@@ -240,6 +241,39 @@ never prints its last line):
              and its continuous loop's source, held by the watchdog,
              advances over one query without a trip. vault_active says
              whether cryptography is there
+  web        the front doors (web/server.py, cli.py) and groves
+             (governance/grove.py) over the decide pool on engines of its
+             own, its members served in turn (overlap off): a grove
+             written to a temporary directory outside the checkout (root
+             and child nodes on one auto_inject edge, a
+             shell_pattern_block and an action_block rule, strict
+             confinement, one schema; its workspace there too), the two
+             shipped groves loaded by list_groves; a Runtime with that
+             groves_dir behind a DashboardServer on 127.0.0.1, port 0,
+             driven over real HTTP: GET /api/groves lists the grove and its
+             bootstrap, POST /api/tasks {"grove"} creates the root at the
+             root node (its system prompt carries the grove's skills and
+             governance docs), whose first tick ends "ok" on the card
+             while /events (SSE) delivers its lifecycle and action events;
+             scripted decides then spawn a child along the edge (the
+             child node, its injected skills and constraints; it ticks
+             on the card) and have the child write outside its
+             confinement, write a report that breaks the schema, one that
+             fits (written) and run a command the hard rule blocks (each
+             refused but the fitting write); the status, agents, kv,
+             resources (the device block's named parts within its used
+             bytes, which are within WEB_MEM_MARGIN of the script's own
+             mem_get_info), costs, models, tree, trace and /metrics routes
+             answer 200, /api/chaos, /api/sim and /api/train 501; the task
+             pauses over HTTP (sessions dropped, pages back, the row
+             "paused") and resumes (the restored tick "ok", its cached
+             tokens reported); ragged ran, the paged and int8 kernels did
+             not. Last, cli.main run --backend torch --grove over
+             llama-3-8b at full width cut to DEPTH_CUT layers, drawn by
+             the CLI's own TorchBackend (its engines on cuda, the entry
+             point's default; a query served; ragged launched; each
+             member's decode steps and ms a step reported) and cli.main
+             status (the task paused)
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -247,8 +281,9 @@ never prints its last line):
              beforehand, outside the timing, with the same mask; it
              returns a normalized output where they return partials; for
              the int8 kernel over K/V gathered and dequantized beforehand)
-  trace      one more resumed round and one more sessionless row, each
-             under torch.profiler: wall time, device busy time (the union
+  trace      one more resumed round and one more sessionless row
+             (TRACE_TOKENS new tokens a row), each under torch.profiler:
+             wall time, device busy time (the union
              of kernel intervals), idle share, launches, and the kernels
              that take the most device time
   ckpt       an HF checkpoint on the card (models/loader.py): the serve
@@ -328,7 +363,7 @@ never prints its last line):
              three split-K kernels), flash over T, the paged prefill over
              prefix lengths at chunks of 16 and 128 tokens (each beside
              scaled_dot_product_attention's time)
-  reference  a 2-layer cut of llama-3-8b in fp32: the same rounds through
+  reference  a 1-layer cut of llama-3-8b in fp32: the same rounds through
              the GPU engine (kernels) and through the same weights on the
              CPU (plain twins) must give identical greedy texts and cached
              counts (3 new tokens a row), on the unified, direct and
@@ -346,8 +381,8 @@ never prints its last line):
              within 1e-5 at the 8, 64 and 256-token buckets. Engines of
              one tokenizer share the JSON grammar's host table
 
-in that order but for batch, continuous, obs, agent, runtime and spec,
-which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
+in that order but for batch, continuous, obs, agent, runtime, web and
+spec, which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
 line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
@@ -361,8 +396,8 @@ decide`` runs the decide phase (llama-3-8b built anew) and the reference
 decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
 ``--only calib``, ``--only batch``, ``--only continuous``, ``--only
-spec``, ``--only tiers``, ``--only obs``, ``--only agent`` and ``--only
-runtime`` run that phase after the
+spec``, ``--only tiers``, ``--only obs``, ``--only agent``, ``--only
+runtime`` and ``--only web`` run that phase after the
 build, over weights drawn here (no last line); ``--only reference`` runs
 the reference phase after the build (no last line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
 the build (no last line). Every
@@ -372,8 +407,10 @@ JAX or the JAX package.
 """
 
 import asyncio
+import contextlib
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import os
@@ -437,6 +474,15 @@ P_TOL = {("flash_fwd", "bfloat16"): 2.0 ** -8,
          ("paged_prefill_fwd.acc", "bfloat16"): 2.0 ** -8}
 NEG_INF = -1e30
 MAX_TOKENS = 32             # new tokens per row in the serve phase
+# new tokens a row of the profiled calls (the trace phase, serve_int8's
+# trace), below MAX_TOKENS for the script's time limit: the profiler's
+# own processing grows with the launches it records (~2,600 a decode
+# step at full depth)
+TRACE_TOKENS = 16
+# layers of the full-width fp32 cuts that also run on the CPU (the
+# prefix phase's copy-on-write, the reference phase's tiers), kept low
+# for the script's time limit: the CPU forward is most of their time
+CPU_CUT_LAYERS = 1
 N_RULES = 30                # system-prompt length of the serve phase
 TEMPS = [1.0, 0.7, 0.0]     # the consensus round's member temperatures
 # the north-star pool of the decide phase; llama-3-8b (MODEL) comes first,
@@ -1402,7 +1448,7 @@ def phase_serve_int8(torch, R, P, kernels, dfa, backend, serve_report):
     # on every call, beside the kernels
     trace = traced(torch, "int8 resumed consensus round",
                    lambda: consensus_round(R, ib, MODEL, hist, TEMPS,
-                                           MAX_TOKENS))
+                                           TRACE_TOKENS))
     trace.update(prefill_ms=eng.last_prefill_s * 1e3,
                  decode_ms=eng.last_decode_s * 1e3)
     unified_rep = {"launches": launches, "rounds": rounds,
@@ -1829,8 +1875,8 @@ def prefix_fanout(torch, R, kernels, base) -> dict:
 
 
 def prefix_cow(torch, R) -> dict:
-    """Part 2: copy-on-write through a 2-layer fp32 cut of llama-3-8b on
-    the GPU (kernels) and on the CPU (plain twins), one set of weights,
+    """Part 2: copy-on-write through a CPU_CUT_LAYERS-layer fp32 cut of
+    llama-3-8b on the GPU (kernels) and on the CPU (plain twins), one set of weights,
     unified tier on both, greedy: session a stores a prompt, b adopts its
     first page, then a diverges at token 100, inside that shared page.
     The divergent call must copy the page (cow_copies) and run on gather
@@ -1841,7 +1887,8 @@ def prefix_cow(torch, R) -> dict:
     from quoracle_tpu_torch.models.generate import GenerateEngine
     from quoracle_tpu_torch.models.tokenizer import get_tokenizer
     cfg = C.register_model(dataclasses.replace(
-        C.get_model_config(MODEL), name="llama-3-8b-2layer", n_layers=2))
+        C.get_model_config(MODEL), name=f"llama-3-8b-{CPU_CUT_LAYERS}layer",
+        n_layers=CPU_CUT_LAYERS))
     tok = get_tokenizer(f"xla:{cfg.name}")
     pa = tok.encode_chat(chat("task alpha", 8))
     pb = tok.encode_chat(chat("task beta", 8))
@@ -1931,7 +1978,7 @@ def prefix_second_agent(torch, R, kernels, pool_backend) -> dict:
 def phase_prefix(torch, R, kernels, backend, pool_backend) -> dict:
     """The radix prefix cache and prefix sharing on the card, in three
     parts, each with its ``at_s``: the fan-out at full width with and
-    without sharing, copy-on-write at a 2-layer fp32 cut against the CPU,
+    without sharing, copy-on-write at a 1-layer fp32 cut against the CPU,
     and a second agent's first decide over the decide pool."""
     report = {"phase": "prefix", "model": MODEL}
     report["fanout"] = prefix_fanout(torch, R, kernels,
@@ -2927,7 +2974,9 @@ def phase_continuous(torch, R, kernels, dfa, backend, pool_backend,
 
 SPEC_K = 6                  # TorchBackend's draft_k default
 SPEC_CUT_TOKENS = 40        # new tokens a row of the fp32 cut
-SPEC_LONG_TOKENS = 256      # the bf16 JSON row
+# the bf16 JSON row's new tokens, cut for the script's 1,200 s (at 256,
+# its three runs took 75 s of one slow H100 host's whole run)
+SPEC_LONG_TOKENS = 128
 CUT_POOL_BYTES = 512 << 20  # session pool of an fp32-cut engine
 
 
@@ -3557,9 +3606,9 @@ def phase_trace(torch, R, backend, hist) -> dict:
     calls = []
     for label, fn in (
             ("resumed consensus round", lambda: consensus_round(
-                R, backend, MODEL, hist, TEMPS, MAX_TOKENS)),
+                R, backend, MODEL, hist, TEMPS, TRACE_TOKENS)),
             ("sessionless long row", lambda: sessionless_row(
-                R, backend, MODEL, MAX_TOKENS, N_RULES))):
+                R, backend, MODEL, TRACE_TOKENS, N_RULES))):
         row = traced(torch, label, fn)
         row.update(prefill_ms=eng.last_prefill_s * 1e3,
                    decode_ms=eng.last_decode_s * 1e3,
@@ -3900,7 +3949,7 @@ AGENT_HUNG_S = 600.0        # declares a tick hung; never decides a result
 # own budget is 1,024): with random weights they never parse, so the
 # reflector runs three of them to the budget; at 1,024 they took 54.5 s
 # of the agent phase on the H100. Cut for the runtime phase
-AGENT_REFLECTION_TOKENS = 256
+AGENT_REFLECTION_TOKENS = 128
 
 
 def agent_modules():
@@ -3944,6 +3993,7 @@ class AgentWatch:
         self.outcomes: dict = {}
         self.scripts: dict = {}
         self.busy: dict = {}
+        self.configured: dict = {}      # agent id -> forbidden as spawned
         self.wake = None
         self.loop = None
         self.backends = backends
@@ -3999,6 +4049,8 @@ class AgentWatch:
 
         class Supervisor(A.AgentSupervisor):
             async def start_agent(self, config):
+                watch.configured[config.agent_id] = tuple(
+                    config.forbidden_actions)
                 if forbidden is not None:
                     config.forbidden_actions = forbidden
                 core = await super().start_agent(config)
@@ -4049,21 +4101,33 @@ class AgentWatch:
             except asyncio.TimeoutError:
                 pass
 
-    async def tick(self, core, msg: Optional[dict]) -> dict:
+    def mark(self) -> tuple:
+        """Where the watch's records stand (calls, spans, embeds,
+        events), for a tick that starts before its agent exists."""
+        return (len(self.calls), len(self.spans), len(self.embed_ms),
+                len(self.events), time.monotonic())
+
+    async def tick(self, core, msg: Optional[dict],
+                   since: Optional[tuple] = None) -> dict:
         """Post ``msg`` (None: the caller already posted the message the
         agent has not handled yet, as ``TaskManager.create_task`` does)
         and wait for the agent to execute a decision and go idle. Returns
         the tick's record: the decide spans, the backend calls and the
-        decision."""
+        decision. ``since`` (a ``mark()`` taken before the agent was
+        created, as over HTTP, where its first tick may end before the
+        caller holds the agent) counts the tick from that moment."""
         pool = core.config.model_pool
-        mark = (len(self.calls), len(self.spans), len(self.embed_ms),
-                len(self.events), len(self.outcomes.get(core.agent_id, [])))
 
         def n_results():
             return [sum(1 for e in core.ctx.history(m) if e.kind == "result")
                     for m in pool]
-        before = n_results()
-        t0 = time.monotonic()
+        if since is None:
+            since = self.mark()
+            mark = since[:4] + (len(self.outcomes.get(core.agent_id, [])),)
+            before = n_results()
+        else:
+            mark, before = since[:4] + (0,), [0] * len(pool)
+        t0 = since[4]
         if msg is not None:
             core.post(msg)
         await self.until(lambda: all(a > b for a, b in zip(
@@ -4150,13 +4214,14 @@ def condense_context(A, backend, pool: list):
     return ctx
 
 
-def agent_backend(R, base_backend, pool: list):
+def agent_backend(R, base_backend, pool: list, overlap: bool = True):
     """A TorchBackend over engines of its own that share ``base_backend``'s
     weights (no copy), embedder and grammar tables, seeded as its engines
     were: the agent phase samples and fills prefix caches, and the phases
     after it must find the base engines as they left them (over the
     decide pool's own engines, the spec phase's sampled decide drew
-    other tokens on the H100 and ended all_invalid)."""
+    other tokens on the H100 and ended all_invalid). ``overlap`` as
+    TorchBackend's."""
     from quoracle_tpu_torch.models.generate import GenerateEngine
     engines = {}
     for spec in pool:
@@ -4166,7 +4231,7 @@ def agent_backend(R, base_backend, pool: list):
             seed=base._generator.initial_seed(), device=base.device)
         engines[spec]._json_cache = base._json_cache
     return R.TorchBackend(pool, device=base_backend.device, engines=engines,
-                          embedder=base_backend.embedder)
+                          embedder=base_backend.embedder, overlap=overlap)
 
 
 def phase_agent(torch, R, kernels, serve_backend, decide_backend) -> dict:
@@ -4499,7 +4564,10 @@ def phase_runtime(torch, R, kernels, decide_backend) -> dict:
     from quoracle_tpu_torch import runtime as RT
     A = agent_modules()
     t_phase = time.monotonic()
-    pool_backend = agent_backend(R, decide_backend, DECIDE_POOL)
+    # members in turn, as in the web phase (the agent phase keeps the
+    # default, overlap on)
+    pool_backend = agent_backend(R, decide_backend, DECIDE_POOL,
+                                 overlap=False)
     t0 = time.monotonic()
     for spec in DECIDE_POOL:
         pool_backend.engines[spec]._json_table_device((("wait",),))
@@ -4510,7 +4578,7 @@ def phase_runtime(torch, R, kernels, decide_backend) -> dict:
                               encryption_key="chip-smoke-runtime",
                               backend="torch")
     report = {"phase": "runtime", "pool": DECIDE_POOL, "depth": DEPTH_CUT,
-              "max_tokens": DECIDE_MAX_TOKENS,
+              "max_tokens": DECIDE_MAX_TOKENS, "overlap": False,
               "grammar_prebuild_s": grammar_s,
               "cryptography": importlib.util.find_spec("cryptography")
               is not None}
@@ -4693,6 +4761,505 @@ def phase_runtime(torch, R, kernels, decide_backend) -> dict:
     if not all(checks.values()):
         emit(report)
         raise AssertionError(f"the runtime phase failed its checks: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return report
+
+
+WEB_GROVE = """---
+name: chip-smoke-grove
+description: the web phase's grove
+version: "1.0"
+topology:
+  root: coordinator
+  edges:
+    - parent: coordinator
+      child: worker
+      auto_inject:
+        skills: [worker-skill]
+        constraints: "Answer only from provided data."
+governance:
+  hard_rules:
+    - type: shell_pattern_block
+      pattern: "curl|wget"
+      message: "no network"
+      scope: [worker]
+    - type: action_block
+      actions: [fetch_web, call_api]
+      message: "no external sources"
+      scope: [worker]
+  injections:
+    - source: governance/integrity.md
+      inject_into: [coordinator, worker]
+      priority: high
+schemas:
+  - name: report
+    definition: schemas/report.schema.json
+    validate_on: file_write
+    path_pattern: "{ws}/runs/*/report.json"
+workspace: "{ws}"
+confinement_mode: strict
+confinement:
+  worker:
+    paths:
+      - {ws}/runs/**
+    read_only_paths:
+      - {ws}/data/**
+bootstrap:
+  skills: [coord-skill]
+  role: "Benchmark Coordinator"
+  cognitive_style: systematic
+  task_description_file: bootstrap/task.md
+---
+"""
+WEB_FILES = {
+    "governance/integrity.md": "Never fabricate results.",
+    "schemas/report.schema.json": json.dumps({
+        "type": "object", "required": ["score"],
+        "properties": {"score": {"type": "number"}}}),
+    "bootstrap/task.md": "Keep the build green: decide your next step.",
+    "skills/worker-skill/SKILL.md": "---\nname: worker-skill\ndescription: "
+                                    "how to answer\n---\n\nAlways answer "
+                                    "with a single letter.",
+    "skills/coord-skill/SKILL.md": "---\nname: coord-skill\ndescription: "
+                                   "how to coordinate\n---\n\nSpawn one "
+                                   "worker per question.",
+}
+WEB_CLI_WATCH_S = 5.0       # the cli run's watch
+# the cli run's output limit: its member decides at most this many tokens
+# a round (a random-weight answer closes its JSON or not; the run needs a
+# served query and the kernel's launches, not an "ok")
+WEB_CLI_OUTPUT_LIMIT = 64
+# /api/resources' device used bytes against the script's own
+# torch.cuda.mem_get_info, read just after with every agent idle
+WEB_MEM_MARGIN = 256 << 20
+
+
+def web_grove(root: str) -> tuple:
+    """The web phase's grove under ``root`` (the shape of
+    tests/test_governance_grove.py's write_grove): (grove dir,
+    workspace)."""
+    grove, ws = os.path.join(root, "groves", "bench"), os.path.join(
+        root, "workspace")
+    for rel, text in {"GROVE.md": WEB_GROVE.format(ws=ws),
+                      **WEB_FILES}.items():
+        path = os.path.join(grove, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(text)
+    return grove, ws
+
+
+def web_call(url: str, method: str = "GET", body=None):
+    """(status, JSON body or text) of one request to the dashboard."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, method=method, headers={"content-type": "application/json"},
+        data=json.dumps(body).encode() if body is not None else None)
+    try:
+        with urllib.request.urlopen(req, timeout=AGENT_HUNG_S) as r:
+            status, ctype, raw = (r.status, r.headers["content-type"],
+                                  r.read().decode())
+    except urllib.error.HTTPError as e:
+        status, ctype, raw = (e.code, e.headers["content-type"],
+                              e.read().decode())
+    return status, (json.loads(raw) if ctype.startswith("application/json")
+                    else raw)
+
+
+def phase_web(torch, R, kernels, decide_backend) -> dict:
+    """The front doors (web/server.py's DashboardServer, cli.py) and
+    groves on the card: see the module docstring's web entry."""
+    from quoracle_tpu_torch import cli
+    from quoracle_tpu_torch import runtime as RT
+    from quoracle_tpu_torch.governance.grove import list_groves
+    from quoracle_tpu_torch.models import config as C
+    from quoracle_tpu_torch.web import DashboardServer
+    A = agent_modules()
+    t_phase = time.monotonic()
+    # /api/tree reads the session-graph plane, which the obs phase leaves
+    # off: on for this phase (the package's default), as it was after
+    tree_was_on = A.treeobs.enabled()
+    A.treeobs.enable()
+    # members in turn: with three member threads each one's decode step
+    # takes 103-133 ms against 15-18 alone at this depth (the GIL at every
+    # eager launch; PERF.md section 5), so a round takes about twice as
+    # long; the phase's subject is the host layer above the backend
+    pool_backend = agent_backend(R, decide_backend, DECIDE_POOL,
+                                 overlap=False)
+    for spec in DECIDE_POOL:
+        pool_backend.engines[spec]._json_table_device((("wait",),))
+    forbidden = tuple(a for a in A.ACTIONS if a != "wait")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-web-")
+    grove_dir, ws = web_grove(tmp)
+    report = {"phase": "web", "pool": DECIDE_POOL, "depth": DEPTH_CUT,
+              "max_tokens": DECIDE_MAX_TOKENS, "overlap": False,
+              "shipped": {g.name: {"root": g.root_node,
+                                   "edges": [(e.parent, e.child)
+                                             for e in g.edges],
+                                   "schemas": sorted(s.name
+                                                     for s in g.schemas)}
+                          for g in list_groves(os.path.join(REPO,
+                                                            "groves"))}}
+    report_path = os.path.join(ws, "runs", "r1", "report.json")
+
+    async def main():
+        rt = RT.Runtime(RT.RuntimeConfig(
+            backend="torch", groves_dir=os.path.dirname(grove_dir),
+            db_path=os.path.join(tmp, "web.db")), backend=pool_backend)
+        watch = AgentWatch(A, [pool_backend], rt.bus)
+        rt.supervisor = watch.supervisor(rt.deps, forbidden)
+        server = None
+        loop = asyncio.get_running_loop()
+
+        async def call(path, method="GET", body=None):
+            return await loop.run_in_executor(
+                None, web_call, server.url + path, method, body)
+        # the SSE reader stops at the first action_completed (or, when
+        # the phase fails first, at its next heartbeat)
+        attached, sse, seen = threading.Event(), [], threading.Event()
+        try:
+            server = await DashboardServer(rt, host="127.0.0.1",
+                                           port=0).start()
+            report["groves"] = await call("/api/groves")
+            # the SSE reader subscribes before the task is created
+            subscribe = rt.bus.subscribe
+
+            def spy(topic, fn):
+                sub = subscribe(topic, fn)
+                attached.set()
+                return sub
+            rt.bus.subscribe = spy
+
+            def read_sse():
+                import urllib.request
+                with urllib.request.urlopen(server.url + "/events",
+                                            timeout=AGENT_HUNG_S) as resp:
+                    while not seen.is_set():
+                        line = resp.readline()
+                        if line.startswith(b"data: "):
+                            e = json.loads(line[6:])
+                            sse.append((e["topic"], e["event"],
+                                        e.get("agent_id")))
+                            if e["event"] == "action_completed":
+                                seen.set()
+            reader = loop.run_in_executor(None, read_sse)
+            await loop.run_in_executor(None, attached.wait, 60)
+            rt.bus.subscribe = subscribe
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            pages0 = pages_view(pool_backend)
+            since = watch.mark()
+            status, made = await call("/api/tasks", "POST", {
+                "grove": grove_dir, "model_pool": list(DECIDE_POOL)})
+            report["create"] = {"status": status, "body": made,
+                                "ms": (time.monotonic() - since[4]) * 1e3}
+            task_id, root_id = made["task_id"], made["root_agent"]
+            root = rt.registry.lookup(root_id).core
+            tick1 = await watch.tick(root, None, since=since)
+            await asyncio.wait_for(reader, AGENT_HUNG_S)
+            report["sse"] = sorted({(t, e) for t, e, a in sse
+                                    if t in ("agents:lifecycle",
+                                             "actions:all")
+                                    and a == root_id})
+            report["root"] = {
+                "node": root.config.grove_node,
+                "skills": list(root.active_skills),
+                "prompt": [x in root._system_prompt for x in (
+                    "Spawn one worker per question.", "worker-skill",
+                    "Never fabricate results.", "Benchmark Coordinator")],
+                "working_dir": root.config.working_dir == ws}
+
+            # a child along the edge: a scripted spawn, a tick on the card
+            watch.scripts[root_id] = [scripted_outcome(A, "spawn_child", {
+                "task_description": "Write the run's report.",
+                "success_criteria": "report written",
+                "immediate_context": f"the report goes to {report_path}",
+                "approach_guidance": "one file"})]
+            spawn = await watch.tick(root, {
+                "type": "user_message", "from": "user",
+                "content": "Spawn a worker."})
+            await watch.until(lambda: root.children)
+            child_id = root.children[0]["agent_id"]
+            child = rt.registry.lookup(child_id).core
+            await watch.until(lambda: any(
+                e.kind == "result" for e in child.ctx.history(MODEL))
+                and watch.idle(child))
+            couts = watch.outcomes.get(child_id, [])
+            child_calls = [c for c in watch.calls if c["session"] == child_id]
+            report["child"] = {
+                "tick_ms": [sp["duration_ms"] for sp in watch.spans
+                            if sp["name"] == "agent.decide_tick"
+                            and sp.get("agent_id") == child_id],
+                "decode": decode_steps({"agent": child_id,
+                                        "calls": child_calls}),
+                "spawn_result": str(root.ctx.history(MODEL)[-1].content),
+                "node": child.config.grove_node,
+                "skills": list(child.active_skills),
+                "blocked": sorted(set(watch.configured[child_id])
+                                  & {"fetch_web", "call_api"}),
+                "constraint": "Answer only from provided data."
+                in (child.config.field_system_prompt or ""),
+                "outcomes": [{"status": o.status, "rounds": o.rounds_used,
+                              "scripted": o.decide_id is None}
+                             for o in couts]}
+            # the child's grove branches, one scripted decide a tick
+            refusals, grove_ms = [], []
+            for action, params in (
+                    ("file_write", {"path": os.path.join(tmp, "outside.txt"),
+                                    "content": "x"}),
+                    ("file_write", {"path": report_path,
+                                    "content": '{"score": "high"}'}),
+                    ("file_write", {"path": report_path,
+                                    "content": '{"score": 0.5}'}),
+                    # matches the hard rule; harmless if it ran
+                    ("execute_shell", {"command": "echo curl"})):
+                watch.scripts[child_id] = [scripted_outcome(A, action,
+                                                            params)]
+                rec = await watch.tick(child, {"type": "user_message",
+                                               "from": "user",
+                                               "content": "Go on."})
+                grove_ms.append(rec["wall_ms"])
+                refusals.append(str(child.ctx.history(MODEL)[-1].content))
+            report["grove_actions"] = [r[:400] for r in refusals]
+            report["grove_tick_ms"] = grove_ms
+            report["written"] = (open(report_path).read()
+                                 if os.path.exists(report_path) else None)
+            report["outside_exists"] = os.path.exists(
+                os.path.join(tmp, "outside.txt"))
+
+            # the read routes, each with the port's own numbers
+            routes = {}
+            for path in ("/api/status", f"/api/agents?task_id={task_id}",
+                         "/api/kv", "/api/resources", "/api/costs",
+                         "/api/models", f"/api/tree?tree_id={task_id}",
+                         f"/api/trace?task_id={task_id}", "/metrics",
+                         "/api/chaos", "/api/sim", "/api/train"):
+                routes[path.split("?")[0]] = await call(path)
+            free, total = torch.cuda.mem_get_info()
+            res_body = routes["/api/resources"][1]
+            device = res_body["hbm"]["device"]
+            metrics = {line.rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1])
+                       for line in routes["/metrics"][1].splitlines()
+                       if line.startswith("quoracle_")}
+            report["routes"] = {p: s for p, (s, _) in routes.items()}
+            report["resources"] = {
+                "device": device, "mem_get_info_used": int(total - free)}
+            report["agents"] = [{k: a.get(k) for k in (
+                "grove_node", "todos", "budget", "cost", "active_skills")}
+                for a in routes["/api/agents"][1]]
+            report["metrics"] = {k: metrics.get(k) for k in (
+                "quoracle_decide_ms_count", "quoracle_round_ms_count",
+                "quoracle_consensus_rounds_total")}
+            report["trace_spans"] = routes["/api/trace"][1]["n_spans"]
+            report["tree_nodes"] = len(routes["/api/tree"][1].get("nodes")
+                                       or [])
+            report["not_ported"] = {p: routes[p][1] for p in (
+                "/api/chaos", "/api/sim", "/api/train")}
+            report["costs_nominal"] = routes["/api/costs"][1]["nominal"][
+                "total_amount"]
+
+            # pause and resume over HTTP
+            t0 = time.monotonic()
+            status, paused = await call(f"/api/tasks/{task_id}/pause",
+                                        "POST")
+            pause_ms = (time.monotonic() - t0) * 1e3
+            _, tasks = await call("/api/tasks")
+            report["pause"] = {
+                "status": status, "stopped": paused.get("stopped"),
+                "ms": pause_ms,
+                "row": [t["status"] for t in tasks if t["id"] == task_id],
+                "sessions_dropped": all(
+                    e.sessions.get(a) is None
+                    for e in pool_backend.engines.values()
+                    for a in (root_id, child_id)),
+                "pages": [pages0, pages_view(pool_backend)]}
+            t0 = time.monotonic()
+            status, resumed = await call(f"/api/tasks/{task_id}/resume",
+                                         "POST")
+            resume_ms = (time.monotonic() - t0) * 1e3
+            core = rt.registry.lookup(root_id).core
+            tick2 = await watch.tick(core, {
+                "type": "user_message", "from": "user",
+                "content": RUNTIME_MESSAGES[1]})
+            calls = [c for c in tick2["calls"] if c["session"] == root_id]
+            report["resume"] = {
+                "status": status, "restored": resumed.get("restored"),
+                "ms": resume_ms,
+                "wall_ms": tick2["wall_ms"],
+                "members": {m: {"prefill": st["prompt"] - st["cached"],
+                                "cached": st["cached"]}
+                            for m, st in calls[0]["members"].items()}
+                if calls else {}}
+            torch.cuda.synchronize()
+            report["launches"] = kernels.launch_counts()
+            await rt.tasks.pause_task(task_id)
+            report["ticks"] = {"root": tick1, "spawn": spawn,
+                               "restored": tick2}
+            report["decode"] = {k: decode_steps(t)
+                                for k, t in report["ticks"].items()}
+            report["child_tick_ok"] = any(
+                o.status == "ok" and o.decide_id is not None for o in couts)
+            return task_id
+        finally:
+            seen.set()
+            if server is not None:
+                await server.stop()
+            watch.close()
+            await rt.shutdown()
+
+    try:
+        task_id = asyncio.run(main())
+        # the CLI over the card (its default device) with the grove: its
+        # pool llama-3-8b at full width cut to DEPTH_CUT layers, with a
+        # short output limit, drawn by the CLI's own TorchBackend; its
+        # agents decide only "wait", as the phase's do
+        cli_spec = "xla:" + C.register_model(dataclasses.replace(
+            depth_cut(MODEL), name=f"llama-3-8b-{DEPTH_CUT}layer-cli",
+            output_limit=WEB_CLI_OUTPUT_LIMIT)).name
+        built, watches = [], []
+
+        class Runtime(cli.Runtime):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                built.append(self)
+                # the pool's llama-3-8b grammar tables (the same tokenizer,
+                # vocab and stop ids), as agent_backend shares them: a new
+                # engine's first decide walks the 128,256 tokens on the
+                # host first (~5 s, the whole watch)
+                for e in self.backend.engines.values():
+                    e._json_cache = pool_backend.engines[MODEL]._json_cache
+                watches.append(AgentWatch(A, [self.backend], self.bus))
+                self.supervisor = watches[-1].supervisor(self.deps,
+                                                         forbidden)
+        cli_db = os.path.join(tmp, "cli.db")
+        cli_runtime, cli.Runtime = cli.Runtime, Runtime
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["run", "Keep the build green.", "--backend",
+                               "torch", "--pool", cli_spec, "--grove",
+                               grove_dir, "--db", cli_db, "--watch-seconds",
+                               str(WEB_CLI_WATCH_S)])
+        finally:
+            cli.Runtime = cli_runtime
+            for w in watches:
+                w.close()
+            for rt in built:
+                rt.backend.close()
+        torch.cuda.synchronize()
+        cli_launches = kernels.launch_counts()
+        status_out = io.StringIO()
+        with contextlib.redirect_stdout(status_out):
+            rc_status = cli.main(["status", "--db", cli_db])
+        cli_calls = [c for w in watches for c in w.calls]
+        report["cli"] = {
+            "rc": [rc, rc_status], "seconds": time.monotonic() - t0,
+            "pool": [cli_spec], "runtimes": len(built),
+            "devices": {s: e.device.type for rt in built
+                        for s, e in rt.backend.engines.items()},
+            "lines": out.getvalue().splitlines()[:12],
+            "status": json.loads(status_out.getvalue()),
+            "queries": len(cli_calls),
+            "outcomes": [o.status for w in watches
+                         for outs in w.outcomes.values() for o in outs],
+            "decode": {aid: decode_steps({"agent": aid, "calls": cli_calls})
+                       for aid in {c["session"] for c in cli_calls}},
+            "launches": cli_launches}
+        del built
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if not tree_was_on:
+            A.treeobs.disable()
+    report["seconds"] = time.monotonic() - t_phase
+    report["nvidia_smi"] = nvidia_smi()
+    groves, launches, pause = report["groves"], report["launches"], \
+        report["pause"]
+    child, cli_report = report["child"], report["cli"]
+    device = report["resources"]["device"]
+    boot = (groves[1][0]["bootstrap"]
+            if groves[0] == 200 and groves[1] else {})
+    acts = report["grove_actions"]
+    checks = {
+        "shipped": report["shipped"] == {
+            "livebench": {"root": "lb-coordinator",
+                          "edges": [("lb-coordinator", "lb-solver")],
+                          "schemas": ["answer", "benchmark-report"]},
+            "mmlu-pro": {"root": "mmlu-coordinator",
+                         "edges": [("mmlu-coordinator", "mmlu-answerer")],
+                         "schemas": ["answer", "benchmark-report"]}},
+        "groves": (groves[0] == 200 and len(groves[1]) == 1
+                   and groves[1][0]["root_node"] == "coordinator"
+                   and boot.get("role") == "Benchmark Coordinator"
+                   and boot.get("task_description")
+                   == WEB_FILES["bootstrap/task.md"]),
+        "create": report["create"]["status"] == 201,
+        "root": (report["root"]["node"] == "coordinator"
+                 and report["root"]["skills"] == ["coord-skill"]
+                 and all(report["root"]["prompt"])
+                 and report["root"]["working_dir"]),
+        "tick1": agent_tick_ok(report["ticks"]["root"], task_id),
+        "sse": {("agents:lifecycle", "agent_spawned"),
+                ("actions:all", "action_started"),
+                ("actions:all", "action_completed")} <= set(
+                    map(tuple, report["sse"])),
+        "child": (child["node"] == "worker"
+                  and "worker-skill" in child["skills"]
+                  and child["blocked"] == ["call_api", "fetch_web"]
+                  and child["constraint"] and report["child_tick_ok"]),
+        "confinement": ("outside the allowed paths" in acts[0]
+                        and not report["outside_exists"]),
+        "schema": "schema report: 'high' is not of type 'number'" in acts[1],
+        "written": (report["written"] == '{"score": 0.5}'
+                    and "'status': 'ok'" in acts[2]),
+        "hard_rule": "blocked by grove hard rule: no network" in acts[3],
+        "routes": all(report["routes"][p] == 200 for p in report["routes"]
+                      if p not in ("/api/chaos", "/api/sim", "/api/train")),
+        "not_ported": all(
+            report["routes"][p] == 501 and b["roadmap"].startswith(
+                "ROADMAP Queue 1 item")
+            for p, b in report["not_ported"].items()),
+        "device_block": (device is not None and device["consistent"]
+                         and sum(device["parts"].values())
+                         <= device["used_bytes"]
+                         and abs(device["used_bytes"]
+                                 - report["resources"]["mem_get_info_used"])
+                         <= WEB_MEM_MARGIN),
+        "agents": sorted(a["grove_node"] for a in report["agents"])
+        == ["coordinator", "worker"],
+        "metrics": all(v and v > 0 for v in report["metrics"].values()),
+        "trace": report["trace_spans"] > 0 and report["tree_nodes"] >= 2,
+        "paused": (pause["status"] == 200 and pause["stopped"] == 2
+                   and pause["row"] == ["paused"]
+                   and pause["sessions_dropped"]),
+        "pages_back": all(
+            p1["free"] + p1["cached"] == p0["free"] + p0["cached"]
+            for p0, p1 in zip(pause["pages"][0].values(),
+                              pause["pages"][1].values())),
+        "resumed": (report["resume"]["status"] == 200
+                    and report["resume"]["restored"] == 2
+                    and agent_tick_ok(report["ticks"]["restored"],
+                                      task_id)),
+        "kernels": launches["ragged_fwd"] > 0 and all(
+            launches[k] == 0 for k in
+            ("paged_fwd", "paged_prefill_fwd", "ragged_q8_fwd")),
+        "cli": (cli_report["rc"] == [0, 0] and cli_report["runtimes"] == 1
+                and cli_report["devices"] == {cli_spec: "cuda"}
+                and cli_report["queries"] > 0
+                and list(cli_report["status"]["tasks"].values())
+                == ["paused"]
+                and cli_report["launches"]["ragged_fwd"] > 0),
+        "cleaned": not os.path.exists(tmp),
+    }
+    report["checks"] = checks
+    del pool_backend
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        emit(report)
+        raise AssertionError(f"the web phase failed its checks: "
                              f"{[k for k, v in checks.items() if not v]}")
     return report
 
@@ -5084,7 +5651,7 @@ def share_tables(engines: list, tables: dict, enum) -> None:
 
 
 def phase_reference(torch, R) -> dict:
-    """The same traffic, greedy, through a 2-layer fp32 cut of llama-3-8b
+    """The same traffic, greedy, through a 1-layer fp32 cut of llama-3-8b
     on the GPU (kernels) and on the CPU (plain twins), one set of
     weights, on each paged tier in turn (one float and one int8 engine,
     both ``quantize_weights`` and ``quantize_kv``, per device): the
@@ -5097,7 +5664,8 @@ def phase_reference(torch, R) -> dict:
     from quoracle_tpu_torch.models.generate import GenerateEngine
     from quoracle_tpu_torch.models.tokenizer import get_tokenizer
     cfg = C.register_model(dataclasses.replace(
-        C.get_model_config(MODEL), name="llama-3-8b-2layer", n_layers=2))
+        C.get_model_config(MODEL), name=f"llama-3-8b-{CPU_CUT_LAYERS}layer",
+        n_layers=CPU_CUT_LAYERS))
     spec = f"xla:{cfg.name}"
     out = {}
     t0 = time.monotonic()
@@ -5846,7 +6414,7 @@ def main(argv) -> int:
     only = None
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
               "continuous", "spec", "ckpt", "tiers", "obs", "agent",
-              "runtime", "reference")
+              "runtime", "web", "reference")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -5928,6 +6496,11 @@ def main(argv) -> int:
         emit(phase_runtime(torch, R, kernels,
                            decide_pool_backend(torch, R, backend)[0]))
         return 0
+    if only == "web":
+        backend = R.TorchBackend([MODEL], seed=0)
+        emit(phase_web(torch, R, kernels,
+                       decide_pool_backend(torch, R, backend)[0]))
+        return 0
     if only == "reference":
         emit(phase_reference(torch, R))
         return 0
@@ -5983,6 +6556,8 @@ def main(argv) -> int:
     emit(agent_report)
     runtime_report = phase_runtime(torch, R, kernels, pool_backend)
     emit(runtime_report)
+    web_report = phase_web(torch, R, kernels, pool_backend)
+    emit(web_report)
     # phase_spec releases the decide pool once its decide has run
     pools = [pool_backend]
     del pool_backend
@@ -6005,6 +6580,7 @@ def main(argv) -> int:
         e["spec_launches"] = spec_report["launches"][e["name"]]
         e["agent_launches"] = agent_report["launches"][e["name"]]
         e["runtime_launches"] = runtime_report["launches"][e["name"]]
+        e["web_launches"] = web_report["launches"][e["name"]]
         if e["name"] == "ragged_fwd":
             e["verify"] = spec_report["verify_ticks"]["ragged_fwd_bf16"]
             e["verify_fp32"] = spec_report["verify_ticks"]["ragged_fwd"]

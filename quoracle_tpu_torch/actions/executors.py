@@ -20,11 +20,7 @@ actions/world.py / the skills subsystem and register themselves here.
 
 The PyTorch port's copy of ``quoracle_tpu/actions/executors.py``, with
 the seventeen executors registered here (the world actions register from
-``actions/world.py``). Left for a later slice (ROADMAP Queue 1 item 9,
-second bullet): grove confinement and topology (``governance/grove.py``);
-the port's agents run without a grove (``AgentCore`` refuses a
-``grove_path``), so the grove branches of the file, shell and spawn
-executors are not copied.
+``actions/world.py``).
 """
 
 from __future__ import annotations
@@ -144,9 +140,16 @@ async def send_message_action(core, router, params: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def _check_path(core, path: str, write: bool) -> str:
-    """Resolve relative to working_dir (the JAX package then checks the
-    path against the agent's grove node; the port has no groves yet)."""
-    return os.path.abspath(os.path.join(core.config.working_dir, path))
+    """Grove confinement (reference groves/hard_rule_enforcer.ex file
+    confinement + path_security.ex): resolve relative to working_dir, then
+    check against the agent's node confinement."""
+    p = os.path.abspath(os.path.join(core.config.working_dir, path))
+    if core.grove is not None:
+        err = core.grove.check_file_path(p, write=write,
+                                         node=core.config.grove_node)
+        if err:
+            raise ActionError(err)
+    return p
 
 
 @register("file_read")
@@ -170,6 +173,10 @@ async def file_read_action(core, router, params: dict) -> dict:
 async def file_write_action(core, router, params: dict) -> dict:
     path = _check_path(core, params["path"], write=True)
     content = params["content"]
+    if core.grove is not None:
+        err = core.grove.validate_file_schema(path, content)
+        if err:
+            raise ActionError(err)
     try:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         mode = "a" if params.get("append") else "w"
@@ -207,6 +214,12 @@ async def execute_shell_action(core, router, params: dict) -> dict:
 
     command = params["command"]
     working_dir = params.get("working_dir") or core.config.working_dir
+    if core.grove is not None:
+        node = core.config.grove_node
+        err = (core.grove.check_shell_command(command, node)
+               or core.grove.check_working_dir(working_dir, node))
+        if err:
+            raise ActionError(err)
     if not os.path.isdir(working_dir):
         raise ActionError(f"working_dir {working_dir!r} does not exist")
 
@@ -390,18 +403,46 @@ async def spawn_child_action(core, router, params: dict) -> dict:
             raise ActionError(f"budget escrow failed: {e}")
 
     profile = params.get("profile")
-    # The JAX package resolves the grove edge this spawn follows here (the
-    # child's node, skills and contract overrides); the port has no groves.
+    # Topology auto-injection (reference TopologyResolver
+    # apply_spawn_contract, spawn.ex:117): the grove edge this spawn follows
+    # assigns the child's node, skills, and any contract overrides.
     from quoracle_tpu_torch.governance.fields import (
         accumulate_constraints, child_fields_from_spawn,
         compose_field_prompt,
     )
+    resolved = None
+    if core.grove is not None:
+        from quoracle_tpu_torch.governance.grove import GroveError
+        try:
+            resolved = core.grove.resolve_spawn(core.config.grove_node,
+                                                params)
+        except GroveError as e:
+            if allocated is not None:
+                try:
+                    deps.escrow.release_child(child_id)
+                except (BudgetError, KeyError):
+                    pass
+            raise ActionError(str(e))
+    child_node = resolved.node if resolved else None
     child_skills = tuple(params.get("skills") or ())
+    extra_constraints: list[str] = []
+    forbidden = set(core.config.forbidden_actions)
+    governance_docs = core.config.governance_docs
+    if resolved is not None:
+        child_skills += tuple(s for s in resolved.skills
+                              if s not in child_skills)
+        profile = resolved.profile or profile
+        if resolved.constraints:
+            extra_constraints.append(resolved.constraints)
+    if core.grove is not None:
+        forbidden |= core.grove.blocked_actions(child_node)
+        governance_docs = core.grove.governance_docs_for(child_node)
 
     # Constraint accumulation down the tree (reference
     # ConstraintAccumulator): child inherits every ancestor constraint.
     inherited = accumulate_constraints(core.config.accumulated_constraints,
                                        core.config.own_constraints)
+    inherited += tuple(extra_constraints)
 
     def build_cfg(p: dict) -> AgentConfig:
         # built from the (possibly summarized) params so an oversized
@@ -411,16 +452,22 @@ async def spawn_child_action(core, router, params: dict) -> dict:
             agent_id=child_id,
             task_id=core.config.task_id,
             parent_id=core.agent_id,
-            model_pool=list(core.config.model_pool),
+            model_pool=(resolved.model_pool if resolved else None)
+                        or list(core.config.model_pool),
             profile=profile,
-            capability_groups=core.config.capability_groups,
-            forbidden_actions=tuple(sorted(core.config.forbidden_actions)),
+            capability_groups=(resolved.capability_groups
+                               if resolved is not None
+                               and resolved.capability_groups is not None
+                               else core.config.capability_groups),
+            forbidden_actions=tuple(sorted(forbidden)),
             max_refinement_rounds=core.config.max_refinement_rounds,
             field_system_prompt=compose_field_prompt(fields, inherited),
             own_constraints=p.get("constraints"),
             accumulated_constraints=inherited,
             profile_names=core.config.profile_names,
-            governance_docs=core.config.governance_docs,
+            grove_path=core.config.grove_path,
+            grove_node=child_node,
+            governance_docs=governance_docs,
             active_skills=child_skills,
             budget_mode="allocated" if allocated is not None else "na",
             budget_limit=allocated,

@@ -28,9 +28,7 @@ consensus_handler.ex:64,126-152,264-292) rebuilt as an asyncio actor:
   semantics): other agents run their own actors concurrently, and their
   rounds batch into the same engine.
 
-The PyTorch port's copy of ``quoracle_tpu/agent/core.py``. Left for a
-later slice (ROADMAP Queue 1 item 9, second bullet): groves (an
-``AgentConfig.grove_path`` raises ``NotImplementedError``).
+The PyTorch port's copy of ``quoracle_tpu/agent/core.py``.
 """
 
 from __future__ import annotations
@@ -132,15 +130,23 @@ class AgentCore:
                 if deps.persistence is not None else None),
             cost_fn=_reflection_cost)
 
-        # Groves (governance/grove.py) are not ported yet (Queue 1 item 9,
-        # second bullet). The JAX package fails CLOSED when a grove cannot
-        # load (the exception propagates to the spawner), so an agent
-        # configured with one stops here the same way.
-        if config.grove_path:
-            raise NotImplementedError(
-                f"groves are not ported yet (grove_path="
-                f"{config.grove_path!r})")
-        self.skills_loader = deps.skills
+        # Grove enforcement: explicit override (tests) or resolved from the
+        # manifest path this agent was spawned with.
+        self.grove = deps.grove
+        if self.grove is None and config.grove_path:
+            from quoracle_tpu_torch.governance.grove import (
+                GroveEnforcer, load_grove,
+            )
+            # Fail CLOSED: an enforcement layer that can't load must stop
+            # the agent, not silently run it ungoverned (the exception
+            # propagates to the spawner / restorer).
+            self.grove = GroveEnforcer(load_grove(config.grove_path))
+        # Skills: grove-local directory shadows the global one
+        if self.grove is not None:
+            global_dir = getattr(deps.skills, "global_dir", None)
+            self.skills_loader = self.grove.skills_loader(global_dir)
+        else:
+            self.skills_loader = deps.skills
         self.active_skills: list[str] = list(config.active_skills)
 
         # Session-graph lineage: stamp this agent into the
@@ -192,7 +198,7 @@ class AgentCore:
                 max_refinement_rounds=config.max_refinement_rounds,
                 force_reflection=config.force_reflection,
                 allowed_actions=set(allowed),
-                profile_optional_spawn=False,   # no grove (see above)
+                profile_optional_spawn=self.grove is not None,
                 session_key=self.agent_id,   # KV residency per agent×model
                 priority=priority,
                 tenant=config.tenant,

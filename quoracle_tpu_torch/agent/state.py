@@ -106,8 +106,9 @@ class AgentDeps:
     token_manager: TokenManager
     secrets: SecretStore = dataclasses.field(default_factory=SecretStore)
     persistence: Any = None          # persistence layer
-    # (The JAX AgentDeps also carries a grove override; groves are not
-    # ported yet: ROADMAP Queue 1 item 9, second bullet.)
+    grove: Any = None                # GroveEnforcer override (tests); agents
+                                     # normally resolve theirs from
+                                     # config.grove_path
     skills: Any = None               # global SkillsLoader (optional)
     # world-facing seams (actions/world.py)
     http: Any = None                 # HttpFn transport; None = zero-egress

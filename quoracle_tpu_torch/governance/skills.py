@@ -7,9 +7,10 @@ skills are listed in the system prompt and loaded at runtime via the
 learn_skills action, which invalidates the cached system prompt,
 reference core.ex:338-341).
 
-The PyTorch port's copy of ``quoracle_tpu/governance/skills.py``. PyYAML
-is imported where a frontmatter is read or written, not with the module,
-so that importing the port needs no PyYAML: only the skills actions do.
+The PyTorch port's copy of ``quoracle_tpu/governance/skills.py``. The
+frontmatter is read and written by the port's YAML-subset reader
+(``governance/frontmatter.py``), in place of PyYAML, which the machine
+that serves the port on the GPU does not have.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import dataclasses
 import os
 import re
 from typing import Optional
+
+from quoracle_tpu_torch.governance import frontmatter
 
 _FRONTMATTER_RE = re.compile(r"\A---\s*\n(.*?)\n---\s*\n?(.*)\Z", re.DOTALL)
 
@@ -43,10 +46,9 @@ def parse_skill_md(text: str, path: Optional[str] = None) -> Skill:
     m = _FRONTMATTER_RE.match(text)
     if not m:
         raise SkillError(f"not a SKILL.md (missing frontmatter): {path}")
-    import yaml
     try:
-        meta = yaml.safe_load(m.group(1)) or {}
-    except yaml.YAMLError as e:
+        meta = frontmatter.load(m.group(1)) or {}
+    except frontmatter.FrontmatterError as e:
         raise SkillError(f"bad frontmatter in {path}: {e}")
     if not isinstance(meta, dict) or not meta.get("name"):
         raise SkillError(f"frontmatter needs a name: {path}")
@@ -56,9 +58,8 @@ def parse_skill_md(text: str, path: Optional[str] = None) -> Skill:
 
 
 def render_skill_md(name: str, description: str, content: str) -> str:
-    import yaml
-    fm = yaml.safe_dump({"name": name, "description": description},
-                        sort_keys=False).strip()
+    fm = frontmatter.dump_mapping({"name": name,
+                                   "description": description}).strip()
     return f"---\n{fm}\n---\n\n{content.strip()}\n"
 
 

@@ -8,8 +8,6 @@ Boot.AgentRevival (restore running tasks at boot, finalize stale "pausing" →
 "paused", reference boot/agent_revival.ex:27-84,124-141).
 
 The PyTorch port's copy of ``quoracle_tpu/persistence/tasks.py``.
-Groves are not ported yet (ROADMAP Queue 1 item 9, second bullet): a
-``grove`` raises ``NotImplementedError`` before any row is written.
 """
 
 from __future__ import annotations
@@ -62,24 +60,47 @@ class TaskManager:
         message (reference task_manager.ex:39-92). With ``grove`` (a grove
         directory), the manifest's bootstrap pre-fills the missing fields
         and the root agent becomes the topology root node (reference
-        BootstrapResolver + grove selector in the new-task modal); the
-        port raises on one. Returns (task_id, root core)."""
+        BootstrapResolver + grove selector in the new-task modal). Returns
+        (task_id, root core)."""
         prof = self.resolve_profile(profile)
         pool = model_pool or prof.get("model_pool")
         if not pool:
             raise ValueError("a model_pool is required (directly or via "
                              "profile)")
 
-        root_node = None
+        enforcer = root_node = None
         governance_docs = None
         forbidden: tuple[str, ...] = ()
         active_skills: tuple[str, ...] = ()
         if grove is not None:
-            # Groves (governance/grove.py) are not ported yet (ROADMAP
-            # Queue 1 item 9, second bullet): the JAX manager pre-fills the
-            # missing fields from the manifest's bootstrap here.
-            raise NotImplementedError(
-                f"groves are not ported yet (grove={grove!r})")
+            from quoracle_tpu_torch.governance.fields import (
+                AgentFields, compose_field_prompt,
+            )
+            from quoracle_tpu_torch.governance.grove import (
+                GroveEnforcer, load_grove,
+            )
+            enforcer = GroveEnforcer(load_grove(grove))
+            boot = enforcer.bootstrap_fields()
+            root_node = enforcer.manifest.root_node
+            description = description or boot.get("task_description")
+            active_skills = tuple(boot.get("skills") or ())
+            governance_docs = enforcer.governance_docs_for(root_node)
+            forbidden = tuple(sorted(enforcer.blocked_actions(root_node)))
+            ws = enforcer.workspace_dir()
+            if ws:
+                import os
+                os.makedirs(ws, exist_ok=True)
+                working_dir = ws
+            if system_prompt is None:
+                system_prompt = compose_field_prompt(AgentFields(
+                    role=boot.get("role"),
+                    cognitive_style=boot.get("cognitive_style"),
+                    global_context=boot.get("global_context"),
+                    delegation_strategy=boot.get("delegation_strategy"),
+                ))
+            if boot.get("success_criteria") and description:
+                description = (f"{description}\n\n[SUCCESS CRITERIA]\n"
+                               f"{boot['success_criteria']}")
         if not description:
             raise ValueError("a task description is required (directly or "
                              "via the grove bootstrap)")

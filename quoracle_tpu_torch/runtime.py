@@ -14,8 +14,8 @@ None means the GPU, and raises without one). What the port has not got
 yet raises at construction and names its ROADMAP Queue 1 item, never
 dropped silently: multi-process and tensor-parallel serving (item 12),
 the cluster, fleet, fabric, chaos and simulator planes (item 9, third
-bullet), the training capture store (item 11), the diffusion image
-backend (item 10) and groves (item 9, second bullet).
+bullet), the training capture store (item 11) and the diffusion image
+backend (item 10).
 """
 
 from __future__ import annotations
@@ -226,7 +226,6 @@ _NOT_PORTED = {
     "sim_seed": "ROADMAP Queue 1 item 9, third bullet (sim/)",
     "capture_dir": "ROADMAP Queue 1 item 11 (training capture)",
     "capture_mb": "ROADMAP Queue 1 item 11 (training capture)",
-    "groves_dir": "ROADMAP Queue 1 item 9, second bullet (groves)",
 }
 
 
@@ -531,13 +530,10 @@ class Runtime:
         return list(MockBackend.DEFAULT_POOL)
 
     def list_groves(self) -> list:
+        from quoracle_tpu_torch.governance.grove import list_groves
         groves_dir = (self.config.groves_dir
                       or self.store.get_setting("groves_dir"))
-        if groves_dir:
-            raise NotImplementedError(
-                f"groves are not ported yet (groves_dir={groves_dir!r}): "
-                f"{_NOT_PORTED['groves_dir']}")
-        return []
+        return list_groves(groves_dir) if groves_dir else []
 
     def status(self) -> dict[str, Any]:
         return {

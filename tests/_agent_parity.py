@@ -1,7 +1,8 @@
 """Shared helpers of the agent-layer parity tests (tests/test_torch_bus.py,
 test_torch_context.py, test_torch_actions_exec.py, test_torch_agent.py,
 test_torch_agent_e2e.py, test_torch_world_actions.py,
-test_torch_persistence.py, test_torch_runtime.py): each package's
+test_torch_persistence.py, test_torch_runtime.py, test_torch_grove.py,
+test_torch_dashboard.py, test_torch_cli.py): each package's
 agent-layer modules and the layers above them (world actions,
 persistence, the runtime) under one namespace, an event-driven wait, and
 a view that drops ids and times.
@@ -36,14 +37,16 @@ MODULES = {
     "context_manager": "context.context_manager",
     "message_builder": "context.message_builder",
     "history_transfer": "context.history_transfer",
-    "skills": "governance.skills",
+    "skills": "governance.skills", "grove": "governance.grove",
+    "fields": "governance.fields",
     "capabilities": "governance.capabilities", "runtime": "models.runtime",
     "normalize": "utils.normalize", "cengine": "consensus.engine",
     "world": "actions.world", "http": "infra.http", "mcp": "infra.mcp",
     "html_md": "utils.html_md", "images": "models.images",
     "db": "persistence.db", "store": "persistence.store",
     "tasks": "persistence.tasks", "event_history": "infra.event_history",
-    "rt": "runtime",
+    "rt": "runtime", "web": "web.server", "page": "web.page",
+    "cli": "cli",
 }
 
 
@@ -78,6 +81,14 @@ _ID_RES = [(re.compile(r"agent-[0-9a-f]{12}"), "agent-*"),
            (re.compile(r"SECRET_VALUE_[A-Za-z0-9]+"), "SECRET_VALUE_*")]
 TIME_KEYS = {"ts", "spawned_at", "registered_at", "created_at",
              "started_at", "latency_ms", "duration_ms", "id"}
+# process-wide sequence ids: each package numbers its own from 1 in the
+# process, so they match only when both have counted the same number
+# before. ``view`` puts a placeholder for a value of the id's format and
+# keeps any other (None, a malformed id), which still has to agree
+SEQUENCE_ID = re.compile(r"c[0-9a-f]+")         # consensus/quality.py
+REGISTRY_ID = re.compile(r"[0-9a-f]+\.[0-9a-f]+")  # infra/treeobs.py
+SEQUENCE_KEYS = {"decide_id": (SEQUENCE_ID, "c*"),
+                 "registry_id": (REGISTRY_ID, "<pid>.*")}
 
 
 def scrub(text: str) -> str:
@@ -92,7 +103,7 @@ def view(x):
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         x = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
     if isinstance(x, dict):
-        return {scrub(str(k)): view(v) for k, v in sorted(
+        return {scrub(str(k)): sequence_view(k, v) for k, v in sorted(
             x.items(), key=lambda kv: str(kv[0])) if k not in TIME_KEYS}
     if isinstance(x, (list, tuple)):
         return [view(v) for v in x]
@@ -103,6 +114,15 @@ def view(x):
     if isinstance(x, float):
         return round(x, 9)
     return x
+
+
+def sequence_view(key, value):
+    """``view(value)``, but a sequence id of its key's format becomes
+    that key's placeholder."""
+    rx, placeholder = SEQUENCE_KEYS.get(key, (None, None))
+    if rx is not None and isinstance(value, str) and rx.fullmatch(value):
+        return placeholder
+    return view(value)
 
 
 def history_view(core, model) -> list:

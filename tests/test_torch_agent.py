@@ -796,16 +796,20 @@ def test_spawn_failure_retries_then_notifies_parent(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_grove_path_stops_the_port_agent():
-    """Groves are not ported: an agent configured with one fails closed
-    at construction, as a JAX agent does when its grove cannot load."""
-    async def main():
-        env = Env(PORT, PORT.runtime.MockBackend())
-        with pytest.raises(NotImplementedError, match="groves"):
-            await env.start(grove_path="/nonexistent/grove")
-        out = len(env.deps.registry)
-        env.close()
-        return out
-    assert run(main()) == 0
+    """An agent whose grove cannot load fails closed at construction in
+    both packages: the error reaches the spawner and nothing registers."""
+    def case(pkg):
+        async def main():
+            env = Env(pkg, pkg.runtime.MockBackend())
+            with pytest.raises(pkg.grove.GroveError) as err:
+                await env.start(grove_path="/nonexistent/grove")
+            out = (str(err.value), len(env.deps.registry))
+            env.close()
+            return out
+        return run(main())
+    got = [case(pkg) for pkg in BOTH]
+    assert got[1] == got[0] and got[1][1] == 0
+    assert "cannot read /nonexistent/grove/GROVE.md" in got[1][0]
     assert not os.path.exists("/nonexistent/grove")
 
 

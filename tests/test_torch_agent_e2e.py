@@ -3,7 +3,8 @@ against the JAX agent's over ``TPUBackend``: tests/test_e2e_tpu_agent.py's
 four cases (:36, :86, :133, :193) on ``xla:tiny`` + ``xla:tiny-gemma``
 with the same fp32 weights (tests/_torch_parity.py); case 3 (pause and
 restore) runs through each package's ``Runtime``. Also
-``answer_engine`` over each real backend.
+``answer_engine`` over each real backend, and a grove tree (root →
+child along the edge, the grove's refusals) through each ``Runtime``.
 
 Both packages' engines run on the unified ragged tier without prefix
 sharing, and the decides are greedy (both consensus engines'
@@ -18,7 +19,12 @@ executor thread, which runs every decide tick, to no autograd."""
 
 import dataclasses
 import functools
+import importlib
+import itertools
+import json
+import shutil
 import threading
+import types
 
 import jax.numpy as jnp
 import pytest
@@ -392,7 +398,6 @@ def test_answer_engine_on_both_backends(greedy, monkeypatch):
     text at temperature 0 (the executor samples at 0.3; the test pins
     its request to greedy and 24 tokens, as the decides' temperature is
     pinned)."""
-    import types
 
     for pkg in BOTH:
         real = pkg.runtime.QueryRequest
@@ -427,3 +432,180 @@ def test_answer_engine_on_both_backends(greedy, monkeypatch):
     (paid, kind, _, out_tokens, what), = costs
     assert paid and kind == "model" and what == "answer_engine"
     assert 0 < out_tokens <= 24
+
+
+def _scripted(pkg, action, params, wait=False):
+    """A decide the test scripts (random-weight members cannot write the
+    grove actions' params), as chip_smoke.py's ``scripted_outcome``."""
+    import importlib
+    result = importlib.import_module(f"{pkg.name}.consensus.result")
+    return pkg.cengine.ConsensusOutcome(status="ok", decision=result.Decision(
+        kind="consensus", action=action, params=params, wait=wait,
+        confidence=1.0, cluster_size=1, total_responses=1, rounds_used=1,
+        reasoning="scripted"))
+
+
+def test_grove_tree_on_both_backends(greedy, tmp_path, monkeypatch):
+    """A grove task through each package's ``Runtime`` over its real
+    backend (``TorchBackend(device="cpu")`` and ``TPUBackend`` on the
+    same fp32 weights): the root starts at the grove's root node with the
+    bootstrap's skills and governance docs, and spawns a child along the
+    edge (a scripted decide), which lands on the child node with the
+    edge's skills, constraints and blocked actions. The child's scripted
+    actions meet the grove's executors: a command naming ``curl``
+    refused by the hard rule (an ``echo``, harmless if it ran), a write
+    outside its confinement refused, a report breaking the schema
+    refused and one that fits written; then it waits. Then a user
+    message has the root decide on the real backend (greedy, only
+    ``wait`` allowed, the compact prompt). Decisions, histories, child
+    nodes, refusals, files and costs equal."""
+    from test_torch_grove import write_grove
+
+    def case(pkg):
+        # paths, ids and times enter the prompts: the same ones on both
+        # sides (each package's run starts over in the same directory;
+        # random ids and clock times tokenize differently run to run)
+        root_dir = tmp_path / "grove-run"
+        shutil.rmtree(root_dir, ignore_errors=True)
+        root_dir.mkdir()
+        grove_dir, ws = write_grove(root_dir)
+        report = f"{ws}/runs/r1/report.json"
+        agent_ids = functools.partial(next, map("agent-{:012x}".format,
+                                                itertools.count(1)))
+        monkeypatch.setattr(pkg.state, "new_agent_id", agent_ids)
+        monkeypatch.setattr(pkg.tasks, "new_agent_id", agent_ids)
+        monkeypatch.setattr(pkg.tasks, "new_task_id",
+                            lambda: "task-00000000001")
+        injection = importlib.import_module(f"{pkg.name}.infra.injection")
+        monkeypatch.setattr(injection, "random_tag_id", lambda: "0a1b2c3d")
+        # the children tracker's spawned_at enters the root's prompt
+        monkeypatch.setattr(pkg.core, "time", types.SimpleNamespace(
+            time=lambda: 1_700_000_000.0))
+        scripts = {
+            "coordinator": [
+                _scripted(pkg, "spawn_child", {
+                    "task_description": "write the report",
+                    "success_criteria": "report written",
+                    "immediate_context": "score the run",
+                    "approach_guidance": "one file"}, wait=True)],
+            "worker": [
+                _scripted(pkg, "execute_shell",
+                          {"command": "echo curl"}),
+                _scripted(pkg, "file_write", {
+                    "path": str(root_dir / "outside.txt"),
+                    "content": "x"}),
+                _scripted(pkg, "file_write", {
+                    "path": report, "content": '{"score": "high"}'}),
+                _scripted(pkg, "file_write", {
+                    "path": report, "content": '{"score": 0.5}'}),
+                _scripted(pkg, "wait", {}, wait=True)]}
+        started, real, results = {}, [], []
+        build = pkg.core.AgentCore._build_engine
+        to_history = pkg.core.AgentCore._result_history_content
+
+        def kept_result(action, result):
+            results.append((action, result))
+            return to_history(action, result)
+        monkeypatch.setattr(pkg.core.AgentCore, "_result_history_content",
+                            staticmethod(kept_result))
+
+        def seamed_engine(core):
+            """The engine each agent builds as it is constructed (before
+            it can decide): the node's scripted decides first, then the
+            real backend with the compact prompt, only ``wait``, 64
+            tokens (tiny closes its greedy JSON only past 32), two
+            refinement rounds."""
+            engine = build(core)
+            node = core.config.grove_node
+            started[node] = core
+            core._system_prompt = PROMPT
+            engine.config.allowed_actions = {"wait"}
+            engine.config.max_tokens = 2 * MAX_TOKENS
+            engine.config.max_refinement_rounds = 2
+            queue, decide = scripts[node], engine.decide
+
+            def scripted_or_real(messages):
+                if queue:
+                    return queue.pop(0)
+                real.append(node)
+                return decide(messages)
+            engine.decide = scripted_or_real
+            return engine
+        monkeypatch.setattr(pkg.core.AgentCore, "_build_engine",
+                            seamed_engine)
+
+        async def main():
+            b = backend(pkg, window=1024)
+            cfg = pkg.rt.RuntimeConfig(
+                db_path=str(root_dir / "grove.db"), encryption_key="k" * 16)
+            rt = pkg.rt.Runtime(cfg, backend=b)
+            w = new_watch(rt.deps)
+            task_id, root = await rt.tasks.create_task(
+                grove=grove_dir, model_pool=list(POOL))
+
+            def done(node):
+                """Every scripted decide taken and the agent idle (the
+                worker's history condenses on the way: 1,024 tokens)."""
+                core = started.get(node)
+                return core is not None and not scripts[node] and idle(core)
+            await w.until(lambda: done("coordinator") and done("worker"),
+                          timeout=300)
+            # then the root's real decide (and any retries it schedules),
+            # alone on the backend: concurrent rows batch together
+            root.post({"type": "user_message", "from": "user",
+                       "content": "decide your next action"})
+            await w.until(lambda: real and idle(root), timeout=300)
+            child = started["worker"]
+            out = {"nodes": {n: {"node": c.config.grove_node,
+                                 "skills": list(c.active_skills),
+                                 "forbidden": sorted(
+                                     c.config.forbidden_actions),
+                                 "docs": c.config.governance_docs,
+                                 "fields": c.config.field_system_prompt,
+                                 "working_dir": c.config.working_dir}
+                             for n, c in started.items()},
+                   "histories": {n: {m: history_view(c, m) for m in POOL}
+                                 for n, c in started.items()},
+                   "files": {p.name: p.read_text()
+                             for p in sorted(root_dir.rglob("*.json"))
+                             if "runs" in p.parts},
+                   "outside": (root_dir / "outside.txt").exists(),
+                   "children": [view(c["agent_id"]) for c in root.children],
+                   "worker_results": [(a, r) for a, r in results
+                                      if a in ("execute_shell",
+                                               "file_write")],
+                   "child_parent": child.config.parent_id == root.agent_id}
+            await rt.tasks.pause_task(task_id)
+            out["costs"] = str(rt.store.costs_for_task(task_id))
+            out["real"] = list(real)
+            out["status"] = list(rt.status()["tasks"].values())
+            rt.close()
+            return json.loads(json.dumps(out, default=str).replace(
+                str(root_dir), "<tmp>"))
+        return main()
+    with process_hooks_restored():
+        got = [run(case(pkg), timeout=900) for pkg in BOTH]
+    a, b = view(got[0]), view(got[1])
+    assert b == a, first_difference(a, b)
+    port = got[1]
+    root, child = port["nodes"]["coordinator"], port["nodes"]["worker"]
+    assert root["skills"] == ["coord-skill"] and "Never fabricate" in \
+        root["docs"] and root["working_dir"] == "<tmp>/workspace"
+    assert child["skills"] == ["worker-skill"] and child["forbidden"] == [
+        "call_api", "fetch_web"]
+    assert "Answer only from provided data." in child["fields"]
+    acted = port["worker_results"]
+    assert [(a, r["status"]) for a, r in acted] == [
+        ("execute_shell", "error"), ("file_write", "error"),
+        ("file_write", "error"), ("file_write", "ok")]
+    assert acted[0][1]["error"] == "blocked by grove hard rule: no network"
+    assert "outside the allowed paths" in acted[1][1]["error"]
+    assert acted[2][1]["error"] == \
+        "schema report: 'high' is not of type 'number'"
+    decisions = [c for k, _, c in port["histories"]["coordinator"][POOL[0]]
+                 if k == "decision"]
+    assert decisions[0]["action"] == "spawn_child"
+    assert port["real"] and set(port["real"]) == {"coordinator"}
+    assert port["files"] == {"report.json": '{"score": 0.5}'}
+    assert not port["outside"] and port["child_parent"]
+    assert port["costs"] != "0" and port["status"] == ["paused"]

@@ -218,12 +218,17 @@ def test_timeline_attribution_sums_to_total_exactly():
 
 def test_request_span_builds_nothing_without_a_sink():
     import contextlib
-    assert not ttel.TRACER.active()
-    assert isinstance(tfleet.request_span("door.request", "s1"),
-                      contextlib.nullcontext)
+    # the tracer is process-wide: a runtime or a span ring installed by an
+    # earlier test in this process leaves its sinks on it
+    saved = list(ttel.TRACER._sinks)
+    for fn in saved:
+        ttel.TRACER.remove_sink(fn)
     got = []
-    ttel.TRACER.add_sink(got.append)
     try:
+        assert not ttel.TRACER.active()
+        assert isinstance(tfleet.request_span("door.request", "s1"),
+                          contextlib.nullcontext)
+        ttel.TRACER.add_sink(got.append)
         with tfleet.request_span("door.request", "s1"):
             tfleet.tag_current_span("s1")
             ctx = tfleet.TraceContext.current()
@@ -231,6 +236,8 @@ def test_request_span_builds_nothing_without_a_sink():
             ttel.TRACER.emit("peer.serve", 1.0)
     finally:
         ttel.TRACER.remove_sink(got.append)
+        for fn in saved:
+            ttel.TRACER.add_sink(fn)
     door, peer = sorted(got, key=lambda e: e["name"])
     assert door["trace_id"] == peer["trace_id"] == ctx.trace_id
     assert peer["parent_id"] == door["span_id"]

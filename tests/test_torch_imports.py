@@ -2,8 +2,11 @@
 chip_smoke.py, in a fresh interpreter loads neither JAX nor the JAX
 package, nor the libraries the JAX package reads checkpoints with
 (``safetensors``, ``tokenizers``, ``transformers``, ``regex``,
-``ml_dtypes``), which the card's machine lacks, nor PyYAML, which it may
-lack (the skills actions import it when they read a SKILL.md), nor
+``ml_dtypes``), which the card's machine lacks, nor PyYAML or
+``jsonschema``, which it lacks too (the port reads manifests and skills
+with ``governance/frontmatter.py`` and checks grove schemas with
+``governance/jsonschema_lite.py``: the probe loads the shipped groves,
+reads and writes a skill and validates a payload to show it), nor
 ``cryptography``, which it may lack (the persistence vault imports it
 when it is given a key). (Only the parity tests import them.)"""
 
@@ -94,13 +97,34 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.utils.html_md",
              "quoracle_tpu_torch.models.images",
              "quoracle_tpu_torch.actions.world",
-             "quoracle_tpu_torch.runtime"):
+             "quoracle_tpu_torch.runtime",
+             "quoracle_tpu_torch.governance.frontmatter",
+             "quoracle_tpu_torch.governance.jsonschema_lite",
+             "quoracle_tpu_torch.governance.grove",
+             "quoracle_tpu_torch.tools.show_prompts",
+             "quoracle_tpu_torch.web",
+             "quoracle_tpu_torch.web.page",
+             "quoracle_tpu_torch.web.views",
+             "quoracle_tpu_torch.web.server",
+             "quoracle_tpu_torch.cli"):
     assert name in names, name
+from quoracle_tpu_torch.governance import grove, skills
+groves = grove.list_groves(os.path.join({repo!r}, "groves"))
+assert [g.name for g in groves] == ["livebench", "mmlu-pro"], groves
+enf = grove.GroveEnforcer(groves[1])
+assert enf.validate_file_schema(
+    os.path.join(enf.workspace_dir(), "runs", "r", "answers", "q.json"),
+    '{{"question_id": "q", "answer": "Z"}}').endswith("does not match "
+                                                     "'^[A-J]$'")
+assert enf.skills_loader().load("mmlu-answerer") is not None
+assert skills.parse_skill_md(skills.render_skill_md("a", "b: c", "d")) \
+    .description == "b: c"
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join({repo!r}, "chip_smoke.py"))
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 BANNED = ("jax", "jaxlib", "quoracle_tpu", "safetensors", "tokenizers",
-          "transformers", "regex", "ml_dtypes", "yaml", "cryptography")
+          "transformers", "regex", "ml_dtypes", "yaml", "jsonschema",
+          "cryptography")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 print(len(names), bad)
 """
@@ -113,5 +137,5 @@ def test_port_and_chip_smoke_import_no_jax():
         env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 94, out.stdout          # every module was imported
+    assert int(n) >= 103, out.stdout          # every module was imported
     assert bad.strip() == "[]", out.stdout

@@ -330,8 +330,22 @@ def test_engine_temp0_bit_equal_introspect_on_off():
         (on_g.token_ids, on_c.token_ids)
 
 
-def test_loop_rows_book_exact_waits_and_heartbeats():
+@pytest.fixture
+def span_ring():
+    """The port's process-wide span ring as a tracer sink for one test,
+    taken off after unless it was on before (a later test in the same
+    process may assert that the tracer has no sink)."""
+    was_on = tfleet._ring_installed
     tfleet.ensure_ring()
+    try:
+        yield tfleet.SPANS
+    finally:
+        if not was_on:
+            ttel.TRACER.remove_sink(tfleet.SPANS.record)
+            tfleet._ring_installed = False
+
+
+def test_loop_rows_book_exact_waits_and_heartbeats(span_ring):
     tfleet.SPANS.clear()
     eng = engine(PORT)
     cb = tsch.ContinuousBatcher(eng, chunk=8)

@@ -473,14 +473,20 @@ def test_create_task_with_profile_resolution():
 
 
 def test_port_task_manager_refuses_a_grove():
-    async def main():
-        backend = PORT.runtime.MockBackend()
-        db, store, deps, sup, tm, w = make_stack(PORT, backend)
-        with pytest.raises(NotImplementedError, match="groves"):
-            await tm.create_task("x", model_pool=list(POOL),
-                                 grove="/nonexistent")
-        return store.list_tasks()
-    assert run(main()) == []
+    """A grove that does not load stops create_task before any row is
+    written, in both packages (the grove bootstrap itself runs in
+    tests/test_torch_grove.py)."""
+    def case(pkg):
+        async def main():
+            backend = pkg.runtime.MockBackend()
+            db, store, deps, sup, tm, w = make_stack(pkg, backend)
+            with pytest.raises(pkg.grove.GroveError) as err:
+                await tm.create_task("x", model_pool=list(POOL),
+                                     grove="/nonexistent")
+            return str(err.value), store.list_tasks()
+        return run(main())
+    got = [case(pkg) for pkg in BOTH]
+    assert got[1] == got[0] and got[1][1] == []
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,8 @@ tests/_agent_parity.py, and the watchdog's time is scripted."""
 import pytest
 
 from _agent_parity import (
-    BOTH, JAX, PORT, db_view, first_difference, idle, install_watch, j,
-    new_watch, process_hooks_restored, run, view,
+    BOTH, JAX, PORT, SEQUENCE_ID, db_view, first_difference, idle,
+    install_watch, j, new_watch, process_hooks_restored, run, view,
 )
 
 POOL = ["mock:consensus-model-1", "mock:consensus-model-2",
@@ -70,7 +70,11 @@ def test_runtime_full_stack_create_pause_reboot(tmp_path):
                    "failed": result["failed"], "live": len(rt.registry),
                    "agents": rt.live_agents(), "status": rt.status()}
             await rt.shutdown()
-            out["db"] = db_view(pkg.db.Database(db_path))
+            db = pkg.db.Database(db_path)
+            out["db"] = db_view(db)
+            out["decide_ids"] = all(
+                SEQUENCE_ID.fullmatch(r["decide_id"]) for r in db.query(
+                    "SELECT decide_id FROM consensus_audit"))
             return out
 
         task_id, status = run(phase1(), timeout=120)
@@ -82,6 +86,18 @@ def test_runtime_full_stack_create_pause_reboot(tmp_path):
     assert list(port["paused"]["tasks"].values()) == ["paused"]
     assert port["paused"]["backend"] == "MockBackend"
     assert port["revived"] == [True] and port["live"] == 1
+    assert port["db"]["consensus_audit"] and port["decide_ids"]
+
+
+@pytest.mark.parametrize("key,a,b,equal", [
+    ("decide_id", "c1", "c2f", True), ("decide_id", None, None, True),
+    ("decide_id", "c1", None, False), ("decide_id", "c1", "x1", False),
+    ("registry_id", "1a2b.3", "1a2b.7", True),
+    ("registry_id", "1a2b.3", "", False)])
+def test_view_holds_sequence_ids_to_their_format(key, a, b, equal):
+    """The parity view puts a placeholder for a process-wide sequence id
+    of its format only: a missing or malformed one still differs."""
+    assert (view({key: a, "k": 1}) == view({key: b, "k": 1})) is equal
 
 
 def test_runtime_isolation():
@@ -153,7 +169,6 @@ NOT_PORTED = [
     ("capture_dir", "capture", "item 11"),
     ("capture_mb", 64.0, "item 11"),
     ("image_backend", "diffusion", "item 10"),
-    ("groves_dir", "groves", "item 9, second bullet"),
 ]
 
 
@@ -175,15 +190,32 @@ def test_each_left_out_field_raises_and_names_its_item(field, value, item):
 
 
 def test_list_groves_with_a_groves_setting_raises():
-    rt = PORT.rt.Runtime(backend=PORT.runtime.MockBackend())
-    try:
-        assert rt.list_groves() == []
-        rt.store.set_setting("groves_dir", "/somewhere")
-        with pytest.raises(NotImplementedError,
-                           match="item 9, second bullet"):
-            rt.list_groves()
-    finally:
-        rt.close()
+    """No groves without a setting; the ``groves_dir`` setting (or the
+    config field) lists the manifests there as the JAX runtime does, and
+    the one that does not load raises at ``load_grove``."""
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def case(pkg):
+        rt = pkg.rt.Runtime(backend=pkg.runtime.MockBackend())
+        rt2 = pkg.rt.Runtime(pkg.rt.RuntimeConfig(
+            groves_dir=os.path.join(repo, "groves")),
+            backend=pkg.runtime.MockBackend())
+        try:
+            empty = rt.list_groves()
+            rt.store.set_setting("groves_dir", os.path.join(repo, "groves"))
+            with pytest.raises(pkg.grove.GroveError):
+                pkg.grove.load_grove("/somewhere")
+            return {"empty": empty, "setting": rt.list_groves(),
+                    "config": rt2.list_groves()}
+        finally:
+            rt.close()
+            rt2.close()
+    got = [case(pkg) for pkg in BOTH]
+    assert view(got[1]) == view(got[0])
+    assert got[1]["empty"] == []
+    assert [g.name for g in got[1]["setting"]] == ["livebench", "mmlu-pro"]
+    assert got[1]["config"] == got[1]["setting"]
 
 
 def test_backend_names():

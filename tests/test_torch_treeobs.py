@@ -13,6 +13,8 @@ thread's tree context, and temperature-0 outputs are the same with the
 plane on and off.
 """
 
+import os
+import re
 import types
 
 import pytest
@@ -163,7 +165,15 @@ def test_completed_trees_age_out_of_bounded_lru():
         for i in range(5, 9):
             reg.register_spawn(f"t{i}-root", tree_id=f"t{i}")
             reg.complete_node(f"t{i}-root")
-        return (st, reg.stats(), reg.depth_of("t4-root"),
+        # registry_id counts the registries built in this process by each
+        # package, so it differs with the tests that ran before: its
+        # format is checked on each side and the rest compared
+        end = reg.stats()
+        ids = [s.pop("registry_id") for s in (st, end)]
+        assert all(re.fullmatch(rf"{os.getpid():x}\.[0-9a-f]+", i)
+                   for i in ids)
+        assert ids[0] == ids[1] == reg.registry_id
+        return (st, end, reg.depth_of("t4-root"),
                 reg.depth_of("t0-root"), reg.depth_of("live-root"))
     out = both(script)
     assert out[0]["done"] == 2 and out[4] == 0
