@@ -263,8 +263,8 @@ never prints its last line):
              refused but the fitting write); the status, agents, kv,
              resources (the device block's named parts within its used
              bytes, which are within WEB_MEM_MARGIN of the script's own
-             mem_get_info), costs, models, tree, trace and /metrics routes
-             answer 200, /api/chaos, /api/sim and /api/train 501; the task
+             mem_get_info), costs, models, tree, trace, chaos and /metrics
+             routes answer 200, /api/sim and /api/train 501; the task
              pauses over HTTP (sessions dropped, pages back, the row
              "paused") and resumes (the restored tick "ok", its cached
              tokens reported); ragged ran, the paged and int8 kernels did
@@ -274,6 +274,44 @@ never prints its last line):
              point's default; a query served; ragged launched; each
              member's decode steps and ms a step reported) and cli.main
              status (the task paused)
+  cluster    the multi-replica plane (serving/cluster.py, router.py,
+             fleet.py) and the chaos plane (chaos/) over llama-3-8b at
+             full width, one pool member, every engine a new
+             GenerateEngine over shared weights (ClusterPlane.build's
+             engine_factory; its own 512 MiB session pool; the grammar
+             tables shared; prefix sharing off, so a row's prefill is the
+             same computation on any engine). At DEPTH_CUT layers (the
+             decide pool's view of the serve weights), bf16: (a) a
+             unified plane of two replicas in baton mode: a constrained
+             JSON row, a greedy row and a sessionless row (the dense
+             path: flash) give the tokens and cached counts of one
+             TorchBackend over the same weights; the greedy session's
+             round 2 stays on its replica, cached tokens above 0, no
+             handoff; (b) a disaggregated plane of 1 prefill + 2 decode
+             replicas (host_kv_mb 256): the same rows, the handoffs'
+             export and adopt ms and envelope bytes, the rows against
+             one continuous TorchBackend recorded (in bf16 a decode
+             replica's first step is a 1-token chunk tick where the
+             backend runs a decode tick, which sums in another order:
+             not checked here); then chaos/scenarios.py's
+             kill_mid_handoff over these replicas with the port's
+             lock-order sanitizer on: every invariant's verdict printed,
+             all must pass. (c) On an fp32 cut at full width
+             (CLUSTER_FP32_LAYERS layers, as the continuous phase's
+             chunk-boundary equality): the three rows through 1 prefill
+             + 2 decode replicas give one continuous TorchBackend's
+             tokens; a FleetController drain of the decode replica
+             holding the sessions migrates every one, leaving its store
+             and host tier empty and no envelope, and the greedy
+             session's round 2 gives the backend's tokens and cached
+             count; a plan with a cluster.decode crash kills the row's
+             decode replica and the envelope re-places the row on the
+             survivor with the backend's tokens, kv_handoff_replace in
+             the flight ring. Each replica engine's launches are booked
+             to its replica: ragged_fwd must run on the prefill and on a
+             decode replica, flash_fwd for the sessionless row; every
+             engine on cuda. The launch counts are zeroed before (a) and
+             read after (c)
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -381,8 +419,8 @@ never prints its last line):
              within 1e-5 at the 8, 64 and 256-token buckets. Engines of
              one tokenizer share the JSON grammar's host table
 
-in that order but for batch, continuous, obs, agent, runtime, web and
-spec, which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
+in that order but for batch, continuous, obs, agent, runtime, web,
+cluster and spec, which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
 line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
@@ -397,8 +435,8 @@ decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
 ``--only calib``, ``--only batch``, ``--only continuous``, ``--only
 spec``, ``--only tiers``, ``--only obs``, ``--only agent``, ``--only
-runtime`` and ``--only web`` run that phase after the
-build, over weights drawn here (no last line); ``--only reference`` runs
+runtime``, ``--only web`` and ``--only cluster`` run that phase after
+the build, over weights drawn here (no last line); ``--only reference`` runs
 the reference phase after the build (no last line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
 the build (no last line). Every
 comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
@@ -5055,7 +5093,7 @@ def phase_web(torch, R, kernels, decide_backend) -> dict:
             report["tree_nodes"] = len(routes["/api/tree"][1].get("nodes")
                                        or [])
             report["not_ported"] = {p: routes[p][1] for p in (
-                "/api/chaos", "/api/sim", "/api/train")}
+                "/api/sim", "/api/train")}
             report["costs_nominal"] = routes["/api/costs"][1]["nominal"][
                 "total_amount"]
 
@@ -5217,7 +5255,7 @@ def phase_web(torch, R, kernels, decide_backend) -> dict:
                     and "'status': 'ok'" in acts[2]),
         "hard_rule": "blocked by grove hard rule: no network" in acts[3],
         "routes": all(report["routes"][p] == 200 for p in report["routes"]
-                      if p not in ("/api/chaos", "/api/sim", "/api/train")),
+                      if p not in ("/api/sim", "/api/train")),
         "not_ported": all(
             report["routes"][p] == 501 and b["roadmap"].startswith(
                 "ROADMAP Queue 1 item")
@@ -5260,6 +5298,367 @@ def phase_web(torch, R, kernels, decide_backend) -> dict:
     if not all(checks.values()):
         emit(report)
         raise AssertionError(f"the web phase failed its checks: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return report
+
+
+CLUSTER_RULES = 12          # the cluster phase's chat prompt: ~320 tokens,
+                            # past flash's 256-token chunk on the dense path
+CLUSTER_TOKENS = 48         # new tokens a row of the cluster phase
+CLUSTER_POOL_BYTES = 512 << 20   # each engine's session pool
+CLUSTER_FP32_LAYERS = 2     # the fp32 cut of the cross-tick equalities
+
+
+class ReplicaLaunches:
+    """Kernel launches per replica: each replica engine's ``generate`` is
+    wrapped to book the launch-count delta of its call. The phase serves
+    one row at a time, so no two engines run at once."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.by: dict = {}
+
+    def watch(self, label: str, eng) -> None:
+        inner = eng.generate
+        counts = self.kernels.launch_counts
+
+        def generate(*a, **kw):
+            c0 = counts()
+            try:
+                return inner(*a, **kw)
+            finally:
+                c1 = counts()
+                mine = self.by.setdefault(label, dict.fromkeys(c1, 0))
+                for k in c1:
+                    mine[k] += c1[k] - c0[k]
+        eng.generate = generate
+
+    def watch_plane(self, cl) -> None:
+        """Watch every engine of the plane's replicas not yet watched."""
+        for rep in cl.replicas:
+            for eng in rep.backend.engines.values():
+                if not getattr(eng, "_launches_booked", False):
+                    eng._launches_booked = True
+                    self.watch(rep.replica_id, eng)
+
+
+def cluster_factory(cfg, params, tokenizer, json_cache, devices: set):
+    """``ClusterPlane.build``'s engine factory: each call a new engine
+    over ``params`` (no copy) and the shared grammar tables, its own
+    session pool, prefix sharing off (each row's prefill is then the same
+    computation on any engine; a prefill over a cached prefix sums in
+    another order)."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+
+    def factory(spec, quantize_weights=False, quantize_kv=False):
+        assert spec == MODEL and not (quantize_weights or quantize_kv)
+        e = GenerateEngine(cfg, params, tokenizer, seed=0, device="cuda",
+                           session_max_bytes=CLUSTER_POOL_BYTES)
+        e._json_cache = json_cache
+        e.prefix_sharing = False
+        devices.add(e.device.type)
+        return e
+    return factory
+
+
+def cluster_rows(R, sids: tuple, user: str = "pick the next action"):
+    """The phase's three rows: a constrained JSON row and a greedy row on
+    sessions ``sids``, and a sessionless row, all at temperature 0."""
+    msgs = chat(user, CLUSTER_RULES)
+    return [R.QueryRequest(MODEL, msgs, temperature=0.0,
+                           max_tokens=CLUSTER_TOKENS, session_id=sids[0],
+                           constrain_json=True),
+            R.QueryRequest(MODEL, msgs, temperature=0.0,
+                           max_tokens=CLUSTER_TOKENS, session_id=sids[1]),
+            R.QueryRequest(MODEL, msgs, temperature=0.0,
+                           max_tokens=CLUSTER_TOKENS)]
+
+
+def round_two(R, row, first):
+    """The greedy row's next round: its history and one more message."""
+    msgs = list(row.messages) + [
+        {"role": "assistant", "content": first.text},
+        {"role": "user", "content": "continue with the next step"}]
+    return R.QueryRequest(MODEL, msgs, temperature=0.0,
+                          max_tokens=CLUSTER_TOKENS,
+                          session_id=row.session_id)
+
+
+def serve_each(backend, rows) -> tuple:
+    """Each row as its own query (one row at a time, as every plane of
+    the phase serves them); the results and each one's wall ms."""
+    out, ms = [], []
+    for r in rows:
+        t0 = time.monotonic()
+        (one,) = backend.query([r])
+        ms.append((time.monotonic() - t0) * 1e3)
+        if not one.ok:
+            raise AssertionError(f"cluster phase row error: {one.error}")
+        out.append(one)
+    return out, ms
+
+
+def same_rows(got, want) -> list:
+    """Per row: the texts and cached counts equal."""
+    return [a.text == b.text and a.cached_tokens == b.cached_tokens
+            for a, b in zip(got, want)]
+
+
+def new_events(flight, before: set) -> list:
+    return [e for e in flight.snapshot() if id(e) not in before]
+
+
+def cluster_unified(R, kernels, factory, embedder, per) -> dict:
+    """(a) two unified replicas in baton mode against one backend."""
+    from quoracle_tpu_torch.serving.cluster import ClusterPlane
+    mono = R.TorchBackend([MODEL], device="cuda",
+                          engines={MODEL: factory(MODEL)}, embedder=embedder)
+    rows = cluster_rows(R, ("u-c", "u-g"))
+    want, _ = serve_each(mono, rows)
+    want2, _ = serve_each(mono, [round_two(R, rows[1], want[1])])
+    cl = ClusterPlane.build([MODEL], replicas=2, disaggregate=False,
+                            device="cuda", engine_factory=factory,
+                            continuous=False)
+    try:
+        per.watch_plane(cl)
+        got, ms = serve_each(cl, rows[:2])
+        flash0 = kernels.launch_counts()["flash_fwd"]
+        got += serve_each(cl, rows[2:])[0]
+        flash = kernels.launch_counts()["flash_fwd"] - flash0
+        holder = cl.router.affinity_of("u-g").replica_id
+        got2, _ = serve_each(cl, [round_two(R, rows[1], got[1])])
+        return {
+            "replicas": [(r.replica_id, r.role) for r in cl.replicas],
+            "rows_equal": same_rows(got, want), "row_ms": ms,
+            "round2": {"equal": same_rows(got2, want2)[0],
+                       "cached_tokens": got2[0].cached_tokens,
+                       "replica": cl.router.affinity_of("u-g").replica_id,
+                       "held_by": holder},
+            "exports": cl.handoff.exports,
+            "sessionless_flash_launches": flash}
+    finally:
+        cl.close()
+
+
+def cluster_disagg(R, factory, embedder, per) -> dict:
+    """(b) 1 prefill + 2 decode replicas at the phase's width and depth
+    against one continuous backend, then kill_mid_handoff over them."""
+    from quoracle_tpu_torch.chaos import scenarios as S
+    from quoracle_tpu_torch.infra.flightrec import FLIGHT
+    from quoracle_tpu_torch.serving.cluster import ClusterPlane
+    mono = R.TorchBackend([MODEL], device="cuda",
+                          engines={MODEL: factory(MODEL)}, embedder=embedder,
+                          continuous=True)
+    rows = cluster_rows(R, ("d-c", "d-g"))
+    try:
+        want, _ = serve_each(mono, rows)
+    finally:
+        mono.close()
+    cl = ClusterPlane.build([MODEL], replicas=3, disaggregate=True,
+                            device="cuda", engine_factory=factory,
+                            continuous=True)
+    try:
+        per.watch_plane(cl)
+        envelopes = []
+        export = cl.handoff.export
+
+        def recording_export(*a, **kw):
+            env = export(*a, **kw)
+            envelopes.append((env.session_id, env.n_tokens,
+                              int(env.entry.nbytes)))
+            return env
+        cl.handoff.export = recording_export
+        before = {id(e) for e in FLIGHT.snapshot()}
+        got, ms = serve_each(cl, rows)
+        events = new_events(FLIGHT, before)
+        out = {
+            "replicas": [(r.replica_id, r.role) for r in cl.replicas],
+            "row_ms": ms, "ledger": cl.handoff.stats(),
+            "envelopes": list(envelopes),
+            "export_ms": [e["ms"] for e in events
+                          if e["kind"] == "kv_handoff_export"],
+            "adopt_ms": [e["ms"] for e in events
+                         if e["kind"] == "kv_handoff_adopt"],
+            # recorded, not checked: in bf16 the decode replica's first
+            # step is a 1-token chunk tick where the backend runs a
+            # decode tick, and the two sum in another order (the fp32
+            # cut below checks the equality)
+            "bf16_rows_equal": same_rows(got, want),
+            "bf16_first_diff": [first_diff(a.text, b.text)
+                                for a, b in zip(got, want)]}
+        t0 = time.monotonic()
+        scen = S.run_scenario("kill_mid_handoff", seed=5, context={
+            "cluster": cl, "backends": [cl], "member": MODEL})
+        out["scenario"] = {
+            "passed": scen.passed, "seconds": time.monotonic() - t0,
+            "schedule": scen.schedule,
+            "invariants": [(r.name, r.ok, r.detail)
+                           for r in scen.invariants]}
+        out["prefill_replica"] = next(r.replica_id for r in cl.replicas
+                                      if r.role == "prefill")
+        return out
+    finally:
+        cl.close()
+
+
+def cluster_fp32(torch, R, kernels, json_cache, devices, per) -> dict:
+    """(c) the cross-tick equalities on an fp32 cut of llama-3-8b at full
+    width: the three rows through 1 prefill + 2 decode replicas against
+    one continuous backend, a fleet drain of the replica holding the
+    sessions (the greedy session's round 2 after it), a decode replica
+    killed mid-row (the envelope re-places the row)."""
+    from quoracle_tpu_torch.chaos.faults import CHAOS, FaultPlan, FaultRule
+    from quoracle_tpu_torch.infra.flightrec import FLIGHT
+    from quoracle_tpu_torch.models import config as C
+    from quoracle_tpu_torch.models.tokenizer import get_tokenizer
+    from quoracle_tpu_torch.serving.cluster import ClusterPlane
+    from quoracle_tpu_torch.serving.fleet import FleetController
+    cfg = C.register_model(dataclasses.replace(
+        C.get_model_config(MODEL),
+        name=f"llama-3-8b-{CLUSTER_FP32_LAYERS}layer",
+        n_layers=CLUSTER_FP32_LAYERS))
+    params = fp32_cut(torch, cfg, 1)
+    factory = cluster_factory(cfg, params, get_tokenizer(MODEL),
+                              json_cache, devices)
+    mono = R.TorchBackend([MODEL], device="cuda",
+                          engines={MODEL: factory(MODEL)}, continuous=True)
+    rows = cluster_rows(R, ("f-c", "f-g"))
+    crash = cluster_rows(R, ("f-x", "f-k"),
+                         user="name the next file to open")[1]
+    try:
+        want, _ = serve_each(mono, rows)
+        want2, _ = serve_each(mono, [round_two(R, rows[1], want[1])])
+        want_k, _ = serve_each(mono, [crash])
+    finally:
+        mono.close()
+    cl = ClusterPlane.build([MODEL], replicas=3, disaggregate=True,
+                            device="cuda", engine_factory=factory,
+                            continuous=True)
+    try:
+        per.watch_plane(cl)
+        got, _ = serve_each(cl, rows)
+        out = {"layers": CLUSTER_FP32_LAYERS,
+               "rows_equal": same_rows(got, want)}
+        holder = cl.router.affinity_of("f-g")
+        eng = holder.backend.engines[MODEL]
+        with eng.sessions.lock:
+            resident = sorted(set(eng.sessions._sessions)
+                              | set(eng.sessions.tier.host.sessions))
+        t0 = time.monotonic()
+        summary = FleetController(cl).drain(holder.replica_id,
+                                            reason="chip-smoke")
+        drain_ms = (time.monotonic() - t0) * 1e3
+        with eng.sessions.lock:
+            left = (len(eng.sessions._sessions)
+                    + len(eng.sessions.tier.host.sessions))
+        moved = cl.router.affinity_of("f-g").replica_id
+        got2, _ = serve_each(cl, [round_two(R, rows[1], got[1])])
+        out["fleet"] = {
+            "held_by": holder.replica_id, "resident": resident,
+            "summary": summary, "drain_ms": drain_ms,
+            "left_on_source": left, "moved_to": moved,
+            "inflight": cl.handoff.stats()["inflight"],
+            "round2_equal": same_rows(got2, want2)[0],
+            "round2_cached_tokens": got2[0].cached_tokens}
+        before = {id(e) for e in FLIGHT.snapshot()}
+        plan = FaultPlan(0, [FaultRule("cluster.decode", "crash",
+                                       max_fires=1)])
+        with CHAOS.arming(plan):
+            got_k, _ = serve_each(cl, [crash])
+        out["decode_death"] = {
+            "schedule": plan.schedule(),
+            "dead": [r.replica_id for r in cl.replicas if not r.alive],
+            "equal": same_rows(got_k, want_k)[0],
+            "replaced": cl.handoff.replaced,
+            "flight": sorted({e["kind"] for e in new_events(FLIGHT, before)
+                              if e["kind"] in ("kv_handoff_replace",
+                                               "cluster_replica_dead")})}
+        return out
+    finally:
+        cl.close()
+
+
+def phase_cluster(torch, R, kernels, decide_backend) -> dict:
+    """The multi-replica plane on the card (serving/cluster.py, router.py,
+    fleet.py, chaos/): see the module docstring's cluster entry."""
+    from quoracle_tpu_torch.infra import locks
+    t_phase = time.monotonic()
+    base = decide_backend.engines[MODEL]       # the 8-layer view
+    devices: set = set()
+    factory = cluster_factory(base.cfg, base.params, base.tokenizer,
+                              base._json_cache, devices)
+    report = {"phase": "cluster", "model": MODEL, "depth": DEPTH_CUT,
+              "max_tokens": CLUSTER_TOKENS, "prefix_sharing": False}
+    # the plain JSON grammar's tables, built once for every engine here
+    t0 = time.monotonic()
+    base._json_table_device((None,))
+    report["grammar_s"] = time.monotonic() - t0
+    was_checking = locks.enabled()
+    locks.enable()                 # the scenario's lockdep_clean reads it
+    locks.LOCKDEP.drain()
+    per = ReplicaLaunches(kernels)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        u = report["unified"] = cluster_unified(
+            R, kernels, factory, decide_backend.embedder, per)
+        gc.collect()
+        torch.cuda.empty_cache()
+        d = report["disaggregated"] = cluster_disagg(
+            R, factory, decide_backend.embedder, per)
+        gc.collect()
+        torch.cuda.empty_cache()
+        f = report["fp32"] = cluster_fp32(torch, R, kernels,
+                                          base._json_cache, devices, per)
+        torch.cuda.synchronize()
+    finally:
+        if not was_checking:
+            locks.disable()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    report["launches"] = launches
+    report["replica_launches"] = per.by
+    report["devices"] = sorted(devices)
+    report["seconds"] = time.monotonic() - t_phase
+    fl, death = f["fleet"], f["decode_death"]
+    checks = {
+        "unified_rows": all(u["rows_equal"]),
+        "unified_round2": (u["round2"]["equal"]
+                           and u["round2"]["cached_tokens"] > 0
+                           and u["round2"]["replica"]
+                           == u["round2"]["held_by"]
+                           and u["exports"] == 0),
+        "sessionless_flash": u["sessionless_flash_launches"] > 0,
+        "handoffs": (d["ledger"]["exports"] == 3
+                     and d["ledger"]["adopts"] == 3
+                     and d["ledger"]["inflight"] == 0),
+        "scenario": d["scenario"]["passed"],
+        "disagg_rows_fp32": all(f["rows_equal"]),
+        "drain": (fl["summary"]["migrated"] == len(fl["resident"]) > 0
+                  and fl["summary"]["failed"] == 0
+                  and not fl["summary"]["died"]
+                  and fl["left_on_source"] == 0 and fl["inflight"] == 0
+                  and fl["moved_to"] != fl["held_by"]),
+        "migrated_round2": (fl["round2_equal"]
+                            and fl["round2_cached_tokens"] > 0),
+        "decode_death": (death["equal"] and len(death["dead"]) == 1
+                         and death["replaced"] >= 1
+                         and "kv_handoff_replace" in death["flight"]),
+        "devices": report["devices"] == ["cuda"],
+        "ragged_on_prefill": per.by.get(d["prefill_replica"], {}).get(
+            "ragged_fwd", 0) > 0,
+        "ragged_on_decode": sum(
+            v["ragged_fwd"] for k, v in per.by.items()
+            if k.startswith("decode-")) > 0,
+        "kernels": (launches["ragged_fwd"] > 0 and launches["flash_fwd"] > 0
+                    and all(launches[n] == 0 for n in (
+                        "paged_fwd", "paged_prefill_fwd", "ragged_q8_fwd"))),
+    }
+    report["checks"] = checks
+    if not all(checks.values()):
+        emit(report)
+        raise AssertionError(f"the cluster phase failed its checks: "
                              f"{[k for k, v in checks.items() if not v]}")
     return report
 
@@ -6414,7 +6813,7 @@ def main(argv) -> int:
     only = None
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
               "continuous", "spec", "ckpt", "tiers", "obs", "agent",
-              "runtime", "web", "reference")
+              "runtime", "web", "cluster", "reference")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -6501,6 +6900,11 @@ def main(argv) -> int:
         emit(phase_web(torch, R, kernels,
                        decide_pool_backend(torch, R, backend)[0]))
         return 0
+    if only == "cluster":
+        backend = R.TorchBackend([MODEL], seed=0)
+        emit(phase_cluster(torch, R, kernels,
+                           decide_pool_backend(torch, R, backend)[0]))
+        return 0
     if only == "reference":
         emit(phase_reference(torch, R))
         return 0
@@ -6558,6 +6962,8 @@ def main(argv) -> int:
     emit(runtime_report)
     web_report = phase_web(torch, R, kernels, pool_backend)
     emit(web_report)
+    cluster_report = phase_cluster(torch, R, kernels, pool_backend)
+    emit(cluster_report)
     # phase_spec releases the decide pool once its decide has run
     pools = [pool_backend]
     del pool_backend
@@ -6581,6 +6987,7 @@ def main(argv) -> int:
         e["agent_launches"] = agent_report["launches"][e["name"]]
         e["runtime_launches"] = runtime_report["launches"][e["name"]]
         e["web_launches"] = web_report["launches"][e["name"]]
+        e["cluster_launches"] = cluster_report["launches"][e["name"]]
         if e["name"] == "ragged_fwd":
             e["verify"] = spec_report["verify_ticks"]["ragged_fwd_bf16"]
             e["verify_fp32"] = spec_report["verify_ticks"]["ragged_fwd"]

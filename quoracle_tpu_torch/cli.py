@@ -245,18 +245,32 @@ def build_parser() -> argparse.ArgumentParser:
                         help="quantized serving: int8 KV pages with "
                              "per-(token, kv-head) scales beside them")
         sp.add_argument("--replicas", type=int, default=1,
-                        help="disaggregated serving plane (not ported)")
+                        help="disaggregated serving plane "
+                             "(serving/cluster.py): run N full replicas "
+                             "of the pool on the --device behind a "
+                             "QoS-aware router")
         sp.add_argument("--disaggregate", action="store_true",
-                        help="prefill/decode replica tiers (not ported)")
+                        help="role-tag the replicas into prefill (first "
+                             "token + KV) and decode (continuous "
+                             "batching + speculation) tiers with KV "
+                             "handoff between them; implies --replicas "
+                             "2 when unset")
         sp.add_argument("--fleet-min", dest="fleet_min", type=int,
                         default=1,
-                        help="elastic fleet lower bound (not ported)")
+                        help="elastic fleet (serving/fleet.py): "
+                             "serving-tier replica lower bound")
         sp.add_argument("--fleet-max", dest="fleet_max", type=int,
                         default=0,
-                        help="elastic fleet upper bound (not ported)")
+                        help="elastic fleet: arm the FleetController "
+                             "over the cluster (scale within "
+                             "[--fleet-min, this], re-tier, drain by "
+                             "live session migration); 0 keeps the boot "
+                             "topology; requires --replicas/"
+                             "--disaggregate")
         sp.add_argument("--fleet-tick-s", dest="fleet_tick_s",
                         type=float, default=5.0,
-                        help="elastic fleet policy tick (not ported)")
+                        help="elastic fleet: seconds between policy "
+                             "ticks (paces the ticker thread only)")
         sp.add_argument("--fabric-listen", dest="fabric_listen",
                         default=None, metavar="[ROLE@]HOST:PORT",
                         help="cluster fabric replica peer (not ported)")
@@ -267,7 +281,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="fleet prefix service (not ported)")
         sp.add_argument("--chaos-plan", dest="chaos_plan", default=None,
                         metavar="PLAN.json",
-                        help="chaos plane fault plan (not ported)")
+                        help="chaos plane (chaos/faults.py): arm this "
+                             "JSON fault plan ({'seed': N, 'faults': "
+                             "[{'point', 'kind', ...}]}) at boot")
         sp.add_argument("--sim-trace", dest="sim_trace", default=None,
                         metavar="TRACE.json",
                         help="fleet simulator trace (not ported)")

@@ -89,6 +89,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from quoracle_tpu_torch.chaos.faults import CHAOS
 from quoracle_tpu_torch.infra import costobs, introspect
 from quoracle_tpu_torch.infra.flightrec import FLIGHT
 from quoracle_tpu_torch.infra.locks import named_lock
@@ -803,6 +804,13 @@ class CompileRegistry:
         from quoracle_tpu_torch.infra.telemetry import (
             COMPILE_HITS, COMPILE_MISSES,
         )
+        # Chaos seam: "poison" salts the ledger key so every dispatch
+        # books as a fresh miss, a ledger-level recompile storm (the
+        # gauge and alerting path end to end) with no effect on served
+        # bits.
+        d = CHAOS.fire("compile.key", model=self.model)
+        if d is not None and d.kind == "poison":
+            shape = tuple(shape) + ("chaos-poison", d.n)
         now = time.monotonic()
         with self._lock:
             entry = self._shapes.get(shape)
@@ -899,7 +907,11 @@ class GenerateEngine:
                                     if b <= self.max_seq)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
-        self._rng_lock = named_lock("engine.rng")
+        # the engine's generator is drawn from inside the device run (the
+        # sampling steps), so one lock holds the whole run, not a key
+        # split as in the JAX engine: "engine.run", ranked just inside the
+        # paged lock (it takes the store, tier and cache locks under it)
+        self._rng_lock = named_lock("engine.run")
         # KV dtype follows the params (bf16 serving, fp32 parity tests);
         # an int8 pool keeps scales beside its pages, and the dense working
         # caches stay at the params dtype
@@ -927,6 +939,13 @@ class GenerateEngine:
         self.last_decode_s = 0.0
         # first-shape ledger and padding-waste counts (real chunk tokens
         # against the device slots the chosen path processed)
+        # Replica-tier role (serving/cluster.py): None is unrestricted
+        # (the monolithic default). "prefill" caps every generate at ONE
+        # new token: a prefill-tier engine builds KV and emits the first
+        # token, and a longer decode on it is a routing bug the guard
+        # turns into a loud error. "decode" is metadata only (decode
+        # engines still prefill continuation suffixes).
+        self.role: Optional[str] = None
         self.compiles = CompileRegistry(cfg.name)
         self.pad_real_tokens = 0
         self.pad_padded_tokens = 0
@@ -1073,6 +1092,15 @@ class GenerateEngine:
         starts; None or -1 starts at the grammar's start state. The
         continuous batcher (models/scheduler.py) threads it between its
         chunks."""
+        if self.role == "prefill":
+            budgets = (max_new_tokens if not isinstance(
+                max_new_tokens, int) else [max_new_tokens])
+            if any(int(b) > 1 for b in budgets):
+                raise ValueError(
+                    f"engine {self.cfg.name} is a prefill-tier replica "
+                    f"(role='prefill'): it builds KV and emits at most "
+                    f"one token per row; route decode to a decode-tier "
+                    f"replica (serving/cluster.py)")
         if session_ids is not None and any(session_ids):
             with self._paged_lock:
                 later = self._prefix_wave_split(prompts, session_ids)

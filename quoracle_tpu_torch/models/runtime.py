@@ -40,8 +40,11 @@ the row's charge. ``attach_bus`` gives the backend an event bus
 event on ``TOPIC_SERVING`` with every queried member's phase timings,
 free pages and prefix-cache counters, as the JAX backend does.
 ``MockBackend`` is the scripted test backend, with the JAX mock's
-``backend.member`` span. Left for later slices: VLM rows and the mock's
-fault-injection seam (the chaos plane, Queue 1 item 9, third bullet).
+``backend.member`` span. Both backends fire the chaos plane's
+``pool.member`` seam at each member's query entry (chaos/faults.py): a
+crash fails the member's rows with the structured ``chaos_injected``
+text, a garbage directive perturbs its output. Left for later slices:
+VLM rows (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from quoracle_tpu_torch.chaos.faults import CHAOS, InjectedFault
 from quoracle_tpu_torch.infra import costobs
 from quoracle_tpu_torch.infra.locks import named_lock
 from quoracle_tpu_torch.infra.resources import effective_headroom_fraction
@@ -708,11 +712,29 @@ class TorchBackend(ModelBackend):
                     model_spec=spec, error=f"unknown model {spec!r}",
                     permanent_error=True)
             return
+        # Chaos seam: member crash / slow / garbage at the per-member
+        # query entry. A crash fails this member's rows with the
+        # structured InjectedFault text (the consensus layer counts it
+        # like any transport failure); garbage perturbs the member's
+        # OUTPUT after serving.
+        try:
+            chaos = CHAOS.fire("pool.member", model=spec)
+        except InjectedFault as e:
+            for i in idxs:
+                results[i] = QueryResult(model_spec=spec, error=str(e))
+            return
         t0 = time.monotonic()
         rows, live_idxs = self._build_rows(spec, idxs, requests, results,
                                            t0)
-        if live_idxs:
-            self._dispatch_rows(spec, rows, live_idxs, results, t0)
+        if not live_idxs:
+            return
+        self._dispatch_rows(spec, rows, live_idxs, results, t0)
+        if chaos is not None and chaos.kind == "garbage":
+            for i in live_idxs:
+                r = results[i]
+                if r is not None and r.ok:
+                    results[i] = dataclasses.replace(
+                        r, text=f"{r.text} [chaos-garbage:{chaos.n}]")
 
     def _build_rows(self, spec: str, idxs: list[int],
                     requests: Sequence[QueryRequest],
@@ -952,9 +974,9 @@ class MockBackend(ModelBackend):
     backend failure); every call is recorded in ``calls`` for assertion.
     The embedder defaults to ``HashingEmbedder``. Each row runs under a
     ``backend.member`` span, as in the JAX mock, so agent span trees over
-    mocks match the serving backend's (decide → round → member). The JAX
-    mock also fires a fault-injection point per member; the port has no
-    chaos plane yet (Queue 1 item 9, third bullet).
+    mocks match the serving backend's (decide → round → member). Each row
+    fires the chaos plane's ``pool.member`` seam first, as in the JAX
+    mock, so member crash and garbage scenarios run on the mock pool.
     """
 
     DEFAULT_POOL = ["mock:consensus-model-1", "mock:consensus-model-2",
@@ -977,6 +999,12 @@ class MockBackend(ModelBackend):
         out = []
         for r in requests:
             self.calls.append(r)
+            try:
+                chaos = CHAOS.fire("pool.member", model=r.model_spec)
+            except InjectedFault as e:
+                out.append(QueryResult(model_spec=r.model_spec,
+                                       error=str(e)))
+                continue
             with TRACER.span("backend.member", model=r.model_spec):
                 script = self._scripts.get(r.model_spec)
                 if script:
@@ -986,6 +1014,16 @@ class MockBackend(ModelBackend):
                 else:
                     text = ('{"action": "wait", "params": {"duration": 1}, '
                             '"reasoning": "mock default"}')
+            if chaos is not None and chaos.kind == "garbage":
+                # a VALID but divergent proposal (a registered action,
+                # unlike the healthy members' answer): it clusters away
+                # from them as dissent, which the drift detector keys on
+                text = ('{"action": "orient", "params": '
+                        '{"current_understanding": '
+                        f'"chaos divergence {chaos.n}", '
+                        '"progress_assessment": "diverging"}, '
+                        '"wait": 30, '
+                        '"reasoning": "chaos-injected divergence"}')
             if text == "__error__":
                 out.append(QueryResult(model_spec=r.model_spec,
                                        error="scripted failure"))

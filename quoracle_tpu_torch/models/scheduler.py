@@ -63,13 +63,14 @@ row keys the engine's charge site consumes (infra/costobs.py), the
 tenant's error budget, the tree node's wait rollup (infra/treeobs.py)
 and the flight-recorder records of admits, retires, sheds, deadline
 drops, row failures and speculator errors. None of it touches what a row
-computes. Left out of this copy: the fault-injection tick (Queue 1
-item 9).
+computes. Each tick ends at the chaos plane's ``sched.tick`` seam
+(chaos/faults.py): forced demote churn or a stretched tick.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 from concurrent.futures import Future
@@ -77,6 +78,7 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from quoracle_tpu_torch.chaos.faults import CHAOS, chaos_demote_churn
 from quoracle_tpu_torch.infra import costobs, fleetobs, introspect, treeobs
 from quoracle_tpu_torch.infra.flightrec import FLIGHT
 from quoracle_tpu_torch.infra.locks import named_lock
@@ -93,6 +95,8 @@ from quoracle_tpu_torch.serving.admission import (
 from quoracle_tpu_torch.serving.qos import (
     AdmissionPolicy, FifoPolicy, class_name, coerce_priority,
 )
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -438,8 +442,7 @@ class ContinuousBatcher:
                             step=self.steps)
             self.steps += 1               # watchdog progress signal
             introspect.beat(f"sched.tick:{self._model}")
-            # (the JAX batcher fires its fault-injection tick here:
-            # Queue 1 item 9)
+            self._chaos_tick()
         # worker exit (close()): the worker owns _live, so it fails any
         # remaining rows itself — close() only takes over when this
         # thread is confirmed dead
@@ -454,6 +457,22 @@ class ContinuousBatcher:
         # gauge reset on the worker-exit path too: whichever of
         # close()/worker runs last, the scrape reads zero
         SCHED_SLOTS_BUSY.set(0, model=self._model)
+
+    def _chaos_tick(self) -> None:
+        """Chaos seam: the per-tick fault hook of the decode loop.
+        ``demote`` forces the eviction ladder to hibernate every
+        demotable session mid-traffic (the still-live rows restore by
+        page-in next tick); ``delay`` stretches the tick. An exception
+        here never kills the loop: the faults this seam injects are tier
+        churn, not thread death."""
+        if not CHAOS.armed():
+            return
+        try:
+            d = CHAOS.fire("sched.tick", model=self._model)
+            if d is not None and d.kind == "demote":
+                chaos_demote_churn(self.engine)
+        except Exception:                 # noqa: BLE001 — isolate
+            logger.exception("chaos tick hook failed")
 
     def _isolate_failure(self, rows: list) -> list:
         """A shared chunk raised. One poisoned row must not discard every

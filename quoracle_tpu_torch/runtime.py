@@ -13,9 +13,13 @@ backend is ``"mock"`` or ``"torch"`` (``TorchBackend`` on ``device``:
 None means the GPU, and raises without one). What the port has not got
 yet raises at construction and names its ROADMAP Queue 1 item, never
 dropped silently: multi-process and tensor-parallel serving (item 12),
-the cluster, fleet, fabric, chaos and simulator planes (item 9, third
-bullet), the training capture store (item 11) and the diffusion image
-backend (item 10).
+the cross-host fabric, its prefix service and the simulator (item 14),
+the training capture store (item 11) and the diffusion image backend
+(item 10). ``replicas`` and ``disaggregate`` serve through a
+``ClusterPlane`` (serving/cluster.py) whose replicas all sit on
+``device``; ``fleet_max`` puts a ``FleetController`` over it, ticked by
+the runtime's ``fleet-ticker`` thread; ``chaos_plan`` arms a fault plan
+on the chaos plane before any traffic.
 """
 
 from __future__ import annotations
@@ -207,23 +211,17 @@ class StallWatchdog:
 # the ROADMAP Queue 1 item that ports it. A field set to anything but its
 # default raises NotImplementedError at construction.
 _MULTI_PROCESS = "ROADMAP Queue 1 item 12 (multi-GPU)"
-_CLUSTER = "ROADMAP Queue 1 item 9, third bullet (cluster, fleet, fabric)"
+_FABRIC = "ROADMAP Queue 1 item 14 (the cross-host fabric)"
 _NOT_PORTED = {
     "tp": _MULTI_PROCESS,
     "coordinator_address": _MULTI_PROCESS,
     "num_processes": _MULTI_PROCESS,
     "process_id": _MULTI_PROCESS,
-    "replicas": _CLUSTER,
-    "disaggregate": _CLUSTER,
-    "fleet_min": _CLUSTER,
-    "fleet_max": _CLUSTER,
-    "fleet_tick_s": _CLUSTER,
-    "fabric_peers": _CLUSTER,
-    "fabric_listen": _CLUSTER,
-    "prefixd": _CLUSTER,
-    "chaos_plan": "ROADMAP Queue 1 item 9, third bullet (chaos/)",
-    "sim_trace": "ROADMAP Queue 1 item 9, third bullet (sim/)",
-    "sim_seed": "ROADMAP Queue 1 item 9, third bullet (sim/)",
+    "fabric_peers": _FABRIC,
+    "fabric_listen": _FABRIC,
+    "prefixd": _FABRIC,
+    "sim_trace": "ROADMAP Queue 1 item 14 (sim/)",
+    "sim_seed": "ROADMAP Queue 1 item 14 (sim/)",
     "capture_dir": "ROADMAP Queue 1 item 11 (training capture)",
     "capture_mb": "ROADMAP Queue 1 item 11 (training capture)",
 }
@@ -325,8 +323,12 @@ class RuntimeConfig:
     # Byte budget of the disk prefix store (per member): oldest-LRU
     # entries prune when a write overflows it.
     disk_kv_gb: float = 8.0
-    # The disaggregated serving plane, the elastic fleet, the chaos plane
-    # and the cross-host fabric (not ported).
+    # The disaggregated serving plane (serving/cluster.py: ``replicas``
+    # full replicas of the pool on ``device``; ``disaggregate`` tags them
+    # prefill/decode and implies 2), the elastic fleet over it
+    # (serving/fleet.py: ``fleet_max`` > 0 arms it, ticked every
+    # ``fleet_tick_s``), the chaos plane's fault plan (a JSON file, armed
+    # at construction) and the cross-host fabric (not ported).
     replicas: int = 1
     disaggregate: bool = False
     fleet_min: int = 1
@@ -360,6 +362,12 @@ class Runtime:
         if backend is None:
             _check_backend_choice(config)
         _refuse_unported(config)
+        # a fault plan is read (and a bad one refused) before anything is
+        # built, so a refusal leaves no sink or thread behind
+        chaos_plan = None
+        if config.chaos_plan:
+            from quoracle_tpu_torch.chaos.faults import FaultPlan
+            chaos_plan = FaultPlan.from_json(config.chaos_plan)
         self.config = config
         self.db = Database(config.db_path,
                            encryption_key=config.encryption_key)
@@ -370,6 +378,11 @@ class Runtime:
         self.escrow = Escrow()
         self.costs = CostRecorder(escrow=self.escrow, events=self.events,
                                   persist_fn=self.store.persist_cost)
+        # Elastic fleet controller: set by _build_backend over the
+        # ClusterPlane, ticked by the thread started below
+        self._fleet = None
+        self._fleet_stop = threading.Event()
+        self._fleet_thread: Optional[threading.Thread] = None
         try:
             self.backend = backend or self._build_backend(config)
         except BaseException:
@@ -406,6 +419,11 @@ class Runtime:
         # backend's decode loops. The collector detaches in close() (the
         # recorder's hooks are process-scoped by design and stay).
         FLIGHT.install()
+        # Chaos plane: arm the configured fault plan before any traffic,
+        # so a game-day canary injects from its first row.
+        if chaos_plan is not None:
+            from quoracle_tpu_torch.chaos.faults import CHAOS
+            CHAOS.arm(chaos_plan)
         from quoracle_tpu_torch.infra.resources import ResourceCollector
         self._resource_collector = ResourceCollector(self.backend)
         METRICS.register_collector(self._resource_collector)
@@ -417,6 +435,11 @@ class Runtime:
         # wall-clock profiler over the same backend sources.
         from quoracle_tpu_torch.infra import introspect
         introspect.start(self.backend.watchdog_sources())
+        if self._fleet is not None:
+            self._fleet_thread = threading.Thread(
+                target=self._fleet_loop, name="fleet-ticker",
+                daemon=True)
+            self._fleet_thread.start()
         self.token_manager = TokenManager(
             self.backend.count_tokens,
             context_limit_fn=self.backend.context_window)
@@ -479,6 +502,41 @@ class Runtime:
         if isinstance(qos, dict):
             from quoracle_tpu_torch.serving.qos import QoSConfig
             qos = QoSConfig(**qos)
+        if config.replicas > 1 or config.disaggregate:
+            # The multi-replica plane: every replica on config.device (the
+            # one-card case of the JAX package's replica_device_groups,
+            # where replicas share devices when they outnumber them).
+            from quoracle_tpu_torch.serving.cluster import ClusterPlane
+            built = ClusterPlane.build(
+                pool, replicas=max(config.replicas,
+                                   2 if config.disaggregate else 1),
+                disaggregate=config.disaggregate, seed=config.seed,
+                device=config.device, qos=qos,
+                draft_map=draft_map or None, draft_k=config.draft_k,
+                continuous=config.continuous or config.disaggregate,
+                host_kv_mb=config.host_kv_mb,
+                disk_kv_dir=config.disk_kv_dir,
+                disk_kv_gb=config.disk_kv_gb,
+                embed_model=config.embed_model,
+                quantize_weights=config.quantize_weights,
+                quantize_kv=config.quantize_kv)
+            if config.fleet_max:
+                # the controller scales the serving tier within
+                # [fleet_min, fleet_max] on a deterministic policy tick,
+                # re-tiers roles and drains by live session migration;
+                # the fleet-ticker thread is its only production caller
+                from quoracle_tpu_torch.serving.fleet import (
+                    FleetConfig, FleetController,
+                )
+                self._fleet = FleetController(
+                    built, FleetConfig(min_replicas=config.fleet_min,
+                                       max_replicas=config.fleet_max,
+                                       seed=config.seed))
+            return built
+        if config.fleet_max:
+            raise ValueError(
+                "--fleet-max elasticizes a CLUSTER: it requires "
+                "--replicas > 1 or --disaggregate")
         return TorchBackend(
             pool, seed=config.seed, device=config.device,
             draft_k=config.draft_k, embed_model=config.embed_model,
@@ -489,6 +547,15 @@ class Runtime:
             disk_kv_gb=config.disk_kv_gb,
             quantize_weights=config.quantize_weights,
             quantize_kv=config.quantize_kv)
+
+    def _fleet_loop(self) -> None:
+        """The fleet ticker: the wall clock paces the ticks, never the
+        decisions (the policy consumes only the gathered signals)."""
+        while not self._fleet_stop.wait(self.config.fleet_tick_s):
+            try:
+                self._fleet.tick()
+            except Exception:             # noqa: BLE001 — keep ticking
+                logger.exception("fleet tick failed")
 
     async def boot(self) -> dict:
         """Boot-time revival of persisted running tasks (reference
@@ -505,6 +572,10 @@ class Runtime:
         """Detach everything this runtime attached to the process-wide
         planes and close its database. The backend stays open: a caller
         that handed one in may share it with another Runtime."""
+        self._fleet_stop.set()
+        if self._fleet_thread is not None:
+            self._fleet_thread.join(timeout=5)
+            self._fleet_thread = None
         self.watchdog.close()
         from quoracle_tpu_torch.infra import introspect
         introspect.shutdown()

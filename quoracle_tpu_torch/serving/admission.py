@@ -26,8 +26,8 @@ Every decision lands in telemetry (``quoracle_qos_{admitted,shed}_total``
 by class/tenant/reason), every shed in the flight recorder (``qos_shed``),
 and each admission beats the ``qos.admit`` heartbeat.
 ``SignalSnapshot.budget_burn`` carries the cost plane's error-budget burn
-signals (infra/costobs.py ``BUDGET``), observed only. Left out: the
-fault-injection seam of the signal refresh (Queue 1 item 9).
+signals (infra/costobs.py ``BUDGET``), observed only. The signal refresh
+is the chaos plane's ``admission.signals`` seam (chaos/faults.py).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import time
 import zlib
 from typing import Any, Callable, Optional
 
+from quoracle_tpu_torch.chaos.faults import CHAOS
 from quoracle_tpu_torch.infra import costobs, introspect
 from quoracle_tpu_torch.infra.flightrec import FLIGHT
 from quoracle_tpu_torch.infra.locks import named_lock
@@ -243,9 +244,13 @@ class AdmissionController:
         The window claim (``_t_hbm`` bump) stays under the lock, so
         exactly one caller per window pays the sample and the rest read
         the cached value."""
-        # (the JAX package fires its fault-injection seam
-        # "admission.signals" here, before the signal lock: Queue 1
-        # item 9)
+        # Chaos seam: "drop" skips the refresh entirely (the shed ladder
+        # keeps steering on the stale window, what a wedged sampler
+        # looks like); "delay" stretches it. Both fire BEFORE the signal
+        # lock, so injected latency never serializes submitters.
+        d = CHAOS.fire("admission.signals", model=self.model)
+        if d is not None and d.kind == "drop":
+            return
         now = time.monotonic() if now is None else now
         cfg = self.config
         sample_hbm = False

@@ -32,9 +32,10 @@ records, the retroactive ``kv.export`` and ``kv.adopt`` spans (only while
 a tracer sink listens) and the int8 byte-savings counter. The envelope
 carries the exporting thread's trace and tree contexts (``trace``,
 ``tree``), so the adopting side's spans and waits land in the same trace
-and tree node. Left out of this copy: the "handoff.export" fault seam,
-the wire envelope and the cluster that drives handoffs across replicas
-(Queue 1 item 9).
+and tree node. ``export`` is the chaos plane's ``handoff.export`` seam
+(chaos/faults.py); serving/cluster.py drives handoffs across replicas.
+Left out of this copy: the wire envelope of the cross-host fabric
+(ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import dataclasses
 import time
 from typing import Any, Optional
 
+from quoracle_tpu_torch.chaos.faults import CHAOS
 from quoracle_tpu_torch.infra import fleetobs, treeobs
 from quoracle_tpu_torch.infra.flightrec import FLIGHT
 from quoracle_tpu_torch.infra.locks import named_lock
@@ -107,6 +109,16 @@ class KVHandoff:
         """Hibernate ``session_id`` out of ``engine`` into an envelope.
         Raises :class:`HandoffError` when the engine has no tier or holds
         no such session."""
+        # Chaos seam: a "fail" directive aborts the export before any
+        # pages move; the caller degrades to a cold re-prefill on the
+        # decode side and still serves the request.
+        d = CHAOS.fire("handoff.export", model=model_spec)
+        if d is not None and d.kind == "fail":
+            CLUSTER_HANDOFFS_TOTAL.inc(model=model_spec,
+                                       status="export_failed")
+            raise HandoffError(
+                f"chaos-injected export failure for session "
+                f"{session_id!r}", reason="export_failed")
         tier = engine.sessions.tier
         if tier is None:
             raise HandoffError(

@@ -67,9 +67,12 @@ latency histogram, the int8 byte-savings counter of each tier move, the
 flight records, the retroactive ``kv.restore`` span (only while a tracer
 sink listens), the restore's chip-ms charge (``costobs.charge_restore``)
 and its wait on the dispatching thread (``introspect.note_restore``).
-Left out of this copy, each marked where it stood: the fault-injection
-seams and the fleet prefix service's rung and publish target (Queue 1
-item 9).
+The chaos plane's seams (chaos/faults.py) sit where the JAX tier has
+them: ``kvtier.disk_load`` and ``kvtier.scale_corrupt`` flip bytes of a
+disk entry before its load, so the crc32 boundary must reject it, and
+``kvtier.restore`` fails a page-in into the re-prefill degrade. Left out
+of this copy, marked where it stood: the fleet prefix service's rung and
+publish target (the cross-host fabric, ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from quoracle_tpu_torch.chaos.faults import CHAOS
 from quoracle_tpu_torch.infra import costobs, introspect
 from quoracle_tpu_torch.infra.flightrec import FLIGHT
 from quoracle_tpu_torch.infra.locks import named_lock
@@ -386,12 +390,22 @@ class DiskPrefixStore:
 
     def load(self, key: str, tokens: Sequence[int]) -> Optional[tuple]:
         """The block's ``(k, v)`` (int8 entries: ``(k, v, k_scale,
-        v_scale)``) as CPU tensors, or None when it is missing or corrupt.
-        (The JAX store fires its "kvtier.disk_load" and
-        "kvtier.scale_corrupt" fault seams here: Queue 1 item 9.)"""
+        v_scale)``) as CPU tensors, or None when it is missing or corrupt."""
         path = self._path(key)
         if not os.path.exists(path):
             return None
+        # Chaos seams: a "corrupt" directive flips a byte of the FILE
+        # before the normal load path runs, so the crc32 boundary below
+        # is what catches it (skip, unlink, never served).
+        # "kvtier.scale_corrupt" flips one in the entry's tail, where npz
+        # appends an int8 entry's per-page scale arrays: the crc covers
+        # scales like payload, so the same boundary must reject it.
+        d = CHAOS.fire("kvtier.disk_load", model=self.model)
+        if d is not None and d.kind == "corrupt":
+            self._chaos_corrupt(path)
+        d = CHAOS.fire("kvtier.scale_corrupt", model=self.model)
+        if d is not None and d.kind == "corrupt":
+            self._chaos_corrupt(path, where=0.95)
         try:
             with np.load(path) as z:
                 toks, crc = z["tokens"], int(z["crc"])
@@ -434,6 +448,26 @@ class DiskPrefixStore:
                     self._scan_bytes = max(0, self._scan_bytes - sz)
             return None
 
+    @staticmethod
+    def _chaos_corrupt(path: str, where: float = 0.5) -> None:
+        """Flip a byte in place at fraction ``where`` of the file (chaos
+        "corrupt" directives: 0.5 lands mid-payload; the scale seam's
+        0.95 lands in an int8 entry's appended scale arrays).
+        Best-effort: a vanished file is already the degraded case."""
+        try:
+            with open(path, "r+b") as f:
+                f.seek(0, os.SEEK_END)
+                size = f.tell()
+                if size < 1:
+                    return
+                pos = min(size - 1, int(size * where))
+                f.seek(pos)
+                b = f.read(1)
+                f.seek(pos)
+                f.write(bytes([b[0] ^ 0xFF]) if b else b"\xff")
+        except OSError:
+            pass
+
     def stats(self) -> dict:
         with self._lock:
             return {"dir": self.dir, "entries": self._scan_entries,
@@ -467,7 +501,7 @@ class TierManager:
                 disk_dir, self.signature, model=model,
                 budget_bytes=int(disk_gb * (1 << 30)))
         # (the JAX tier also holds the fleet prefix service's client,
-        # attach_prefixd: Queue 1 item 9)
+        # attach_prefixd: Queue 1 item 14)
         self.demoted_sessions = 0
         self.demoted_prefix_pages = 0
         self.restored_sessions = 0
@@ -607,9 +641,14 @@ class TierManager:
         correct). Assumes the engine's paged lock is held. A restore is
         counted, timed, charged to the model's ledger, booked as a
         kv_restore wait on this thread, flight-recorded and, while a
-        tracer sink listens, emitted as a ``kv.restore`` span. (The JAX
-        tier fires its "kvtier.restore" fault seam first: Queue 1
-        item 9.)"""
+        tracer sink listens, emitted as a ``kv.restore`` span."""
+        # Chaos seam: a "fail" directive takes the degrade-to-re-prefill
+        # path; the entry stays in the host tier (a later touch may
+        # still restore it), only THIS restore reports failure.
+        d = CHAOS.fire("kvtier.restore", model=self.model)
+        if d is not None and d.kind == "fail":
+            self.restore_failures += 1
+            return None
         st = self.store
         with st.lock:
             e = self.host.sessions.get(key)
@@ -686,7 +725,7 @@ class TierManager:
         """The spill writer's side: the atomic, content-addressed disk
         write, never under the store or paged locks. (The JAX tier also
         publishes the block to the fleet prefix service: Queue 1
-        item 9.)"""
+        item 14.)"""
         if self.disk is not None \
                 and self.disk.save(key, entry.tokens, entry.k, entry.v,
                                    entry.k_scale, entry.v_scale):
@@ -796,7 +835,7 @@ class TierManager:
                     blk = _HostBlock(prefix, *loaded)
                     source = "disk"
             # (the JAX tier asks the fleet prefix service next: Queue 1
-            # item 9)
+            # item 14)
             if blk is None:
                 break
             pages = st.alloc(1)

@@ -39,10 +39,14 @@ Endpoints (reference routes at lib/quoracle_web/router.ex:22-32):
                             config, tick/cooldown state, the action
                             ledger, drain/migration counters
                             (serving/fleet.py)
-  GET  /api/chaos, /api/sim, /api/train
-                            501 in the port: the chaos plane, the fleet
-                            simulator and the training capture store are
-                            not ported (the body names the ROADMAP item)
+  GET  /api/chaos           chaos plane: armed plan, injection-point
+                            catalog, recent fired faults, the last
+                            scenario's invariant verdicts, the fault and
+                            invariant counters (chaos/faults.py)
+  GET  /api/sim, /api/train
+                            501 in the port: the fleet simulator and the
+                            training capture store are not ported (the
+                            body names the ROADMAP item)
   GET  /api/costs           chip-economics panel: nominal
                             Decimal billing rows beside the measured
                             chip-second ledgers (per-stage/tenant/class
@@ -119,8 +123,7 @@ API_CALL_TIMEOUT_S = 60.0
 # The API routes whose modules the port has not got, with the ROADMAP
 # Queue 1 item that ports each.
 NOT_PORTED = {
-    "/api/chaos": "ROADMAP Queue 1 item 9, third bullet (chaos/)",
-    "/api/sim": "ROADMAP Queue 1 item 9, third bullet (sim/)",
+    "/api/sim": "ROADMAP Queue 1 item 14 (sim/)",
     "/api/train": "ROADMAP Queue 1 item 11 (training capture)",
 }
 
@@ -536,6 +539,23 @@ class DashboardServer:
         }
         return payload
 
+    def chaos_payload(self) -> dict:
+        """GET /api/chaos: the chaos plane — armed plan, injection-point
+        catalog, recent fired faults, the last scenario report's
+        invariant verdicts, and the fault/invariant counter series."""
+        from quoracle_tpu_torch.chaos.faults import CHAOS
+        from quoracle_tpu_torch.infra.telemetry import (
+            CHAOS_FAULTS_TOTAL, CHAOS_INVARIANT_FAILURES,
+            CHAOS_SCENARIOS_TOTAL,
+        )
+        payload = CHAOS.status()
+        payload["counters"] = {
+            "faults": CHAOS_FAULTS_TOTAL._snapshot(),
+            "scenarios": CHAOS_SCENARIOS_TOTAL._snapshot(),
+            "invariant_failures": CHAOS_INVARIANT_FAILURES._snapshot(),
+        }
+        return payload
+
     def fleet_payload(self) -> dict:
         """GET /api/fleet: the elastic-fleet panel — policy
         config, tick/cooldown state, the recent action ledger, and the
@@ -818,7 +838,7 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_html(views.telemetry_page(
                     d.metrics_payload(), d.resources_payload(),
                     d.qos_payload(), d.models_payload(),
-                    d.kv_payload(), None,
+                    d.kv_payload(), d.chaos_payload(),
                     d.fleet_payload(), d.timeline_payload(),
                     None, d.profile_payload(),
                     not_ported={path.rsplit("/", 1)[1]: item
@@ -861,6 +881,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json(d.cluster_payload())
             elif parsed.path == "/api/fabric":
                 self._send_json(d.fabric_payload())
+            elif parsed.path == "/api/chaos":
+                self._send_json(d.chaos_payload())
             elif parsed.path in NOT_PORTED:
                 self._send_json({"error": "not ported",
                                  "route": parsed.path,

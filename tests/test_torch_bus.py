@@ -94,8 +94,8 @@ def test_bus_subscriber_death_does_not_break_delivery():
 
 
 def test_bus_lock_is_the_ports_named_lock():
-    """The port's bus takes its lock from the port's infra/locks.py (no
-    lock hierarchy), never from the JAX analysis package."""
+    """The port's bus takes its lock from the port's infra/locks.py (its
+    own copy of the hierarchy), never from the JAX analysis package."""
     from quoracle_tpu_torch.infra.locks import TrackedLock
     lock = PORT.bus.EventBus()._lock
     assert isinstance(lock, TrackedLock) and lock.name == "bus"

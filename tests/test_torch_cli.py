@@ -128,24 +128,32 @@ def test_cli_serve_answers_until_cancelled(tmp_path, monkeypatch):
     assert port["answers"][1]["backend"] == "MockBackend"
 
 
+# Every flag the port refused before its module was ported, with the
+# ROADMAP item that ports it; None: ported since, the flag is taken and
+# reaches the RuntimeConfig field the JAX CLI sets (TAKEN).
 UNPORTED_FLAGS = [
     (["--tp", "2"], "item 12"), (["--coordinator", "h:1"], "item 12"),
     (["--num-processes", "2"], "item 12"), (["--process-id", "0"], "item 12"),
-    (["--replicas", "2"], "item 9, third bullet"),
-    (["--disaggregate"], "item 9, third bullet"),
-    (["--fleet-min", "2"], "item 9, third bullet"),
-    (["--fleet-max", "2"], "item 9, third bullet"),
-    (["--fleet-tick-s", "1"], "item 9, third bullet"),
-    (["--fabric-listen", "h:1"], "item 9, third bullet"),
-    (["--fabric-peers", "h:1"], "item 9, third bullet"),
-    (["--prefixd", "h:1"], "item 9, third bullet"),
-    (["--chaos-plan", "plan.json"], "item 9, third bullet"),
-    (["--sim-trace", "trace.json"], "item 9, third bullet"),
-    (["--sim-seed", "3"], "item 9, third bullet"),
+    (["--replicas", "2"], None),
+    (["--disaggregate"], None),
+    (["--fleet-min", "2"], None),
+    (["--fleet-max", "2"], None),
+    (["--fleet-tick-s", "1"], None),
+    (["--fabric-listen", "h:1"], "item 14"),
+    (["--fabric-peers", "h:1"], "item 14"),
+    (["--prefixd", "h:1"], "item 14"),
+    (["--chaos-plan", "plan.json"], None),
+    (["--sim-trace", "trace.json"], "item 14"),
+    (["--sim-seed", "3"], "item 14"),
     (["--capture-dir", "capture"], "item 11"),
     (["--capture-mb", "64"], "item 11"),
     (["--image-backend", "diffusion"], "item 10"),
 ]
+TAKEN = {"--replicas": ("replicas", 2), "--disaggregate": ("disaggregate",
+                                                           True),
+         "--fleet-min": ("fleet_min", 2), "--fleet-max": ("fleet_max", 2),
+         "--fleet-tick-s": ("fleet_tick_s", 1.0),
+         "--chaos-plan": ("chaos_plan", "plan.json")}
 
 
 @pytest.mark.parametrize("flags,item", UNPORTED_FLAGS,
@@ -156,9 +164,57 @@ def test_each_unported_flag_names_its_item(cmd, flags, item):
     pool = [] if cmd == "resume" else ["--pool", "xla:tiny"]
     argv = [cmd, *desc, "--backend", "torch", "--device", "cpu", *pool,
             *flags]
+    if item is None:
+        from quoracle_tpu_torch.runtime import _refuse_unported
+        field, value = TAKEN[flags[0]]
+        ns = JAX.cli.build_parser().parse_args([cmd, *desc, *flags])
+        assert getattr(ns, field) == value
+        cfg = PORT.cli._config(PORT.cli.build_parser().parse_args(argv))
+        assert getattr(cfg, field) == value
+        _refuse_unported(cfg)        # no NotImplementedError left for it
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 {item}"):
         PORT.cli.main(argv)
+
+
+def test_cluster_flags_serve_a_disaggregated_fleet_on_the_cpu(tmp_path,
+                                                             monkeypatch):
+    """``run --replicas 3 --disaggregate --fleet-max 3 --chaos-plan`` over
+    a tiny pool on the CPU: the runtime the CLI builds serves through a
+    ClusterPlane with its FleetController and the plan armed."""
+    from quoracle_tpu_torch.chaos.faults import CHAOS
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps({"seed": 1, "faults": [
+        {"point": "cluster.serve", "kind": "slow", "prob": 0.0}]}))
+    built = []
+
+    class Runtime(PORT.cli.Runtime):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append((self, CHAOS.armed()))
+
+    async def no_watch(_seconds):
+        return None
+    monkeypatch.setattr(PORT.cli, "Runtime", Runtime)
+    monkeypatch.setattr(PORT.cli, "asyncio", types.SimpleNamespace(
+        run=asyncio.run, sleep=no_watch))
+    try:
+        rc = PORT.cli.main([
+            "run", "Decide the next step.", "--backend", "torch",
+            "--device", "cpu", "--pool", "xla:tiny", "--db",
+            str(tmp_path / "c.db"), "--replicas", "3", "--disaggregate",
+            "--fleet-max", "3", "--chaos-plan", str(plan)])
+    finally:
+        CHAOS.disarm()
+        for rt, _ in built:
+            rt.backend.close()
+    assert rc == 0
+    (rt, armed), = built
+    assert armed and type(rt.backend).__name__ == "ClusterPlane"
+    assert sorted(r.role for r in rt.backend.replicas) \
+        == ["decode", "decode", "prefill"]
+    assert rt._fleet is not None and rt._fleet.config.max_replicas == 3
 
 
 def test_backend_torch_without_a_card_raises():

@@ -7,9 +7,12 @@ three run through both packages over each one's ``Runtime`` and
 of the API, the SSE events, the bearer-token gating, the settings,
 credential and profile surfaces, the trace and Prometheus endpoints, and
 the DOM trees of the server-rendered /logs, /mailbox and /telemetry
-views. The routes whose planes the port has not got (/api/chaos,
-/api/sim, /api/train) answer 501 with a body naming their ROADMAP item;
-the SPA's script fetches none of them.
+views. The routes whose planes the port has not got (/api/sim,
+/api/train) answer 501 with a body naming their ROADMAP item; the SPA's
+script fetches none of them. /api/chaos, /api/cluster and /api/fleet are
+served from real planes (a disaggregated cluster of each package over
+the same tiny weights, its fleet controller, a chaos scenario's report)
+and agree with the JAX payloads.
 
 No test waits on a clock: agents are awaited through
 tests/_agent_parity.py's ``Watch`` (every handled mailbox message and
@@ -563,7 +566,7 @@ def test_grove_task_shows_todos_and_costs_in_dom(tmp_path):
             ported = port_page.find("ul", id="not-ported")
             assert ported is not None and {
                 li.attrs["data-plane"] for li in ported.find_all("li")} == {
-                "chaos", "sim", "train"}
+                "sim", "train"}
             jt, pt = ([t.attrs for t in p.find_all("table", cls="metrics")]
                       for p in (jax_page, port_page))
             assert pt == jt
@@ -641,10 +644,17 @@ def test_spa_js_dom_and_api_contract():
 # What the port leaves out
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("route,item", [
-    ("/api/chaos", "item 9, third bullet (chaos/)"),
-    ("/api/sim", "item 9, third bullet (sim/)"),
-    ("/api/train", "item 11 (training capture)")])
+# The routes the port answered 501 for before their planes were ported,
+# with the ROADMAP item that ports each; None: ported since (the chaos
+# plane), the route answers 200 with its payload.
+UNPORTED_ROUTES = [("/api/chaos", None), ("/api/sim", "item 14 (sim/)"),
+                   ("/api/train", "item 11 (training capture)")]
+
+
+@pytest.mark.parametrize("route,item", UNPORTED_ROUTES, ids=[
+    "/api/chaos-item 9, third bullet (chaos/)",
+    "/api/sim-item 9, third bullet (sim/)",
+    "/api/train-item 11 (training capture)"])
 def test_unported_routes_answer_501_with_their_item(route, item):
     async def main():
         async with served(PORT) as (rt, server, w):
@@ -652,7 +662,90 @@ def test_unported_routes_answer_501_with_their_item(route, item):
             rest = await http(server.url + "/api/status")
             return got, rest
     (status, body), rest = run(main())
-    assert status == 501
-    assert body == {"error": "not ported", "route": route,
-                    "roadmap": f"ROADMAP Queue 1 {item}"}
+    if item is None:
+        from quoracle_tpu_torch.chaos.faults import INJECTION_POINTS
+        assert status == 200 and body["armed"] is False
+        assert set(body["points"]) == set(INJECTION_POINTS)
+    else:
+        assert status == 501
+        assert body == {"error": "not ported", "route": route,
+                        "roadmap": f"ROADMAP Queue 1 {item}"}
     assert rest[0] == 200 and rest[1]["backend"] == "MockBackend"
+
+
+# ---------------------------------------------------------------------------
+# The multi-replica and chaos planes' routes
+# ---------------------------------------------------------------------------
+
+def _plane_view(route: str, body: dict) -> dict:
+    """A payload without what differs by process or clock: the counter
+    series (keys only), signal timestamps, drain walls, the injection
+    catalog's texts (keys only) and a scenario's wall time."""
+    body = json.loads(json.dumps(body))
+    counters = sorted(body.pop("counters", {}))
+    if route in ("/api/cluster", "/api/fleet"):
+        for rep in body["router"]["replicas"].values():
+            for k in ("ts", "refreshed_ts", "hbm_headroom"):
+                (rep.get("signals") or {}).pop(k, None)
+    if route == "/api/chaos":
+        body["points"] = sorted(body["points"])
+        if body.get("last_scenario"):
+            body["last_scenario"].pop("wall_s", None)
+    return {"counters": counters, **body}
+
+
+def test_cluster_fleet_and_chaos_routes_serve_the_jax_payloads():
+    """A runtime over a 1 prefill + 2 decode cluster with a fleet
+    controller, after a drain and a chaos scenario: /api/cluster,
+    /api/fleet and /api/chaos over HTTP equal the JAX server's, and
+    /telemetry renders the chaos and fleet panels."""
+    import _cluster_parity as cp
+
+    async def case(side):
+        cl = cp.build_cluster(side, replicas=3, disaggregate=True,
+                              continuous=True, continuous_chunk=8)
+        rt = side_pkg(side).rt.Runtime(side_pkg(side).rt.RuntimeConfig(),
+                                       backend=cl)
+        rt._fleet = side.fl.FleetController(cl)
+        server = None
+        try:
+            msgs = [{"role": "user", "content": "dashboard cluster row"}]
+            out = cl.query([cp.req(side, msgs, sid="dash", max_tokens=8)])
+            assert out[0].ok, out[0].error
+            src = cl.router.affinity_of("dash")
+            rt._fleet.drain(src.replica_id, reason="dashboard")
+            if side is cp.JAX:
+                with cp.jax_shared_backends():
+                    side.scen.run_scenario("kill_mid_handoff", seed=5)
+            else:
+                with cp.port_lockdep():
+                    side.scen.run_scenario(
+                        "kill_mid_handoff", seed=5, device="cpu",
+                        engine_factory=cp.port_engine)
+            server = await side_pkg(side).web.DashboardServer(
+                rt, port=0).start()
+            got = {}
+            for route in ("/api/cluster", "/api/fleet", "/api/chaos"):
+                status, body = await http(server.url + route)
+                assert status == 200, (route, body)
+                got[route] = _plane_view(route, body)
+            status, page = await http(server.url + "/telemetry")
+            assert status == 200
+            got["panels"] = [mark in page for mark in (
+                "chaos-invariants", "fleet-state")]
+            return got
+        finally:
+            if server is not None:
+                await server.stop()
+            await rt.shutdown()
+            cl.close()
+
+    def side_pkg(side):
+        return JAX if side is cp.JAX else PORT
+
+    got = [run(case(side), timeout=600) for side in cp.SIDES]
+    assert got[1] == got[0]
+    assert got[1]["panels"] == [True, True]
+    assert got[1]["/api/cluster"]["enabled"] is True
+    assert got[1]["/api/fleet"]["drains"] == 1
+

@@ -106,7 +106,14 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.web.page",
              "quoracle_tpu_torch.web.views",
              "quoracle_tpu_torch.web.server",
-             "quoracle_tpu_torch.cli"):
+             "quoracle_tpu_torch.cli",
+             "quoracle_tpu_torch.chaos",
+             "quoracle_tpu_torch.chaos.faults",
+             "quoracle_tpu_torch.chaos.invariants",
+             "quoracle_tpu_torch.chaos.scenarios",
+             "quoracle_tpu_torch.serving.router",
+             "quoracle_tpu_torch.serving.cluster",
+             "quoracle_tpu_torch.serving.fleet"):
     assert name in names, name
 from quoracle_tpu_torch.governance import grove, skills
 groves = grove.list_groves(os.path.join({repo!r}, "groves"))
@@ -137,5 +144,5 @@ def test_port_and_chip_smoke_import_no_jax():
         env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 103, out.stdout          # every module was imported
+    assert int(n) >= 110, out.stdout          # every module was imported
     assert bad.strip() == "[]", out.stdout

@@ -12,6 +12,8 @@ unless ``device="cpu"``, and ``close()`` detaches what it attached.
 No test waits on a clock: agents are awaited through the ``Watch`` of
 tests/_agent_parity.py, and the watchdog's time is scripted."""
 
+import json
+
 import pytest
 
 from _agent_parity import (
@@ -152,20 +154,23 @@ def test_cluster_and_serving_flags_require_a_real_backend(kw):
             pkg.rt.Runtime(pkg.rt.RuntimeConfig(**kw))
 
 
+# Every field the port refused before its module was ported, with the
+# ROADMAP item that ports it; None: ported since (the multi-replica plane
+# and the chaos plane), the field is taken.
 NOT_PORTED = [
     ("tp", 2, "item 12"), ("coordinator_address", "h:1", "item 12"),
     ("num_processes", 2, "item 12"), ("process_id", 0, "item 12"),
-    ("replicas", 2, "item 9, third bullet"),
-    ("disaggregate", True, "item 9, third bullet"),
-    ("fleet_min", 2, "item 9, third bullet"),
-    ("fleet_max", 2, "item 9, third bullet"),
-    ("fleet_tick_s", 1.0, "item 9, third bullet"),
-    ("fabric_peers", ["h:1"], "item 9, third bullet"),
-    ("fabric_listen", "h:1", "item 9, third bullet"),
-    ("prefixd", "h:1", "item 9, third bullet"),
-    ("chaos_plan", "plan.json", "item 9, third bullet"),
-    ("sim_trace", "trace.json", "item 9, third bullet"),
-    ("sim_seed", 3, "item 9, third bullet"),
+    ("replicas", 2, None),
+    ("disaggregate", True, None),
+    ("fleet_min", 2, None),
+    ("fleet_max", 2, None),
+    ("fleet_tick_s", 1.0, None),
+    ("fabric_peers", ["h:1"], "item 14"),
+    ("fabric_listen", "h:1", "item 14"),
+    ("prefixd", "h:1", "item 14"),
+    ("chaos_plan", "plan.json", None),
+    ("sim_trace", "trace.json", "item 14"),
+    ("sim_seed", 3, "item 14"),
     ("capture_dir", "capture", "item 11"),
     ("capture_mb", 64.0, "item 11"),
     ("image_backend", "diffusion", "item 10"),
@@ -174,19 +179,63 @@ NOT_PORTED = [
 
 @pytest.mark.parametrize("field,value,item", NOT_PORTED,
                          ids=[f for f, _, _ in NOT_PORTED])
-def test_each_left_out_field_raises_and_names_its_item(field, value, item):
+def test_each_left_out_field_raises_and_names_its_item(field, value, item,
+                                                      tmp_path):
     """Set on a torch runtime, each field the port has not got raises at
     construction, before any backend or database is built, and names its
-    ROADMAP Queue 1 item."""
-    cfg = PORT.rt.RuntimeConfig(backend="torch", device="cpu",
-                                model_pool=["xla:tiny"], **{field: value})
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 {item}"):
-        PORT.rt.Runtime(cfg)
-    # the same with a backend handed in: nothing is dropped silently
-    with pytest.raises(NotImplementedError, match=item):
-        PORT.rt.Runtime(PORT.rt.RuntimeConfig(**{field: value}),
-                        backend=PORT.runtime.MockBackend())
+    ROADMAP Queue 1 item. Each field ported since builds what the JAX
+    runtime builds, on the CPU here: a ClusterPlane for ``replicas`` and
+    ``disaggregate`` (the fleet fields with a plane under them), a
+    FleetController ticked by the ``fleet-ticker`` thread for
+    ``fleet_max``, an armed plan for ``chaos_plan``."""
+    if item is not None:
+        cfg = PORT.rt.RuntimeConfig(backend="torch", device="cpu",
+                                    model_pool=["xla:tiny"],
+                                    **{field: value})
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 {item}"):
+            PORT.rt.Runtime(cfg)
+        # the same with a backend handed in: nothing is dropped silently
+        with pytest.raises(NotImplementedError, match=item):
+            PORT.rt.Runtime(PORT.rt.RuntimeConfig(**{field: value}),
+                            backend=PORT.runtime.MockBackend())
+        return
+    from quoracle_tpu_torch.chaos.faults import CHAOS
+    kw = {field: value}
+    if field.startswith("fleet"):
+        kw.update(replicas=3, disaggregate=True, fleet_max=3)
+        kw[field] = value if field != "fleet_max" else 3
+    if field == "chaos_plan":
+        plan = tmp_path / "plan.json"
+        plan.write_text(json.dumps({"seed": 1, "faults": [
+            {"point": "pool.member", "kind": "slow", "prob": 0.0}]}))
+        kw[field] = str(plan)
+    rt = PORT.rt.Runtime(PORT.rt.RuntimeConfig(
+        backend="torch", device="cpu", model_pool=["xla:tiny"], **kw))
+    try:
+        cluster = getattr(rt.backend, "replicas", None)
+        if field == "chaos_plan":
+            assert CHAOS.armed() and cluster is None
+        else:
+            assert type(rt.backend).__name__ == "ClusterPlane"
+            assert {str(e.device) for e in rt.backend.engines.values()} \
+                == {"cpu"}
+            roles = sorted(r.role for r in cluster)
+            assert roles == (["unified"] * 2 if kw == {"replicas": 2}
+                             else ["decode", "decode", "prefill"]
+                             if "fleet_max" in kw
+                             else ["decode", "prefill"])
+        fleet = rt._fleet
+        assert (fleet is not None) == field.startswith("fleet")
+        if fleet is not None:
+            assert rt._fleet_thread.name == "fleet-ticker"
+            assert fleet.config.max_replicas == 3
+            assert fleet.config.min_replicas == kw.get("fleet_min", 1)
+    finally:
+        CHAOS.disarm()
+        rt.close()
+        rt.backend.close()
+    assert rt._fleet_thread is None
 
 
 def test_list_groves_with_a_groves_setting_raises():
