@@ -263,8 +263,8 @@ never prints its last line):
              refused but the fitting write); the status, agents, kv,
              resources (the device block's named parts within its used
              bytes, which are within WEB_MEM_MARGIN of the script's own
-             mem_get_info), costs, models, tree, trace, chaos and /metrics
-             routes answer 200, /api/sim and /api/train 501; the task
+             mem_get_info), costs, models, tree, trace, chaos, sim and
+             /metrics routes answer 200, /api/train 501; the task
              pauses over HTTP (sessions dropped, pages back, the row
              "paused") and resumes (the restored tick "ok", its cached
              tokens reported); ragged ran, the paged and int8 kernels did
@@ -312,6 +312,46 @@ never prints its last line):
              decode replica, flash_fwd for the sessionless row; every
              engine on cuda. The launch counts are zeroed before (a) and
              read after (c)
+  fabric     the cross-host fabric (serving/fabric/: wire, transport,
+             prefixd, peer, frontdoor; cluster.RemoteReplica) and the
+             fleet simulator (sim/) over real TCP sockets on 127.0.0.1
+             (every server on port 0), llama-3-8b at full width, the
+             cluster phase's engines and rows. At DEPTH_CUT layers, bf16:
+             (a) a unified FabricPeer behind a FabricPlane.connect front
+             door gives the tokens and cached counts of one continuous
+             TorchBackend over the same weights, and its embedding over
+             the wire; 1 prefill + 1 decode peer hand the three rows'
+             sessions over the wire: each envelope's bytes (KV bytes =
+             pages x page x layers x KV x hd x 2 x 2) and its export,
+             wire (the two RPCs less their handlers, plus the envelope
+             codec's encode and decode) and adopt ms; the rows against
+             the backend recorded (in bf16 a decode peer's first step is
+             a 1-token chunk tick). (b) On the fp32 cut
+             (CLUSTER_FP32_LAYERS layers, weights drawn on the card from
+             FABRIC_SEED by peer._cut_factory): the rows through 1
+             prefill + 2 decode peers give the backend's tokens; the
+             sim's diurnal_mix scenario spot-checks sampled events
+             through that door, every gate invariant passing and its
+             ledger digest a CPU replay's; chaos fabric_partition over
+             the door with the lock-order sanitizer on, every invariant
+             passing; a decode peer killed mid-row (its loops closed) is
+             marked failed and the row re-placed from the door's
+             retained envelope bytes with the backend's tokens; a
+             PrefixService over TCP (a directory under build/, removed):
+             a donor replica publishes its blocks, a fresh replica with
+             no disk warms from the service alone (cached tokens above
+             0, the backend's tokens), a corrupted stored block is
+             rejected by the service's crc check and answered as a miss;
+             a peer in a child process (python -m
+             quoracle_tpu_torch.serving.fabric.peer, started at the
+             phase's start, never forked; a deadline on its first line,
+             SIGTERM then SIGKILL in a finally) over the same fp32 cut
+             gives the backend's greedy and sessionless rows and its
+             embedding, and reports its own ragged_fwd and flash_fwd
+             launches through the stats op. The launch counts (this
+             process) are zeroed before (a) and read after (b); the
+             first bf16 ragged chunk and decode ticks and flash call are
+             then held against their twins and timed
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -420,7 +460,7 @@ never prints its last line):
              one tokenizer share the JSON grammar's host table
 
 in that order but for batch, continuous, obs, agent, runtime, web,
-cluster and spec, which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
+cluster, fabric and spec, which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
 line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
@@ -435,7 +475,8 @@ decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
 ``--only calib``, ``--only batch``, ``--only continuous``, ``--only
 spec``, ``--only tiers``, ``--only obs``, ``--only agent``, ``--only
-runtime``, ``--only web`` and ``--only cluster`` run that phase after
+runtime``, ``--only web``, ``--only cluster`` and ``--only fabric`` run
+that phase after
 the build, over weights drawn here (no last line); ``--only reference`` runs
 the reference phase after the build (no last line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
 the build (no last line). Every
@@ -5092,8 +5133,7 @@ def phase_web(torch, R, kernels, decide_backend) -> dict:
             report["trace_spans"] = routes["/api/trace"][1]["n_spans"]
             report["tree_nodes"] = len(routes["/api/tree"][1].get("nodes")
                                        or [])
-            report["not_ported"] = {p: routes[p][1] for p in (
-                "/api/sim", "/api/train")}
+            report["not_ported"] = {"/api/train": routes["/api/train"][1]}
             report["costs_nominal"] = routes["/api/costs"][1]["nominal"][
                 "total_amount"]
 
@@ -5255,7 +5295,7 @@ def phase_web(torch, R, kernels, decide_backend) -> dict:
                     and "'status': 'ok'" in acts[2]),
         "hard_rule": "blocked by grove hard rule: no network" in acts[3],
         "routes": all(report["routes"][p] == 200 for p in report["routes"]
-                      if p not in ("/api/sim", "/api/train")),
+                      if p not in report["not_ported"]),
         "not_ported": all(
             report["routes"][p] == 501 and b["roadmap"].startswith(
                 "ROADMAP Queue 1 item")
@@ -5660,6 +5700,556 @@ def phase_cluster(torch, R, kernels, decide_backend) -> dict:
         emit(report)
         raise AssertionError(f"the cluster phase failed its checks: "
                              f"{[k for k, v in checks.items() if not v]}")
+    return report
+
+
+FABRIC_SEED = 7             # the fabric phase's fp32 cut, drawn alike in
+                            # the child peer (peer._cut_factory)
+FABRIC_IO_S = 120.0         # every wire call's deadline in the phase
+FABRIC_CHILD_BOOT_S = 180.0  # deadline on the child peer's first line
+FABRIC_CHILD_STOP_S = 20.0  # SIGTERM, then SIGKILL after this
+
+
+class WireTimes:
+    """Per handoff id: the peers' prefill and decode handler ms
+    (``watch_peer``, before the peer listens), the door's prefill and
+    decode RPC ms (``watch_door``) and, while open, the envelope codec's
+    encode and decode ms (``wire.encode_envelope``/``decode_envelope``
+    wrapped where the peers call them). The wire leg of one envelope is
+    the two RPCs less their handlers (transport: frames, crc32, socket
+    copies) plus the codec's encode and decode."""
+
+    def __init__(self, W):
+        self.W = W
+        self.rows: dict = {}
+        self._orig = None
+
+    def row(self, hid: str) -> dict:
+        return self.rows.setdefault(hid, {})
+
+    def __enter__(self):
+        W = self.W
+        self._orig = enc, dec = W.encode_envelope, W.decode_envelope
+
+        def encode_envelope(env):
+            t0 = time.perf_counter()
+            out = enc(env)
+            self.row(env.session_id).update(
+                encode_ms=(time.perf_counter() - t0) * 1e3, bytes=len(out),
+                kv_bytes=int(env.entry.nbytes), tokens=env.n_tokens)
+            return out
+
+        def decode_envelope(payload, expect_signature=None):
+            t0 = time.perf_counter()
+            env = dec(payload, expect_signature=expect_signature)
+            self.row(env.session_id)["decode_env_ms"] = (
+                time.perf_counter() - t0) * 1e3
+            return env
+        W.encode_envelope, W.decode_envelope = encode_envelope, \
+            decode_envelope
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.W.encode_envelope, self.W.decode_envelope = self._orig
+
+    def watch_peer(self, peer) -> None:
+        inner, W = peer.handle, self.W
+
+        def handle(msg_type, payload):
+            t0 = time.perf_counter()
+            try:
+                return inner(msg_type, payload)
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                if msg_type == W.MSG_PREFILL:
+                    hid = W.decode_json(payload)["handoff_id"]
+                    self.row(hid)["prefill_handler_ms"] = ms
+                elif msg_type == W.MSG_DECODE:
+                    hid = W.unpack_blob(payload)[0]["handoff_id"]
+                    self.row(hid)["decode_handler_ms"] = ms
+        peer.handle = handle
+
+    def watch_door(self, plane) -> None:
+        for rep in plane.peers:
+            def prefill(request, hid, _f=rep.prefill):
+                t0 = time.perf_counter()
+                try:
+                    return _f(request, hid)
+                finally:
+                    self.row(hid)["prefill_rpc_ms"] = (
+                        time.perf_counter() - t0) * 1e3
+
+            def adopt_decode(meta, env_bytes, owns=False,
+                             _f=rep.adopt_decode):
+                t0 = time.perf_counter()
+                try:
+                    return _f(meta, env_bytes, owns=owns)
+                finally:
+                    self.row(meta["handoff_id"])["decode_rpc_ms"] = (
+                        time.perf_counter() - t0) * 1e3
+            rep.prefill, rep.adopt_decode = prefill, adopt_decode
+
+    def envelopes(self, events) -> list:
+        """One entry per envelope that crossed: its bytes, export, wire
+        (with its parts) and adopt ms; export and adopt from the peers'
+        flight records of the same session."""
+        out = []
+        for hid, r in self.rows.items():
+            if "bytes" not in r or "decode_rpc_ms" not in r:
+                continue
+            transport = (r["prefill_rpc_ms"] - r["prefill_handler_ms"]
+                         + r["decode_rpc_ms"] - r["decode_handler_ms"])
+            out.append({
+                "session": hid, "tokens": r["tokens"], "bytes": r["bytes"],
+                "kv_bytes": r["kv_bytes"],
+                "export_ms": next(e["ms"] for e in events
+                                  if e["kind"] == "kv_handoff_export"
+                                  and e["session"] == hid),
+                "wire_ms": transport + r["encode_ms"] + r["decode_env_ms"],
+                "wire": {"transport_ms": transport,
+                         "encode_ms": r["encode_ms"],
+                         "decode_ms": r["decode_env_ms"]},
+                "adopt_ms": [e["ms"] for e in events
+                             if e["kind"] == "kv_handoff_adopt"
+                             and e["session"] == hid][-1],
+                "prefill_rpc_ms": r["prefill_rpc_ms"],
+                "decode_rpc_ms": r["decode_rpc_ms"]})
+        return out
+
+
+def vec_diff(a, b) -> float:
+    """Max abs difference of two embedding vectors."""
+    import numpy as np
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def fabric_peer(factory, role: str, rid: str, times=None, **kw):
+    """A FabricPeer of one member on the card over ``factory``'s engines,
+    listening on 127.0.0.1 port 0 (its handler timed by ``times``)."""
+    from quoracle_tpu_torch.serving.fabric.peer import FabricPeer
+    peer = FabricPeer.build([MODEL], role=role, replica_id=rid,
+                            device="cuda", engine_factory=factory, **kw)
+    if times is not None:
+        times.watch_peer(peer)
+    peer.listen("127.0.0.1", 0)
+    return peer
+
+
+def fabric_door(peers):
+    from quoracle_tpu_torch.serving.fabric.frontdoor import FabricPlane
+    return FabricPlane.connect(
+        [f"{p.role}@{p._server.addr}" for p in peers],
+        io_timeout=FABRIC_IO_S)
+
+
+def close_fabric(door, peers) -> None:
+    door.close()
+    for p in peers:
+        p.close()
+
+
+def start_child_peer(log_path: str):
+    """``python -m quoracle_tpu_torch.serving.fabric.peer`` in a child
+    process (started, never forked: this process holds a CUDA context):
+    the fp32 cut at CLUSTER_FP32_LAYERS layers, its weights drawn on the
+    card from FABRIC_SEED by ``peer._cut_factory`` as this process draws
+    them, listening on 127.0.0.1 port 0. It loads the kernel library this
+    process built (build/torch_kernels/) and builds none. Its stdout lines
+    land in a queue, its stderr in ``log_path``."""
+    import queue
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "quoracle_tpu_torch.serving.fabric.peer",
+         "--pool", MODEL, "--listen", "unified@127.0.0.1:0",
+         "--replica-id", "child-0", "--device", "cuda",
+         "--weights-seed", str(FABRIC_SEED),
+         "--layers", str(CLUSTER_FP32_LAYERS), "--dtype", "float32"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=log, text=True,
+        env={**os.environ, "PYTHONPATH": REPO})
+    lines: "queue.Queue" = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+    threading.Thread(target=pump, daemon=True,
+                     name="fabric-child-stdout").start()
+    return types.SimpleNamespace(proc=proc, lines=lines, log=log,
+                                 log_path=log_path, exit=None)
+
+
+def child_addr(child) -> str:
+    """The child peer's address from its first line, within
+    FABRIC_CHILD_BOOT_S; its stderr's tail in the error otherwise."""
+    import queue
+    try:
+        line = child.lines.get(timeout=FABRIC_CHILD_BOOT_S)
+    except queue.Empty:
+        line = None
+    if not line or " at " not in line:
+        child.log.flush()
+        with open(child.log_path) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"fabric: the child peer did not come up "
+                             f"(exit {child.proc.poll()}): {line!r}\n"
+                             f"{tail}")
+    return line.strip().rsplit(" at ", 1)[1]
+
+
+def stop_child_peer(child) -> int:
+    """SIGTERM (the peer closes its server and backend and exits 0),
+    SIGKILL after FABRIC_CHILD_STOP_S; returns the exit code. Safe to
+    call twice."""
+    if child.exit is None:
+        proc = child.proc
+        try:
+            proc.terminate()
+            try:
+                child.exit = proc.wait(timeout=FABRIC_CHILD_STOP_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                child.exit = proc.wait(timeout=FABRIC_CHILD_STOP_S)
+        finally:
+            child.log.close()
+    return child.exit
+
+
+def fabric_bf16(R, factory, times) -> dict:
+    """(a) At DEPTH_CUT layers, bf16: a unified peer behind a front door
+    over TCP against one continuous backend (the three rows, an embed);
+    then 1 prefill + 1 decode peer: the three rows hand their sessions
+    over the wire, each envelope's bytes and export, wire and adopt ms."""
+    from quoracle_tpu_torch.infra.flightrec import FLIGHT
+    mono = R.TorchBackend([MODEL], device="cuda",
+                          engines={MODEL: factory(MODEL)}, continuous=True)
+    rows = cluster_rows(R, ("b-c", "b-g"))
+    text = rows[0].messages[0]["content"]
+    try:
+        want, _ = serve_each(mono, rows)
+        want_vec = mono.embed([text])[0]
+    finally:
+        mono.close()
+    out = {}
+    uni = [fabric_peer(factory, "unified", "unified-0")]
+    door = fabric_door(uni)
+    try:
+        got, ms = serve_each(door, rows)
+        vec = door.embed([text])[0]
+        out["unified"] = {
+            "rows_equal": same_rows(got, want), "row_ms": ms,
+            "embed_max_abs": vec_diff(vec, want_vec),
+            "requests": door.fabric_stats()["peers"][0]["transport"]}
+    finally:
+        close_fabric(door, uni)
+    peers = [fabric_peer(factory, "prefill", "prefill-0", times),
+             fabric_peer(factory, "decode", "decode-0", times)]
+    door = fabric_door(peers)
+    times.watch_door(door)
+    before = {id(e) for e in FLIGHT.snapshot()}
+    try:
+        with times:
+            got, ms = serve_each(door, rows)
+        events = new_events(FLIGHT, before)
+        out["disaggregated"] = {
+            "row_ms": ms, "wire_handoffs": door.wire_handoffs,
+            "envelopes": times.envelopes(events),
+            # recorded, not checked (the cluster phase's reason: the
+            # decode peer's first step is a 1-token chunk tick)
+            "bf16_rows_equal": same_rows(got, want),
+            "bf16_first_diff": [first_diff(a.text, b.text)
+                                for a, b in zip(got, want)]}
+    finally:
+        close_fabric(door, peers)
+    return out
+
+
+def fabric_fp32(R, f32, child) -> dict:
+    """(b) On the fp32 cut: the rows through 1 prefill + 2 decode peers
+    over TCP against one continuous backend; the sim's diurnal mix
+    sampled through that door (its ledger against a CPU replay);
+    fabric_partition over it; a decode peer killed mid-row (re-placed
+    from the door's retained bytes); prefixd warming a fresh replica;
+    the child-process peer's rows and embedding."""
+    from quoracle_tpu_torch.chaos import scenarios as S
+    from quoracle_tpu_torch.infra.flightrec import FLIGHT
+    from quoracle_tpu_torch.sim import gate as G
+    from quoracle_tpu_torch.sim import replay as RP
+    from quoracle_tpu_torch.sim import workload as WK
+    mono = R.TorchBackend([MODEL], device="cuda",
+                          engines={MODEL: f32(MODEL)}, continuous=True)
+    rows = cluster_rows(R, ("f-c", "f-g"))
+    crash = cluster_rows(R, ("f-x", "f-k"),
+                         user="name the next file to open")[1]
+    text = rows[0].messages[0]["content"]
+    try:
+        want, _ = serve_each(mono, rows)
+        want_k, _ = serve_each(mono, [crash])
+        want_vec = mono.embed([text])[0]
+    finally:
+        mono.close()
+    out = {"layers": CLUSTER_FP32_LAYERS}
+    peers = [fabric_peer(f32, "prefill", "prefill-0"),
+             fabric_peer(f32, "decode", "decode-1"),
+             fabric_peer(f32, "decode", "decode-2")]
+    door = fabric_door(peers)
+    by_id = {p.replica_id: p for p in peers}
+    try:
+        got, ms = serve_each(door, rows)
+        out["rows_equal"] = same_rows(got, want)
+        out["row_ms"] = ms
+        t0 = time.monotonic()
+        sim = G.run_sim_scenario("diurnal_mix", seed=0, plane=door,
+                                 member=MODEL)
+        cpu = RP.ReplayDriver(
+            WK.generate(WK.canonical_spec("diurnal_mix", seed=0)),
+            capacity=G.SIM_SCENARIOS["diurnal_mix"].capacity).run()
+        out["sim"] = {"passed": sim.passed,
+                      "seconds": time.monotonic() - t0,
+                      "events": sim.evidence["trace"]["events"],
+                      "samples": sim.evidence["samples"],
+                      "ledger": sim.evidence["ledger"],
+                      "cpu_ledger": cpu.digest(),
+                      "invariants": [(r.name, r.ok, r.detail)
+                                     for r in sim.invariants]}
+        t0 = time.monotonic()
+        scen = S.run_scenario("fabric_partition", seed=5, context={
+            "plane": door, "peers": peers, "backends": [],
+            "member": MODEL})
+        out["partition"] = {
+            "passed": scen.passed, "seconds": time.monotonic() - t0,
+            "schedule": scen.schedule, "evidence": scen.evidence,
+            "invariants": [(r.name, r.ok, r.detail)
+                           for r in scen.invariants]}
+        out["rejoined"] = door.try_rejoin_dead_peers()
+        first = door.router.place("decode")
+        for cb in by_id[first.replica_id].backend._cbatchers.values():
+            cb.close()
+        replaced0 = door.replaced
+        before = {id(e) for e in FLIGHT.snapshot()}
+        got_k, _ = serve_each(door, [crash])
+        out["decode_death"] = {
+            "killed": first.replica_id,
+            "dead": [p.replica_id for p in door.peers if not p.alive],
+            "equal": same_rows(got_k, want_k)[0],
+            "replaced": door.replaced - replaced0,
+            "flight": sorted({e["kind"] for e in new_events(FLIGHT, before)
+                              if e["kind"] in ("kv_handoff_replace",
+                                               "fabric_peer_dead")})}
+    finally:
+        close_fabric(door, peers)
+    out["prefixd"] = fabric_prefixd(R, f32, want[1], rows[1])
+    from quoracle_tpu_torch.serving.fabric.frontdoor import FabricPlane
+    try:
+        t0 = time.monotonic()
+        addr = child_addr(child)
+        boot_wait_s = time.monotonic() - t0
+        door = FabricPlane.connect([f"unified@{addr}"],
+                                   io_timeout=FABRIC_IO_S)
+        try:
+            # the greedy row (sessioned: ragged) and the sessionless one
+            # (flash), then an embed of a 256-token-plus text (flash)
+            got_c, ms = serve_each(door, cluster_rows(
+                R, ("c-c", "c-g"))[1:])
+            vec = door.embed([text])[0]
+            out["child"] = {
+                "addr": addr, "boot_wait_s": boot_wait_s,
+                "rows_equal": same_rows(got_c, want[1:]), "row_ms": ms,
+                "embed_max_abs": vec_diff(vec, want_vec),
+                "launches": door.peers[0].stats()["launches"]}
+        finally:
+            door.close()
+    finally:
+        out.setdefault("child", {})["exit"] = stop_child_peer(child)
+    return out
+
+
+def fabric_prefixd(R, f32, want, row) -> dict:
+    """(b, prefixd) A PrefixService over TCP on a directory under build/:
+    a donor replica (prefix sharing on, no disk) publishes its blocks; a
+    fresh replica warms from the service alone: cached tokens above 0,
+    the donor's (and the backend's) tokens; then one stored block's file
+    is corrupted and the service rejects it (crc) and answers a miss."""
+    import numpy as np
+
+    from quoracle_tpu_torch.serving.fabric.prefixd import PrefixService
+    from quoracle_tpu_torch.serving.fabric.transport import (
+        PeerServer, TcpTransport,
+    )
+
+    def sharing(spec, **kw):
+        e = f32(spec, **kw)
+        e.prefix_sharing = True
+        return e
+    root = tempfile.mkdtemp(prefix="prefixd-", dir=os.path.join(REPO,
+                                                                "build"))
+    svc = PrefixService(root)
+    server = PeerServer(svc.handle, host="127.0.0.1", port=0,
+                        name="fabric-prefixd")
+    replicas = []
+
+    def replica(rid):
+        from quoracle_tpu_torch.serving.fabric.peer import FabricPeer
+        p = FabricPeer.build([MODEL], replica_id=rid, device="cuda",
+                             engine_factory=sharing, host_kv_mb=64)
+        replicas.append(p)
+        p.attach_prefixd(TcpTransport(
+            server.host, server.port, peer_name="prefixd",
+            lock_name="fabric.prefixd", io_timeout=FABRIC_IO_S))
+        return p
+    try:
+        donor = replica("donor-0")
+        d_got, d_ms = serve_each(donor.backend, [row])
+        d_tier = donor.backend.engines[MODEL].sessions.tier
+        d_tier.flush_spills()
+        fresh = replica("fresh-0")
+        msgs = R.QueryRequest(MODEL, row.messages, temperature=0.0,
+                              max_tokens=CLUSTER_TOKENS,
+                              session_id="p-fresh")
+        f_got, f_ms = serve_each(fresh.backend, [msgs])
+        client = fresh.backend.engines[MODEL].sessions.tier.prefixd
+        sig = client.signature
+        store = svc._stores[sig]
+        name = sorted(f for f in os.listdir(os.path.join(root, sig))
+                      if f.endswith(".npz"))[0]
+        path = os.path.join(root, sig, name)
+        with np.load(path) as z:
+            tokens = [int(t) for t in z["tokens"]]
+        raw = bytearray(open(path, "rb").read())
+        raw[len(raw) // 2] ^= 0xFF
+        with open(path, "wb") as f:
+            f.write(bytes(raw))
+        missed = client.fetch(name[:-4], tokens) is None
+        return {
+            "published": d_tier.prefixd.published,
+            "donor_equal": d_got[0].text == want.text,
+            "fresh_equal": f_got[0].text == want.text,
+            "fresh_cached_tokens": f_got[0].cached_tokens,
+            "donor_cached_tokens": d_got[0].cached_tokens,
+            "hits": client.hits, "row_ms": [d_ms[0], f_ms[0]],
+            "corrupt_rejected": missed and store.corrupt == 1
+            and not os.path.exists(path),
+            "store": {k: v for k, v in store.stats().items()
+                      if k != "dir"}}
+    finally:
+        for p in replicas:
+            p.close()
+        server.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_fabric(torch, R, F, P, kernels, decide_backend) -> dict:
+    """The cross-host fabric on the card (serving/fabric/, sim/): see the
+    module docstring's fabric entry."""
+    from quoracle_tpu_torch.infra import locks
+    from quoracle_tpu_torch.serving.fabric import wire
+    from quoracle_tpu_torch.serving.fabric.peer import _cut_factory
+    t_phase = time.monotonic()
+    base = decide_backend.engines[MODEL]       # the 8-layer view
+    devices: set = set()
+    factory = cluster_factory(base.cfg, base.params, base.tokenizer,
+                              base._json_cache, devices)
+    report = {"phase": "fabric", "model": MODEL, "depth": DEPTH_CUT,
+              "max_tokens": CLUSTER_TOKENS, "prefix_sharing": False}
+    # the child peer boots while the in-process parts run
+    child = start_child_peer(os.path.join(REPO, "build",
+                                          "fabric_child.log"))
+    kept: dict = {}
+    orig_flash, orig_ragged = F.flash_attend, P.ragged_attend
+
+    def flash_rec(*a, **kw):
+        if "flash_fwd" not in kept:
+            kept["flash_fwd"] = (
+                [x.clone() if torch.is_tensor(x) else x for x in a],
+                {n: x.clone() if torch.is_tensor(x) else x
+                 for n, x in kw.items()})
+        return orig_flash(*a, **kw)
+    was_checking = locks.enabled()
+    locks.enable()                 # the scenario's lockdep_clean reads it
+    locks.LOCKDEP.drain()
+    try:
+        t0 = time.monotonic()
+        base._json_table_device((None,))
+        report["grammar_s"] = time.monotonic() - t0
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        F.flash_attend = flash_rec
+        P.ragged_attend = ragged_recorder(
+            torch, P, kept.setdefault("ragged_fwd", {}), lambda: True)
+        try:
+            a = report["bf16"] = fabric_bf16(R, factory, WireTimes(wire))
+        finally:
+            F.flash_attend, P.ragged_attend = orig_flash, orig_ragged
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = _cut_factory(MODEL, layers=CLUSTER_FP32_LAYERS,
+                           dtype="float32", weights_seed=FABRIC_SEED,
+                           device="cuda",
+                           session_mb=CLUSTER_POOL_BYTES >> 20)
+
+        def f32(spec, quantize_weights=False, quantize_kv=False):
+            e = cut(spec, quantize_weights=quantize_weights,
+                    quantize_kv=quantize_kv)
+            e._json_cache = base._json_cache
+            devices.add(e.device.type)
+            return e
+        b = report["fp32"] = fabric_fp32(R, f32, child)
+        torch.cuda.synchronize()
+    finally:
+        stop_child_peer(child)
+        if not was_checking:
+            locks.disable()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    report["launches"] = launches
+    report["devices"] = sorted(devices)
+    report["seconds"] = time.monotonic() - t_phase
+    envs = a["disaggregated"]["envelopes"]
+    cfg = base.cfg
+    page = base.sessions.page
+    kv = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * 2  # K+V bf16
+    death, pd, ch = b["decode_death"], b["prefixd"], b["child"]
+    checks = {
+        "unified_rows": all(a["unified"]["rows_equal"]),
+        "unified_embed": a["unified"]["embed_max_abs"] <= 1e-5,
+        "handoffs_over_wire": (a["disaggregated"]["wire_handoffs"] == 3
+                               and len(envs) == 3),
+        "envelope_bytes": all(
+            e["kv_bytes"] == -(-e["tokens"] // page) * page * kv
+            and e["bytes"] > e["kv_bytes"] for e in envs),
+        "disagg_rows_fp32": all(b["rows_equal"]),
+        "sim": (b["sim"]["passed"] and b["sim"]["samples"] > 0
+                and b["sim"]["ledger"] == b["sim"]["cpu_ledger"]),
+        "partition": b["partition"]["passed"],
+        "decode_death": (death["equal"] and death["replaced"] >= 1
+                         and death["killed"] in death["dead"]
+                         and "kv_handoff_replace" in death["flight"]),
+        "prefixd": (pd["published"] >= 1 and pd["donor_equal"]
+                    and pd["fresh_equal"] and pd["hits"] >= 1
+                    and pd["fresh_cached_tokens"] > 0
+                    and pd["donor_cached_tokens"] == 0
+                    and pd["corrupt_rejected"]),
+        "child": (all(ch["rows_equal"]) and ch["embed_max_abs"] <= 1e-5
+                  and ch["launches"]["ragged_fwd"] > 0
+                  and ch["launches"]["flash_fwd"] > 0 and ch["exit"] == 0),
+        "devices": report["devices"] == ["cuda"],
+        "kernels": (launches["ragged_fwd"] > 0 and launches["flash_fwd"] > 0
+                    and all(launches[n] == 0 for n in (
+                        "paged_fwd", "paged_prefill_fwd", "ragged_q8_fwd"))),
+    }
+    report["checks"] = checks
+    if not all(checks.values()):
+        emit(report)
+        raise AssertionError(f"the fabric phase failed its checks: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    # the kept bf16 inputs against the twins (launches not counted)
+    report["ticks"] = {key: ragged_tick_numbers(
+        torch, P, kernels.RAGGED, *kept["ragged_fwd"][key])
+        for key in ("decode", "chunk")}
+    report["flash"] = flash_entry(torch, F, kernels, kept["flash_fwd"],
+                                  launches["flash_fwd"])
+    del kept
+    torch.cuda.empty_cache()
     return report
 
 
@@ -6813,7 +7403,7 @@ def main(argv) -> int:
     only = None
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
               "continuous", "spec", "ckpt", "tiers", "obs", "agent",
-              "runtime", "web", "cluster", "reference")
+              "runtime", "web", "cluster", "fabric", "reference")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -6905,6 +7495,11 @@ def main(argv) -> int:
         emit(phase_cluster(torch, R, kernels,
                            decide_pool_backend(torch, R, backend)[0]))
         return 0
+    if only == "fabric":
+        backend = R.TorchBackend([MODEL], seed=0)
+        emit(phase_fabric(torch, R, F, P, kernels,
+                          decide_pool_backend(torch, R, backend)[0]))
+        return 0
     if only == "reference":
         emit(phase_reference(torch, R))
         return 0
@@ -6964,6 +7559,8 @@ def main(argv) -> int:
     emit(web_report)
     cluster_report = phase_cluster(torch, R, kernels, pool_backend)
     emit(cluster_report)
+    fabric_report = phase_fabric(torch, R, F, P, kernels, pool_backend)
+    emit(fabric_report)
     # phase_spec releases the decide pool once its decide has run
     pools = [pool_backend]
     del pool_backend
@@ -6988,6 +7585,7 @@ def main(argv) -> int:
         e["runtime_launches"] = runtime_report["launches"][e["name"]]
         e["web_launches"] = web_report["launches"][e["name"]]
         e["cluster_launches"] = cluster_report["launches"][e["name"]]
+        e["fabric_launches"] = fabric_report["launches"][e["name"]]
         if e["name"] == "ragged_fwd":
             e["verify"] = spec_report["verify_ticks"]["ragged_fwd_bf16"]
             e["verify_fp32"] = spec_report["verify_ticks"]["ragged_fwd"]

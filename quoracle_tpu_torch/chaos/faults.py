@@ -47,15 +47,20 @@ cluster.decode          ClusterPlane._decode_on (decode-       crash, slow
                         replica death mid-row: envelope
                         re-place)
 handoff.export          KVHandoff.export                       fail
+fabric.send             Transport.request (per wire attempt:   drop,
+                        a corrupt frame is rejected by the     delay,
+                        receiver's crc boundary)               corrupt
+fabric.prefixd          PrefixdClient.fetch / publish          unavailable
 fleet.migrate           FleetController._migrate_all (per      crash, fail
                         session migration)
 ======================  =====================================  ==========
 
 ``INJECTION_POINTS`` is the JAX catalog whole, so a plan the JAX package
-accepts is accepted here. ``fabric.send`` and ``fabric.prefixd`` (the
-cross-host fabric) and ``train.capture`` and ``train.promote`` (training)
-fire nowhere in the port until their modules are ported (ROADMAP Queue 1
-items 14 and 11).
+accepts is accepted here. ``fabric.send`` fires in the fabric's
+``Transport.request`` per wire attempt (drop, delay, corrupt a frame) and
+``fabric.prefixd`` in ``PrefixdClient`` (unavailable: a local miss);
+``train.capture`` and ``train.promote`` (training) fire nowhere in the
+port until their modules are ported (ROADMAP Queue 1 item 11).
 
 ``crash`` kinds raise :class:`InjectedFault` out of ``fire()``: a
 structured error naming point and key, so the recovery paths exercise

@@ -32,13 +32,16 @@ The registry:
   drift_storm         member garbage/crash feeding drift detection
   hbm_pressure_churn  forced demote churn + restore failures + a
                       compile-key poisoning storm
+  fabric_partition    peer links flap mid-handoff over the loopback
+                      fabric: drops and corrupt frames
   scale_storm         the elastic fleet scales, re-tiers, and drains
                       mid-traffic while a replica is killed during its
                       own drain and a migration degrades
 
-The JAX registry's ``fabric_partition`` (peer links flapping over the
-cross-host fabric) waits for the fabric, ROADMAP Queue 1 item 14:
-``run_scenario`` names it and raises ``NotImplementedError``.
+A caller that passes ``context`` to ``fabric_partition`` hands it
+``{"plane": FabricPlane, "peers": [FabricPeer, ...], "backends": [...]}``
+(the peers' backends serving ``member``), as the chip smoke test does
+over real sockets.
 """
 
 from __future__ import annotations
@@ -135,9 +138,6 @@ def run_scenario(name: str, seed: int = 0,
         CHAOS_INVARIANT_FAILURES, CHAOS_SCENARIOS_TOTAL,
     )
 
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"chaos scenario {name!r} is not ported yet: {NOT_PORTED[name]}")
     sc = SCENARIOS[name]()
     ctx: dict = dict(context or {})
     ctx.setdefault("device", device)
@@ -691,8 +691,104 @@ class HbmPressureChurn(Scenario):
         return out
 
 
-# (6. The JAX registry's fabric_partition waits for the cross-host fabric:
-# NOT_PORTED below.)
+# ---------------------------------------------------------------------------
+# 6. Fabric partition
+# ---------------------------------------------------------------------------
+
+
+class FabricPartition(Scenario):
+    """Three replica "processes" (1 prefill + 2 decode FabricPeers)
+    joined to a front door over loopback transports — every byte rides
+    the real wire codec — while the peer links FLAP: frames drop and
+    corrupt mid-handoff. The transport's bounded retry must absorb
+    transient faults; persistent ones must degrade structurally (cold
+    re-prefill, envelope re-place onto a survivor, or a structured
+    failure naming peer + phase) — and every surviving row must be
+    BIT-IDENTICAL to the fault-free run. No silent loss, ever."""
+
+    name = "fabric_partition"
+    description = ("peer link flap (drop + corrupt frames) over the "
+                   "loopback fabric mid-handoff")
+
+    N_ROWS = 4
+
+    def build(self, ctx: dict) -> None:
+        from quoracle_tpu_torch.serving.cluster import RemoteReplica
+        from quoracle_tpu_torch.serving.fabric.frontdoor import FabricPlane
+        from quoracle_tpu_torch.serving.fabric.peer import FabricPeer
+        from quoracle_tpu_torch.serving.fabric.transport import (
+            LoopbackTransport,
+        )
+        peers = [
+            FabricPeer.build([ctx["member"]], role=role,
+                             replica_id=rid, continuous_chunk=8,
+                             **_where(ctx))
+            for role, rid in (("prefill", "prefill-0"),
+                              ("decode", "decode-1"),
+                              ("decode", "decode-2"))]
+        plane = FabricPlane([
+            RemoteReplica(LoopbackTransport(p.handle, p.replica_id,
+                                            backoff_ms=5.0))
+            for p in peers])
+        ctx["plane"] = plane
+        ctx["peers"] = peers
+        ctx["backends"] = [plane] + peers
+
+    def rules(self, ctx: dict) -> list:
+        # bounded fault families: the flap must be survivable by
+        # design — a permanently partitioned fleet tests mark-failed,
+        # not recovery. start=2 skips the build-time hellos so the
+        # faults land on serving traffic (handoff legs included).
+        return [
+            FaultRule("fabric.send", "drop", prob=0.5, start=2,
+                      max_fires=5),
+            FaultRule("fabric.send", "corrupt", prob=0.6, start=3,
+                      max_fires=5),
+            FaultRule("fabric.send", "delay", prob=0.25, delay_ms=10,
+                      start=2),
+        ]
+
+    def traffic(self, ctx: dict, phase: str) -> dict:
+        plane = ctx["plane"]
+        results = []
+        for i in range(self.N_ROWS):
+            results += plane.query([_req(
+                ctx, _msgs(f"fabric row {i}: explain link-flap recovery"),
+                cj=(i == 3), max_tokens=10)])
+        return {"submitted": self.N_ROWS, "results": results,
+                "eq": results}
+
+    def check(self, ctx, clean, storm, plan, flight_slice) -> list:
+        plane = ctx["plane"]
+        retried = sum(p.transport.stats()["retried"]
+                      for p in plane.peers)
+        survivors = sum(1 for r in storm["results"]
+                        if getattr(r, "ok", False))
+        recovered = (retried >= 1 or plane.replaced >= 1
+                     or plane.cold_failovers >= 1)
+        out = [
+            inv.no_silent_loss(storm["submitted"], storm["results"],
+                               backends=ctx["peers"]),
+            inv.structured_failures(storm["results"]),
+            inv.temp0_equality(clean["eq"], storm["eq"]),
+            inv.lockdep_clean(),
+            inv.fault_schedule(plan, flight_slice),
+            inv.InvariantResult(
+                "flap_absorbed_or_degraded",
+                recovered if plan.schedule() else True,
+                f"retried={retried} replaced={plane.replaced} "
+                f"cold_failovers={plane.cold_failovers} "
+                f"survivors={survivors}/{len(storm['results'])}"),
+        ]
+        storm["evidence"] = {
+            "retried": retried,
+            "replaced": plane.replaced,
+            "cold_failovers": plane.cold_failovers,
+            "dead_peers": [p.replica_id for p in plane.peers
+                           if not p.alive],
+            "survivors": survivors,
+        }
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -858,11 +954,6 @@ class ScaleStorm(Scenario):
 SCENARIOS: dict = {
     sc.name: sc for sc in (TrafficStorm, KillMidHandoff,
                            RestartWarmStart, DriftStorm,
-                           HbmPressureChurn, ScaleStorm)
-}
-
-# The JAX registry's scenarios the port has not got, each with the
-# ROADMAP item that ports it.
-NOT_PORTED: dict = {
-    "fabric_partition": "ROADMAP Queue 1 item 14 (the cross-host fabric)",
+                           HbmPressureChurn, FabricPartition,
+                           ScaleStorm)
 }

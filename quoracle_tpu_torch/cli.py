@@ -273,12 +273,26 @@ def build_parser() -> argparse.ArgumentParser:
                              "ticks (paces the ticker thread only)")
         sp.add_argument("--fabric-listen", dest="fabric_listen",
                         default=None, metavar="[ROLE@]HOST:PORT",
-                        help="cluster fabric replica peer (not ported)")
+                        help="cluster fabric (serving/fabric/): serve "
+                             "this node's backend as a network replica "
+                             "peer at this address (role: prefill | "
+                             "decode | unified, default unified); the "
+                             "front door places work here over the "
+                             "wire")
         sp.add_argument("--fabric-peers", dest="fabric_peers",
                         default=None, metavar="[ROLE@]HOST:PORT,...",
-                        help="cluster fabric front door (not ported)")
+                        help="cluster fabric: run this node as the "
+                             "standalone router front door over these "
+                             "remote peers (no local engines; "
+                             "SignalSnapshot poll protocol, aggregate "
+                             "admission, wire KV handoff)")
         sp.add_argument("--prefixd", default=None, metavar="HOST:PORT",
-                        help="fleet prefix service (not ported)")
+                        help="cluster fabric: fleet prefix service "
+                             "address; every engine tier reads "
+                             "through it, so this replica warm-starts "
+                             "from the fleet's prefixes (serve one "
+                             "with python -m quoracle_tpu_torch."
+                             "serving.fabric.prefixd)")
         sp.add_argument("--chaos-plan", dest="chaos_plan", default=None,
                         metavar="PLAN.json",
                         help="chaos plane (chaos/faults.py): arm this "
@@ -286,10 +300,17 @@ def build_parser() -> argparse.ArgumentParser:
                              "[{'point', 'kind', ...}]}) at boot")
         sp.add_argument("--sim-trace", dest="sim_trace", default=None,
                         metavar="TRACE.json",
-                        help="fleet simulator trace (not ported)")
+                        help="fleet simulator (sim/): replay this "
+                             "serialized workload trace at boot on a "
+                             "shadow thread (compressed virtual time, "
+                             "capacity sized from the live router, "
+                             "forecast priors to the fleet policy's "
+                             "dry-run seam); results on GET /api/sim")
         sp.add_argument("--sim-seed", dest="sim_seed", default=None,
                         type=int, metavar="N",
-                        help="fleet simulator seed (not ported)")
+                        help="fleet simulator: with no --sim-trace, "
+                             "generate and replay the canonical "
+                             "diurnal-mix trace from this seed")
         sp.add_argument("--capture-dir", dest="capture_dir", default=None,
                         metavar="DIR",
                         help="serving flywheel capture store (not ported)")

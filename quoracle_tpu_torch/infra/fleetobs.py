@@ -43,9 +43,14 @@ every hot-path emit is guarded by ``TRACER.active()`` and span
 recording never touches RNG or device state, so temp-0 outputs are
 bit-identical with tracing on or off (tests/test_torch_obs_serving.py).
 
-The fabric (the wire ops that pull rings and broadcast incidents) is not
-in the port yet: the notifier seam of :class:`IncidentManager` stays, with
-nothing attached.
+Across processes these primitives ride the fabric's MSG_OBS wire op
+(serving/fabric/peer.py): a front door pulls every peer's span-ring slice
+(``spans``), scrapes its lossless metrics state (``metrics``) and, through
+the notifier a ``FabricPlane`` registers on :class:`IncidentManager`,
+broadcasts each incident id so every peer dumps its flight ring into the
+same bundle (``incident``). A trace context rides every peer-bound
+payload (``RemoteReplica``), so a peer's spans land in the caller's
+trace.
 """
 
 from __future__ import annotations

@@ -645,13 +645,16 @@ class SessionStore:
                       pages: Sequence[int]) -> int:
         """Feed a freshly stored session's full pages into the radix cache
         (the engine calls this at store-back for full-attention sessions
-        with start_pos == 0). With a disk-backed tier each full block also
-        writes through to the checksummed prefix store (content-addressed:
-        a block already there costs one stat), so a restarted process
-        warms from it. Returns the number of new nodes."""
+        with start_pos == 0). With a disk-backed tier, or a fleet prefix
+        service attached to it, each full block also writes through to the
+        checksummed prefix store and the fleet (content-addressed: a block
+        already there costs one stat), so a restarted process, or another
+        replica, warms from it. Returns the number of new nodes."""
         with self.lock:
             added = self.prefix_cache.insert(tokens, pages)
-            if self.tier is not None and self.tier.disk is not None:
+            if (self.tier is not None
+                    and (self.tier.disk is not None
+                         or self.tier.prefixd is not None)):
                 for j in range(len(tokens) // self.page):
                     if j < len(pages) and pages[j]:
                         self.tier.persist_block(

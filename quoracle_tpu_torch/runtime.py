@@ -13,13 +13,18 @@ backend is ``"mock"`` or ``"torch"`` (``TorchBackend`` on ``device``:
 None means the GPU, and raises without one). What the port has not got
 yet raises at construction and names its ROADMAP Queue 1 item, never
 dropped silently: multi-process and tensor-parallel serving (item 12),
-the cross-host fabric, its prefix service and the simulator (item 14),
 the training capture store (item 11) and the diffusion image backend
 (item 10). ``replicas`` and ``disaggregate`` serve through a
 ``ClusterPlane`` (serving/cluster.py) whose replicas all sit on
 ``device``; ``fleet_max`` puts a ``FleetController`` over it, ticked by
 the runtime's ``fleet-ticker`` thread; ``chaos_plan`` arms a fault plan
-on the chaos plane before any traffic.
+on the chaos plane before any traffic. The cross-host fabric
+(serving/fabric/): ``fabric_peers`` makes this node a front door with no
+local engines (a ``FabricPlane`` over the peers), ``fabric_listen``
+serves the local backend as a fabric peer beside its own serving, and
+``prefixd`` gives every engine tier a read-through client of the fleet
+prefix service. ``sim_trace`` (or ``sim_seed``) replays a workload trace
+on a ``sim-replay`` thread at boot (sim/replay.py).
 """
 
 from __future__ import annotations
@@ -211,17 +216,11 @@ class StallWatchdog:
 # the ROADMAP Queue 1 item that ports it. A field set to anything but its
 # default raises NotImplementedError at construction.
 _MULTI_PROCESS = "ROADMAP Queue 1 item 12 (multi-GPU)"
-_FABRIC = "ROADMAP Queue 1 item 14 (the cross-host fabric)"
 _NOT_PORTED = {
     "tp": _MULTI_PROCESS,
     "coordinator_address": _MULTI_PROCESS,
     "num_processes": _MULTI_PROCESS,
     "process_id": _MULTI_PROCESS,
-    "fabric_peers": _FABRIC,
-    "fabric_listen": _FABRIC,
-    "prefixd": _FABRIC,
-    "sim_trace": "ROADMAP Queue 1 item 14 (sim/)",
-    "sim_seed": "ROADMAP Queue 1 item 14 (sim/)",
     "capture_dir": "ROADMAP Queue 1 item 11 (training capture)",
     "capture_mb": "ROADMAP Queue 1 item 11 (training capture)",
 }
@@ -328,7 +327,11 @@ class RuntimeConfig:
     # prefill/decode and implies 2), the elastic fleet over it
     # (serving/fleet.py: ``fleet_max`` > 0 arms it, ticked every
     # ``fleet_tick_s``), the chaos plane's fault plan (a JSON file, armed
-    # at construction) and the cross-host fabric (not ported).
+    # at construction) and the cross-host fabric: ``fabric_peers`` makes
+    # this node the front door over "[role@]host:port" peers (no local
+    # engines), ``fabric_listen`` serves the local backend as a peer at
+    # "[role@]host:port" (role prefill|decode|unified, default unified),
+    # ``prefixd`` is the "host:port" of the fleet prefix service.
     replicas: int = 1
     disaggregate: bool = False
     fleet_min: int = 1
@@ -344,8 +347,13 @@ class RuntimeConfig:
     # per-(token, kv-head) scales beside them. Off by default.
     quantize_weights: bool = False
     quantize_kv: bool = False
-    # The fleet simulator and the serving flywheel's capture store (not
-    # ported).
+    # The fleet simulator (sim/): ``sim_trace`` is a serialized workload
+    # trace replayed at boot on a daemon thread at compressed virtual
+    # time (the capacity model sized from the router's capacity_hint()
+    # on a cluster, forecast priors offered to the fleet controller's
+    # shadow seam, results on GET /api/sim and TOPIC_SIM); ``sim_seed``
+    # with no trace regenerates the canonical diurnal-mix trace from that
+    # seed. The serving flywheel's capture store is not ported.
     sim_trace: Optional[str] = None
     sim_seed: Optional[int] = None
     capture_dir: Optional[str] = None
@@ -383,6 +391,9 @@ class Runtime:
         self._fleet = None
         self._fleet_stop = threading.Event()
         self._fleet_thread: Optional[threading.Thread] = None
+        # the fabric peer serving this node's backend (fabric_listen): set
+        # by _build_backend, its server closed in close()
+        self._fabric_peer = None
         try:
             self.backend = backend or self._build_backend(config)
         except BaseException:
@@ -440,6 +451,14 @@ class Runtime:
                 target=self._fleet_loop, name="fleet-ticker",
                 daemon=True)
             self._fleet_thread.start()
+        # the fleet simulator's boot replay: model-only, so it never
+        # contends for device work
+        self._sim_driver = None
+        self._sim_thread: Optional[threading.Thread] = None
+        if config.sim_trace or config.sim_seed is not None:
+            self._sim_thread = threading.Thread(
+                target=self._sim_loop, name="sim-replay", daemon=True)
+            self._sim_thread.start()
         self.token_manager = TokenManager(
             self.backend.count_tokens,
             context_limit_fn=self.backend.context_window)
@@ -476,6 +495,21 @@ class Runtime:
         # (self.store is constructed before the backend)
         if config.backend != "torch":
             return MockBackend()
+        if config.fabric_peers:
+            # the front door: no local engines and no device; placement,
+            # aggregate admission and the wire handoff over remote peers
+            if (config.replicas > 1 or config.disaggregate
+                    or config.fabric_listen or config.fleet_max):
+                raise ValueError(
+                    "--fabric-peers is the front-door role: it excludes "
+                    "--replicas/--disaggregate/--fabric-listen/"
+                    "--fleet-max (peers carry the engines; the door "
+                    "grows/shrinks its peer set via add_peer/"
+                    "remove_peer + the re-join sweep)")
+            from quoracle_tpu_torch.serving.fabric.frontdoor import (
+                FabricPlane,
+            )
+            return FabricPlane.connect(list(config.fabric_peers))
         # (The JAX runtime enables XLA's persistent compilation cache and
         # joins the JAX distributed system here; the port compiles only
         # its kernel library, which ops/kernels.py caches, and serves one
@@ -507,6 +541,12 @@ class Runtime:
             # one-card case of the JAX package's replica_device_groups,
             # where replicas share devices when they outnumber them).
             from quoracle_tpu_torch.serving.cluster import ClusterPlane
+            if config.fabric_listen:
+                raise ValueError(
+                    "--fabric-listen serves ONE replica backend over "
+                    "the wire; run one peer process per replica "
+                    "instead of combining it with --replicas/"
+                    "--disaggregate")
             built = ClusterPlane.build(
                 pool, replicas=max(config.replicas,
                                    2 if config.disaggregate else 1),
@@ -532,21 +572,81 @@ class Runtime:
                     built, FleetConfig(min_replicas=config.fleet_min,
                                        max_replicas=config.fleet_max,
                                        seed=config.seed))
-            return built
-        if config.fleet_max:
-            raise ValueError(
-                "--fleet-max elasticizes a CLUSTER: it requires "
-                "--replicas > 1 or --disaggregate")
-        return TorchBackend(
-            pool, seed=config.seed, device=config.device,
-            draft_k=config.draft_k, embed_model=config.embed_model,
-            draft_map=draft_map or None,
-            continuous=config.continuous,
-            qos=qos, host_kv_mb=config.host_kv_mb,
-            disk_kv_dir=config.disk_kv_dir,
-            disk_kv_gb=config.disk_kv_gb,
-            quantize_weights=config.quantize_weights,
-            quantize_kv=config.quantize_kv)
+        else:
+            if config.fleet_max:
+                raise ValueError(
+                    "--fleet-max elasticizes a CLUSTER: it requires "
+                    "--replicas > 1 or --disaggregate")
+            built = TorchBackend(
+                pool, seed=config.seed, device=config.device,
+                draft_k=config.draft_k, embed_model=config.embed_model,
+                draft_map=draft_map or None,
+                continuous=config.continuous,
+                qos=qos, host_kv_mb=config.host_kv_mb,
+                disk_kv_dir=config.disk_kv_dir,
+                disk_kv_gb=config.disk_kv_gb,
+                quantize_weights=config.quantize_weights,
+                quantize_kv=config.quantize_kv)
+        try:
+            if config.prefixd:
+                self._attach_prefixd(built, config.prefixd)
+            if config.fabric_listen:
+                self._fabric_peer = self._listen_fabric(built, config)
+        except BaseException:
+            built.close()
+            raise
+        return built
+
+    @staticmethod
+    def _attach_prefixd(backend, addr: str) -> None:
+        """Wire the fleet prefix service into every pool engine's tier:
+        one shared TCP transport, one read-through client per engine
+        signature."""
+        from quoracle_tpu_torch.serving.fabric.prefixd import PrefixdClient
+        from quoracle_tpu_torch.serving.fabric.transport import (
+            TcpTransport, parse_addr,
+        )
+        _, host, port = parse_addr(addr)
+        transport = TcpTransport(host, port, peer_name="prefixd",
+                                 lock_name="fabric.prefixd")
+        reps = getattr(backend, "replicas", None)
+        backends = ([rep.backend for rep in reps]
+                    if reps is not None else [backend])
+        for b in backends:
+            for spec in b.pool:
+                eng = b.engines[spec]
+                tier = eng.sessions.tier
+                if tier is None:
+                    tier = eng.attach_tier(host_mb=256)
+                tier.attach_prefixd(
+                    PrefixdClient(transport, eng.kv_signature()))
+
+    @staticmethod
+    def _listen_fabric(backend, config: RuntimeConfig):
+        """Serve this node's backend as a fabric peer at
+        ``fabric_listen`` ("[role@]host:port"; port 0 binds a free port,
+        read back from ``_fabric_peer._server.addr``): a front door
+        places prefill, decode and whole-request work here over the
+        wire."""
+        from quoracle_tpu_torch.serving.fabric.peer import FabricPeer
+        from quoracle_tpu_torch.serving.fabric.transport import parse_addr
+        role, host, port = parse_addr(config.fabric_listen)
+        role = role or "unified"
+        if role in ("prefill", "decode"):
+            for spec in backend.pool:
+                backend.engines[spec].role = role
+        # the handoff needs a KV tier on every pool engine (its medium):
+        # a bare backend gets the default host tier
+        for spec in backend.pool:
+            eng = backend.engines[spec]
+            if eng.sessions.tier is None:
+                eng.attach_tier(host_mb=256)
+        peer = FabricPeer(backend, replica_id=f"{role}@{host}:{port}",
+                          role=role)
+        peer.listen(host, port)
+        logger.info("fabric peer %s serving at %s", peer.replica_id,
+                    peer._server.addr)
+        return peer
 
     def _fleet_loop(self) -> None:
         """The fleet ticker: the wall clock paces the ticks, never the
@@ -556,6 +656,40 @@ class Runtime:
                 self._fleet.tick()
             except Exception:             # noqa: BLE001 — keep ticking
                 logger.exception("fleet tick failed")
+
+    def _sim_loop(self) -> None:
+        """The boot replay: loads ``sim_trace`` (or generates the
+        canonical diurnal-mix trace from ``sim_seed``), sizes the
+        capacity model from the router when the backend is a cluster,
+        and replays at compressed time, offering forecast priors to the
+        fleet controller's shadow seam."""
+        try:
+            from quoracle_tpu_torch.sim.replay import (
+                SIM, CapacityModel, ReplayDriver,
+            )
+            from quoracle_tpu_torch.sim.workload import (
+                Trace, canonical_spec, generate,
+            )
+            if self.config.sim_trace:
+                trace = Trace.from_file(self.config.sim_trace)
+            else:
+                trace = generate(canonical_spec(
+                    "diurnal_mix", seed=self.config.sim_seed or 0))
+            SIM.note_trace(trace.stats())
+            capacity = None
+            router = getattr(self.backend, "router", None)
+            if router is not None:
+                hint = router.capacity_hint()
+                slots = max(2, hint["decode_slots"])
+                capacity = CapacityModel(
+                    decode_slots=slots,
+                    reserved_interactive=max(1, slots // 4))
+            self._sim_driver = ReplayDriver(
+                trace, capacity=capacity, fleet=self._fleet,
+                bus=self.bus)
+            self._sim_driver.run()
+        except Exception:                 # noqa: BLE001 — shadow only
+            logger.exception("sim replay failed")
 
     async def boot(self) -> dict:
         """Boot-time revival of persisted running tasks (reference
@@ -571,11 +705,21 @@ class Runtime:
     def close(self) -> None:
         """Detach everything this runtime attached to the process-wide
         planes and close its database. The backend stays open: a caller
-        that handed one in may share it with another Runtime."""
+        that handed one in may share it with another Runtime. A fabric
+        peer's server (``fabric_listen``) closes here."""
+        if self._sim_driver is not None:
+            self._sim_driver.stop()
+        if self._sim_thread is not None:
+            self._sim_thread.join(timeout=5)
+            self._sim_thread = None
         self._fleet_stop.set()
         if self._fleet_thread is not None:
             self._fleet_thread.join(timeout=5)
             self._fleet_thread = None
+        if self._fabric_peer is not None and \
+                self._fabric_peer._server is not None:
+            self._fabric_peer._server.close()
+            self._fabric_peer._server = None
         self.watchdog.close()
         from quoracle_tpu_torch.infra import introspect
         introspect.shutdown()

@@ -41,9 +41,10 @@ Every replica lives in this process. ``build`` puts them all on one
 case of the JAX package's ``replica_device_groups``, where replicas share
 devices when there are fewer devices than replicas. ``engine_factory``
 hands each replica prebuilt engines (one a member, over shared
-read-only weights) instead of drawing weights per replica. Network
-replicas (the JAX ``RemoteReplica`` and its backend facade) come with
-the cross-host fabric, ROADMAP Queue 1 item 14.
+read-only weights) instead of drawing weights per replica.
+:class:`RemoteReplica` is a replica behind the cross-host fabric
+(serving/fabric/): the same interface over a wire transport to a
+``FabricPeer``, which the front door's ``FabricPlane`` routes over.
 """
 
 from __future__ import annotations
@@ -133,9 +134,227 @@ def _replica_backend(a: dict, role: str, embedder, *,
     return backend
 
 
-# (The JAX package's RemoteReplica and _RemoteBackendFacade, a replica
-# that is a network peer behind the cross-host fabric, would stand here:
-# ROADMAP Queue 1 item 14.)
+class RemoteReplica:
+    """A replica that is a NETWORK PEER (serving/fabric/):
+    the same replica interface — ``replica_id`` / ``role`` / ``alive``
+    / ``backend`` — over a fabric transport to a FabricPeer process,
+    so the ClusterRouter's placement, affinity, liveness, and
+    aggregate-admission logic run unchanged whether a replica lives in
+    this process or on another host. ``backend`` is a thin facade:
+    ``query`` delegates whole requests over the wire (the unified /
+    affinity / failover paths), ``qos_controller`` is the
+    SignalSnapshot poll proxy the router scores and admits through.
+    The split prefill→handoff→decode flow rides the dedicated
+    ``prefill``/``adopt_decode`` ops (fabric/frontdoor.FabricPlane
+    drives those)."""
+
+    def __init__(self, transport, replica_id: Optional[str] = None,
+                 role: Optional[str] = None):
+        from quoracle_tpu_torch.serving.fabric import wire
+        from quoracle_tpu_torch.serving.fabric.frontdoor import (
+            RemoteSignalsProxy,
+        )
+        self.transport = transport
+        _, payload = transport.request(wire.MSG_HELLO,
+                                       wire.encode_json({}))
+        hello = wire.decode_json(payload)
+        self.replica_id = replica_id or hello.get("replica_id", "peer")
+        self.role = role or hello.get("role", "unified")
+        self.pool = list(hello.get("pool") or ())
+        self.signatures = dict(hello.get("signatures") or {})
+        self.alive = True
+        self._signals = RemoteSignalsProxy(transport)
+        self.backend = _RemoteBackendFacade(self)
+
+    # -- wire ops ---------------------------------------------------------
+
+    @staticmethod
+    def _trace_dict() -> Optional[dict]:
+        """The calling thread's trace context as a wire-able dict —
+        stamped onto every peer-bound payload so the peer's spans land
+        in the caller's trace."""
+        ctx = fleetobs.TraceContext.current()
+        return ctx.to_dict() if ctx is not None else None
+
+    @staticmethod
+    def _tree_dict() -> Optional[dict]:
+        """The calling thread's tree context as a wire-able dict —
+        lineage for peers whose charges must land on the caller's
+        tree node."""
+        from quoracle_tpu_torch.infra import treeobs
+        if not treeobs.enabled():
+            return None
+        ctx = treeobs.current()
+        return ctx.to_dict() if ctx is not None else None
+
+    def serve(self, request):
+        from quoracle_tpu_torch.serving.fabric import wire
+        d = wire.request_to_dict(request)
+        if d.get("trace") is None:
+            d["trace"] = self._trace_dict()
+        if d.get("tree") is None:
+            d["tree"] = self._tree_dict()
+        _, payload = self.transport.request(
+            wire.MSG_SERVE, wire.encode_json(d))
+        return wire.result_from_dict(wire.decode_json(payload))
+
+    def prefill(self, request, handoff_id: str) -> tuple[dict, bytes]:
+        """The prefill phase on this peer: returns (meta, envelope
+        bytes) — or (meta-with-"result", b"") for rows that never
+        dispatched (overflow / deadline)."""
+        from quoracle_tpu_torch.serving.fabric import wire
+        d = wire.request_to_dict(request)
+        if d.get("trace") is None:
+            d["trace"] = self._trace_dict()
+        if d.get("tree") is None:
+            d["tree"] = self._tree_dict()
+        _, payload = self.transport.request(
+            wire.MSG_PREFILL,
+            wire.encode_json({
+                "request": d,
+                "handoff_id": handoff_id}))
+        meta, body = wire.unpack_blob(payload)
+        return meta, bytes(body)
+
+    def adopt_decode(self, meta: dict, env_bytes: bytes,
+                     owns: bool = False) -> dict:
+        """Ship the retained envelope bytes + row metadata; the peer
+        gates on its own kv_signature BEFORE parsing a page byte,
+        adopts, and decodes the continuation through its production
+        batcher."""
+        from quoracle_tpu_torch.serving.fabric import wire
+        header = {"handoff_id": meta["handoff_id"],
+                  "model_spec": meta["model_spec"],
+                  "prompt": meta["prompt"], "row": meta["row"],
+                  "g1": meta["g1"], "owns": owns,
+                  "trace": self._trace_dict(),
+                  "tree": self._tree_dict()}
+        _, payload = self.transport.request(
+            wire.MSG_DECODE, wire.pack_blob(header, env_bytes))
+        return wire.decode_json(payload)
+
+    def pull_spans(self, session_id: Optional[str] = None,
+                   trace_id: Optional[str] = None) -> list[dict]:
+        """This peer's span-ring slice for one session/trace — the new
+        wire op the front door's timeline assembly pulls."""
+        from quoracle_tpu_torch.serving.fabric import wire
+        _, payload = self.transport.request(
+            wire.MSG_OBS, wire.encode_json({
+                "op": "spans", "session_id": session_id,
+                "trace_id": trace_id}))
+        out = wire.decode_json(payload)
+        return list(out.get("spans") or ())
+
+    def pull_tree(self, tree_id: str) -> dict:
+        """This peer's local tree-registry state for one tree — the
+        MSG_OBS ``tree`` op the front door's /api/tree assembly pulls.
+        The payload is registry-tagged so the merge counts
+        loopback peers (shared process registry) exactly once."""
+        from quoracle_tpu_torch.serving.fabric import wire
+        _, payload = self.transport.request(
+            wire.MSG_OBS, wire.encode_json({
+                "op": "tree", "tree_id": tree_id}))
+        return wire.decode_json(payload)
+
+    def obs_metrics(self) -> dict:
+        """This peer's lossless metrics state (MetricsRegistry.
+        export_state + rollup scalars) — the federation scrape input."""
+        from quoracle_tpu_torch.serving.fabric import wire
+        _, payload = self.transport.request(
+            wire.MSG_OBS, wire.encode_json({"op": "metrics"}))
+        return wire.decode_json(payload)
+
+    def obs_incident(self, incident_id: str, reason: str = "") -> dict:
+        """Ask this peer to dump its flight ring into the named
+        incident bundle — the correlated-capture broadcast leg."""
+        from quoracle_tpu_torch.serving.fabric import wire
+        _, payload = self.transport.request(
+            wire.MSG_OBS, wire.encode_json({
+                "op": "incident", "incident_id": incident_id,
+                "reason": reason}))
+        return wire.decode_json(payload)
+
+    def obs_profile(self) -> dict:
+        """This peer's liveness/hotspot state: profiler
+        windows, heartbeats, stall status, wait totals — the front
+        door's fleet-scope /api/profile pull."""
+        from quoracle_tpu_torch.serving.fabric import wire
+        _, payload = self.transport.request(
+            wire.MSG_OBS, wire.encode_json({"op": "profile"}))
+        return wire.decode_json(payload)
+
+    def session_resident(self, request) -> bool:
+        """Affinity guard: does the peer still hold this session (LRU
+        churn can outlive the affinity entry)? Unreachable peers answer
+        False — fresh placement handles them."""
+        from quoracle_tpu_torch.serving.fabric import wire
+        if not request.session_id:
+            return False
+        try:
+            _, payload = self.transport.request(
+                wire.MSG_META,
+                wire.encode_json({"op": "session_resident",
+                                  "model_spec": request.model_spec,
+                                  "session_id": request.session_id}))
+        except wire.WireError:
+            return False
+        return bool(wire.decode_json(payload).get("value"))
+
+    def drop_session(self, session_id: str) -> None:
+        from quoracle_tpu_torch.serving.fabric import wire
+        self.transport.request(
+            wire.MSG_DROP_SESSION,
+            wire.encode_json({"session_id": session_id}))
+
+    def meta(self, op: str, **kw):
+        from quoracle_tpu_torch.serving.fabric import wire
+        _, payload = self.transport.request(
+            wire.MSG_META, wire.encode_json({"op": op, **kw}))
+        return wire.decode_json(payload).get("value")
+
+    def embed(self, texts):
+        from quoracle_tpu_torch.serving.fabric import wire
+        _, payload = self.transport.request(
+            wire.MSG_EMBED, wire.encode_json({"texts": list(texts)}))
+        header, body = wire.unpack_blob(payload)
+        return wire.tensor_from(body, wire.dtype_of(header["dtype"]),
+                                header["shape"]).numpy()
+
+    def stats(self) -> dict:
+        from quoracle_tpu_torch.serving.fabric import wire
+        _, payload = self.transport.request(wire.MSG_STATS,
+                                            wire.encode_json({}))
+        return wire.decode_json(payload)
+
+    def close(self) -> None:
+        self.transport.close()
+
+
+class _RemoteBackendFacade:
+    """Just enough ``backend`` surface for the router (signals, stats),
+    ClusterPlane._delegate (query), and the resource layer (an empty
+    ``engines`` map — a remote peer attributes its own HBM)."""
+
+    def __init__(self, replica: RemoteReplica):
+        self._replica = replica
+        self.pool = list(replica.pool)
+        self.engines: dict = {}
+
+    @property
+    def qos_controller(self):
+        return self._replica._signals
+
+    def query(self, requests):
+        return [self._replica.serve(r) for r in requests]
+
+    def scheduler_stats(self) -> dict:
+        try:
+            return self._replica.stats().get("scheduler", {})
+        except Exception:                 # noqa: BLE001 — silent peer
+            return {}
+
+    def close(self) -> None:
+        self._replica.close()
 
 
 class ClusterPlane(ModelBackend):

@@ -12,11 +12,11 @@ topology into POLICY, with three actions over a live
 
 * **scale** — spin replica backends up or down within
   ``--fleet-min/--fleet-max`` bounds, registering/deregistering them
-  with the :class:`~quoracle_tpu_torch.serving.router.ClusterRouter`.
-  (The JAX controller also grows and shrinks a cross-host front door's
-  peer set, ``FabricPlane.add_peer``, ``remove_peer`` and
-  ``rejoin_peer``; that surface comes with the fabric, ROADMAP Queue 1
-  item 14.)
+  with the :class:`~quoracle_tpu_torch.serving.router.ClusterRouter`
+  (at a cross-host front door,
+  :meth:`~quoracle_tpu_torch.serving.fabric.frontdoor.FabricPlane.add_peer`,
+  ``remove_peer`` and ``rejoin_peer`` grow, shrink and restore the peer
+  set the same way).
 * **re-tier** — flip a replica's role between prefill and decode when
   the traffic mix shifts (prefill-heavy mornings vs decode-heavy agent
   storms), draining it first so the flip never strands a session.

@@ -33,9 +33,12 @@ a tracer sink listens) and the int8 byte-savings counter. The envelope
 carries the exporting thread's trace and tree contexts (``trace``,
 ``tree``), so the adopting side's spans and waits land in the same trace
 and tree node. ``export`` is the chaos plane's ``handoff.export`` seam
-(chaos/faults.py); serving/cluster.py drives handoffs across replicas.
-Left out of this copy: the wire envelope of the cross-host fabric
-(ROADMAP Queue 1 item 14).
+(chaos/faults.py); serving/cluster.py drives handoffs across replicas in
+one process. Across processes the envelope travels as wire bytes
+(serving/fabric/wire.py ``encode_envelope``/``decode_envelope``, the JAX
+package's format): the front door retains those bytes as the failover
+source, and the adopting peer checks the signature in their header
+before it parses a page byte.
 """
 
 from __future__ import annotations

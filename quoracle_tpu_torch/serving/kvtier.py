@@ -70,9 +70,12 @@ and its wait on the dispatching thread (``introspect.note_restore``).
 The chaos plane's seams (chaos/faults.py) sit where the JAX tier has
 them: ``kvtier.disk_load`` and ``kvtier.scale_corrupt`` flip bytes of a
 disk entry before its load, so the crc32 boundary must reject it, and
-``kvtier.restore`` fails a page-in into the re-prefill degrade. Left out
-of this copy, marked where it stood: the fleet prefix service's rung and
-publish target (the cross-host fabric, ROADMAP Queue 1 item 14).
+``kvtier.restore`` fails a page-in into the re-prefill degrade.
+
+The fleet prefix service (serving/fabric/prefixd.py) is the ladder's last
+rung: with a ``PrefixdClient`` attached (``attach_prefixd``), a block the
+host and disk tiers miss is fetched from the fleet, and the spill writer
+publishes every persisted block to it beside the disk write.
 """
 
 from __future__ import annotations
@@ -500,8 +503,10 @@ class TierManager:
             self.disk = DiskPrefixStore(
                 disk_dir, self.signature, model=model,
                 budget_bytes=int(disk_gb * (1 << 30)))
-        # (the JAX tier also holds the fleet prefix service's client,
-        # attach_prefixd: Queue 1 item 14)
+        # the fleet prefix service's read-through client (attach_prefixd):
+        # the restore ladder's last rung (host, disk, then the fleet) and
+        # the spill writer's second publish target
+        self.prefixd = None
         self.demoted_sessions = 0
         self.demoted_prefix_pages = 0
         self.restored_sessions = 0
@@ -514,10 +519,21 @@ class TierManager:
         # block is recomputable by prefill).
         self._spill_q: Optional[queue.Queue] = None
         if self.disk is not None:
+            self._ensure_spill_writer()
+
+    def _ensure_spill_writer(self) -> None:
+        if self._spill_q is None:
             self._spill_q = queue.Queue(maxsize=512)
             threading.Thread(
                 target=self._spill_loop, daemon=True,
                 name=f"kvtier-spill-{self.model or 'default'}").start()
+
+    def attach_prefixd(self, client) -> None:
+        """Wire the fleet prefix service's client: reads join
+        ``extend_prefix``'s restore ladder, writes ride the spill writer
+        (wire I/O never happens under the serving locks)."""
+        self.prefixd = client
+        self._ensure_spill_writer()
 
     # -- device <-> host ------------------------------------------------
 
@@ -723,9 +739,8 @@ class TierManager:
 
     def _write_block(self, key: str, entry: _HostBlock) -> None:
         """The spill writer's side: the atomic, content-addressed disk
-        write, never under the store or paged locks. (The JAX tier also
-        publishes the block to the fleet prefix service: Queue 1
-        item 14.)"""
+        write and, with a fleet prefix service attached, the publish to
+        it, never under the store or paged locks."""
         if self.disk is not None \
                 and self.disk.save(key, entry.tokens, entry.k, entry.v,
                                    entry.k_scale, entry.v_scale):
@@ -733,6 +748,9 @@ class TierManager:
             FLIGHT.record("kv_disk_spill", model=self.model,
                           tokens=len(entry.tokens))
             self._note_bytes_saved("disk_spill", entry)
+        if self.prefixd is not None:
+            self.prefixd.publish(key, entry.tokens, entry.k, entry.v,
+                                 entry.k_scale, entry.v_scale)
 
     def _enqueue_spill(self, key: str, entry: _HostBlock) -> None:
         if self._spill_q is None:
@@ -786,11 +804,12 @@ class TierManager:
         writes through to disk (content-addressed: a block already there
         costs one stat), so a restarted process warms from the prefixes
         that were hot. Only the device-to-host copy happens here, under
-        the store lock; the npz write rides the spill queue."""
-        if self.disk is None:
+        the store lock; the npz write (and the fleet publish) rides the
+        spill queue."""
+        if self.disk is None and self.prefixd is None:
             return
         key = self._block_key(tokens)
-        if self.disk.has(key):
+        if self.disk is not None and self.disk.has(key):
             return
         st = self.store
         if st.k is None:
@@ -834,8 +853,15 @@ class TierManager:
                 if loaded is not None:
                     blk = _HostBlock(prefix, *loaded)
                     source = "disk"
-            # (the JAX tier asks the fleet prefix service next: Queue 1
-            # item 14)
+            if blk is None and self.prefixd is not None:
+                # the fleet rung: the same restore-path design as the disk
+                # read above (sessioned callers already wait on this
+                # restore under the paged lock), and any failure degrades
+                # to a miss
+                fetched = self.prefixd.fetch(key, prefix)
+                if fetched is not None:
+                    blk = _HostBlock(prefix, *fetched)
+                    source = "prefixd"
             if blk is None:
                 break
             pages = st.alloc(1)
@@ -915,4 +941,6 @@ class TierManager:
             "spill_queue": (self._spill_q.qsize()
                             if self._spill_q is not None else 0),
             "spill_drops": self.spill_drops,
+            "prefixd": (self.prefixd.stats()
+                        if self.prefixd is not None else None),
         }

@@ -33,11 +33,11 @@ lock is touched. Placement inputs, in priority order:
 Liveness: a replica that fails a serving call is marked dead
 (``mark_failed``, which also captures a ``replica_dead`` incident in
 infra/fleetobs.py) and drops out of placement; its in-flight rows are
-re-placed through the retained handoff envelopes (cluster.py). Every
-replica here lives in this process. The JAX router also scores network
-peers whose signal polls fail (a silence streak marks them failed); that
-comes with the cross-host fabric (ROADMAP Queue 1 item 14), and until
-then ``stats()["silent"]`` stays empty.
+re-placed through the retained handoff envelopes (cluster.py). A network
+peer of the cross-host fabric (serving/fabric/) whose signal poll fails
+with a ``TransportError`` is scored worst-rank, and after
+:data:`SILENT_SIGNALS_LIMIT` silent polls in a row it is marked failed
+(``stats()["silent"]`` holds the streaks).
 
 Locking: the router lock ("router", rank 6) sits ABOVE every replica-
 internal lock (batcher 10, admission 12, …) in the declared hierarchy —
@@ -66,6 +66,11 @@ from quoracle_tpu_torch.serving.qos import class_name, coerce_priority
 # with headroom for the scrape jitter.
 DEFAULT_MAX_SIGNAL_AGE_S = 5.0
 
+# Consecutive silent signal polls (a fabric TransportError: the peer's
+# admission controller is unreachable) before the router stops scoring
+# the replica worst-rank and marks it FAILED: its in-flight rows re-place
+# through the retained handoff envelopes.
+SILENT_SIGNALS_LIMIT = 3
 
 
 class ClusterRouter:
@@ -92,9 +97,9 @@ class ClusterRouter:
         # retry_after and they re-arrive in lockstep, re-saturating it.
         self._shed_streak = 0
         self._last_retry_ms = 0
-        # per-replica consecutive silent-signal polls of network peers
-        # (the fabric's, Queue 1 item 14): empty while every replica is
-        # in process
+        # per-replica consecutive silent-signal polls: a network peer
+        # whose SignalSnapshot poll fails is scored worst-rank; past
+        # SILENT_SIGNALS_LIMIT it is marked failed
         self._silent: dict[str, int] = {}
 
     # -- topology --------------------------------------------------------
@@ -237,9 +242,19 @@ class ClusterRouter:
             return (1 << 20, 0.0, 0.0)
         ctrl = getattr(rep.backend, "qos_controller", None)
         if ctrl is not None:
-            # (the JAX router catches a network peer's failed poll here
-            # and scores it worst-rank: the fabric, Queue 1 item 14)
-            snap = ctrl.signals(max_age_s=self.max_signal_age_s)
+            try:
+                snap = ctrl.signals(max_age_s=self.max_signal_age_s)
+            except Exception as e:        # noqa: BLE001 — see guard below
+                from quoracle_tpu_torch.serving.fabric.wire import (
+                    TransportError,
+                )
+                if not isinstance(e, TransportError):
+                    raise
+                # silent peer: worst-rank now, marked failed after a
+                # bounded silence streak; never crash or stall the front
+                # door on a partitioned link
+                self._note_silent(rep, str(e))
+                return (1 << 20, 0.0, 0.0)
             with self._lock:
                 self._silent.pop(rep.replica_id, None)
             ROUTER_SIGNAL_AGE_MS.observe(snap.age_s(now) * 1000,
@@ -255,6 +270,20 @@ class ClusterRouter:
         except Exception:                 # noqa: BLE001 — best-effort
             pass
         return (depth, 0.0, -1.0)
+
+    def _note_silent(self, rep, error: str) -> None:
+        with self._lock:
+            streak = self._silent.get(rep.replica_id, 0) + 1
+            self._silent[rep.replica_id] = streak
+        if streak >= SILENT_SIGNALS_LIMIT:
+            FLIGHT.record("fabric_peer_dead", peer=rep.replica_id,
+                          role=getattr(rep, "role", "?"),
+                          phase="signals",
+                          silent_polls=streak, error=error[:160])
+            self.mark_failed(rep.replica_id,
+                             f"signals silent x{streak}: {error[:120]}")
+            if hasattr(rep, "alive"):
+                rep.alive = False
 
     def place(self, role: str, session_id: Optional[str] = None,
               exclude: tuple = ()):
@@ -348,7 +377,8 @@ class ClusterRouter:
         """Whole-fleet capacity in the units the fleet simulator's
         ``CapacityModel`` speaks: alive serving-tier replica
         count and their summed continuous-batcher decode rows (the
-        simulator, ``sim/``, is ROADMAP Queue 1 item 14). Best-effort:
+        simulator, ``sim/``: a ``sim_trace`` boot replay sizes its
+        modeled fleet from this). Best-effort:
         an unreachable backend contributes the scheduler default (8 rows)."""
         decode = prefill = slots = 0
         for rep in self.replicas():

@@ -43,10 +43,14 @@ Endpoints (reference routes at lib/quoracle_web/router.ex:22-32):
                             catalog, recent fired faults, the last
                             scenario's invariant verdicts, the fault and
                             invariant counters (chaos/faults.py)
-  GET  /api/sim, /api/train
-                            501 in the port: the fleet simulator and the
-                            training capture store are not ported (the
-                            body names the ROADMAP item)
+  GET  /api/sim             fleet simulator: loaded trace stats, the
+                            last replay's summary (ledger digest,
+                            outcomes, tier census, virtual goodput),
+                            the last gate report, the sim counters
+                            (sim/)
+  GET  /api/train           501 in the port: the training capture store
+                            is not ported (the body names the ROADMAP
+                            item)
   GET  /api/costs           chip-economics panel: nominal
                             Decimal billing rows beside the measured
                             chip-second ledgers (per-stage/tenant/class
@@ -123,7 +127,6 @@ API_CALL_TIMEOUT_S = 60.0
 # The API routes whose modules the port has not got, with the ROADMAP
 # Queue 1 item that ports each.
 NOT_PORTED = {
-    "/api/sim": "ROADMAP Queue 1 item 14 (sim/)",
     "/api/train": "ROADMAP Queue 1 item 11 (training capture)",
 }
 
@@ -539,6 +542,24 @@ class DashboardServer:
         }
         return payload
 
+    def sim_payload(self) -> dict:
+        """GET /api/sim: the fleet simulator: loaded trace stats, the
+        last replay's summary (ledger digest, outcome counts, tier
+        census, virtual goodput), the last gate report's invariant
+        verdicts, and the sim counter series. ``enabled`` False until a
+        trace is loaded or replayed."""
+        from quoracle_tpu_torch.infra.telemetry import (
+            SIM_EVENTS_TOTAL, SIM_GATE_FAILURES, SIM_REPLAYS_TOTAL,
+        )
+        from quoracle_tpu_torch.sim.replay import SIM
+        payload = SIM.status()
+        payload["counters"] = {
+            "events": SIM_EVENTS_TOTAL._snapshot(),
+            "replays": SIM_REPLAYS_TOTAL._snapshot(),
+            "gate_failures": SIM_GATE_FAILURES._snapshot(),
+        }
+        return payload
+
     def chaos_payload(self) -> dict:
         """GET /api/chaos: the chaos plane — armed plan, injection-point
         catalog, recent fired faults, the last scenario report's
@@ -840,7 +861,7 @@ class _Handler(BaseHTTPRequestHandler):
                     d.qos_payload(), d.models_payload(),
                     d.kv_payload(), d.chaos_payload(),
                     d.fleet_payload(), d.timeline_payload(),
-                    None, d.profile_payload(),
+                    d.sim_payload(), d.profile_payload(),
                     not_ported={path.rsplit("/", 1)[1]: item
                                 for path, item in NOT_PORTED.items()}))
             elif parsed.path == "/settings":
@@ -883,6 +904,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json(d.fabric_payload())
             elif parsed.path == "/api/chaos":
                 self._send_json(d.chaos_payload())
+            elif parsed.path == "/api/sim":
+                self._send_json(d.sim_payload())
             elif parsed.path in NOT_PORTED:
                 self._send_json({"error": "not ported",
                                  "route": parsed.path,

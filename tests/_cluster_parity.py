@@ -1,6 +1,7 @@
 """Shared set-up of the multi-replica parity tests
-(tests/test_torch_{chaos_faults,cluster,fleet,chaos}.py): each package's
-serving plane over the same fp32 tiny weights (tests/_torch_parity.py).
+(tests/test_torch_{chaos_faults,cluster,fleet,chaos,fabric,fabric_obs,
+sim}.py): each package's serving plane over the same fp32 tiny weights
+(tests/_torch_parity.py).
 
 The JAX planes build their replicas with ``TPUBackend(pool, ...)``, which
 draws random weights per package. :func:`jax_shared_backends` swaps the
@@ -8,6 +9,8 @@ JAX ``TPUBackend`` that ``serving/cluster.py`` and the chaos scenarios
 reach for a subclass that hands it engines over the shared weights; the
 port's planes take the same engines through ``engine_factory``. Both
 factories pin the unified ragged tier, the tier the card serves.
+:func:`build_peer` and :func:`remote` do the same for the cross-host
+fabric's peers, joined to a front door over ``LoopbackTransport``.
 """
 
 import contextlib
@@ -18,6 +21,7 @@ from _torch_parity import both_configs, shared_params
 from quoracle_tpu.chaos import faults as jfaults
 from quoracle_tpu.chaos import invariants as jinv
 from quoracle_tpu.chaos import scenarios as jscen
+from quoracle_tpu.infra import fleetobs as jfleetobs
 from quoracle_tpu.models import generate as jgen
 from quoracle_tpu.models import runtime as jrt
 from quoracle_tpu.models import tokenizer as jtok
@@ -26,9 +30,13 @@ from quoracle_tpu.serving import cluster as jcl
 from quoracle_tpu.serving import fleet as jfl
 from quoracle_tpu.serving import handoff as jho
 from quoracle_tpu.serving import router as jro
+from quoracle_tpu.serving.fabric import frontdoor as jdoor
+from quoracle_tpu.serving.fabric import peer as jpeer
+from quoracle_tpu.serving.fabric import transport as jtr
 from quoracle_tpu_torch.chaos import faults as tfaults
 from quoracle_tpu_torch.chaos import invariants as tinv
 from quoracle_tpu_torch.chaos import scenarios as tscen
+from quoracle_tpu_torch.infra import fleetobs as tfleetobs
 from quoracle_tpu_torch.infra import locks as tlocks
 from quoracle_tpu_torch.models import generate as tgen
 from quoracle_tpu_torch.models import runtime as trt
@@ -38,6 +46,9 @@ from quoracle_tpu_torch.serving import cluster as tcl
 from quoracle_tpu_torch.serving import fleet as tfl
 from quoracle_tpu_torch.serving import handoff as tho
 from quoracle_tpu_torch.serving import router as tro
+from quoracle_tpu_torch.serving.fabric import frontdoor as tdoor
+from quoracle_tpu_torch.serving.fabric import peer as tpeer
+from quoracle_tpu_torch.serving.fabric import transport as ttr
 
 MEMBER = "xla:tiny"
 KW = dict(max_seq=512, prompt_buckets=(32, 64, 128, 256))
@@ -71,10 +82,12 @@ def port_engine(spec=MEMBER, quantize_weights=False, quantize_kv=False):
 
 JAX = types.SimpleNamespace(
     name="jax", rt=jrt, cl=jcl, fl=jfl, ro=jro, ho=jho, adm=jadm,
-    faults=jfaults, inv=jinv, scen=jscen, gen=jgen, engine=jax_engine)
+    faults=jfaults, inv=jinv, scen=jscen, gen=jgen, engine=jax_engine,
+    door=jdoor, peer=jpeer, tr=jtr, fleetobs=jfleetobs)
 PORT = types.SimpleNamespace(
     name="port", rt=trt, cl=tcl, fl=tfl, ro=tro, ho=tho, adm=tadm,
-    faults=tfaults, inv=tinv, scen=tscen, gen=tgen, engine=port_engine)
+    faults=tfaults, inv=tinv, scen=tscen, gen=tgen, engine=port_engine,
+    door=tdoor, peer=tpeer, tr=ttr, fleetobs=tfleetobs)
 SIDES = (JAX, PORT)
 
 
@@ -139,6 +152,40 @@ def port_lockdep():
     finally:
         if not was:
             tlocks.disable()
+
+
+def build_peer(side, **kw):
+    """``FabricPeer.build([MEMBER], ...)`` of ``side`` over the shared
+    weights (the JAX side inside :func:`jax_shared_backends`)."""
+    if side is JAX:
+        with jax_shared_backends():
+            return jpeer.FabricPeer.build([MEMBER], **kw)
+    return tpeer.FabricPeer.build([MEMBER], device="cpu",
+                                  engine_factory=port_engine, **kw)
+
+
+def remote(side, peer, **kw):
+    """A front door's replica of ``peer`` over the loopback fabric."""
+    return side.cl.RemoteReplica(side.tr.LoopbackTransport(
+        peer.handle, peer.replica_id, **kw))
+
+
+@contextlib.contextmanager
+def own_incidents(side):
+    """While open, ``side``'s incident manager notifies only the front
+    doors built inside. A front door another test left open would
+    broadcast this case's incidents over its own links, and each send
+    is a ``fabric.send`` fire of an armed plan: the schedule would then
+    depend on which test files ran before in the process."""
+    inc = side.fleetobs.INCIDENTS
+    with inc._lock:
+        saved, inc._notifiers = inc._notifiers, []
+    try:
+        yield
+    finally:
+        with inc._lock:
+            inc._notifiers = saved + [fn for fn in inc._notifiers
+                                      if fn not in saved]
 
 
 def req(side, msgs, sid=None, cj=False, max_tokens=20, priority=None,

@@ -1,8 +1,9 @@
 """The port's chaos plane (chaos/) against the JAX package's, on the CPU.
 
-The cases of tests/test_chaos.py but ``fabric_partition`` (the cross-host
-fabric, ROADMAP Queue 1 item 14) and its two ``INJECTION_POINTS``
-asserts. Every scenario runs SEEDED through both packages over the same
+The cases of tests/test_chaos.py, ``fabric_partition`` (peer links
+flapping over the loopback fabric) and the fabric's two
+``INJECTION_POINTS`` included. Every scenario runs SEEDED through both
+packages over the same
 fp32 tiny weights (tests/_cluster_parity.py), each asserting its full
 invariant set; the invariant verdicts (name, pass, detail), the fired
 fault schedules and the evidence must be equal across the packages. The
@@ -21,7 +22,8 @@ import pytest
 import torch
 
 from _cluster_parity import (
-    JAX, PORT, both, jax_shared_backends, port_engine, port_lockdep,
+    JAX, PORT, both, jax_shared_backends, own_incidents, port_engine,
+    port_lockdep,
 )
 
 torch.set_num_threads(1)
@@ -124,7 +126,7 @@ def test_plan_json_round_trip_and_unknown_point_rejected(tmp_path):
 def test_flight_events_and_instruments_registered():
     from quoracle_tpu.chaos.scenarios import SCENARIOS as JSCEN
     from quoracle_tpu_torch.chaos.faults import INJECTION_POINTS
-    from quoracle_tpu_torch.chaos.scenarios import NOT_PORTED, SCENARIOS
+    from quoracle_tpu_torch.chaos.scenarios import SCENARIOS
     from quoracle_tpu_torch.infra.flightrec import FLIGHT_EVENTS
     from quoracle_tpu_torch.infra.telemetry import METRICS
     for kind in ("chaos_armed", "chaos_fault", "chaos_scenario_start",
@@ -137,13 +139,14 @@ def test_flight_events_and_instruments_registered():
         assert name in text
     assert set(SCENARIOS) == {"traffic_storm", "kill_mid_handoff",
                               "restart_warm_start", "drift_storm",
-                              "hbm_pressure_churn", "scale_storm"}
-    # the JAX registry less what waits for the fabric
-    assert set(SCENARIOS) | set(NOT_PORTED) == set(JSCEN)
+                              "hbm_pressure_churn", "fabric_partition",
+                              "scale_storm"}
+    # the JAX registry whole, in its order
+    assert list(SCENARIOS) == list(JSCEN)
     assert "pool.member" in INJECTION_POINTS
+    assert "fabric.send" in INJECTION_POINTS
+    assert "fabric.prefixd" in INJECTION_POINTS
     assert "fleet.migrate" in INJECTION_POINTS
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        PORT.scen.run_scenario("fabric_partition", seed=5, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -152,10 +155,10 @@ def test_flight_events_and_instruments_registered():
 
 def _run(side, name: str, seed: int):
     if side is JAX:
-        with jax_shared_backends():
+        with jax_shared_backends(), own_incidents(side):
             report = side.scen.run_scenario(name, seed=seed)
     else:
-        with port_lockdep():
+        with port_lockdep(), own_incidents(side):
             report = side.scen.run_scenario(name, seed=seed, device="cpu",
                                             engine_factory=port_engine)
     detail = {r.name: (r.ok, r.detail) for r in report.invariants}
@@ -217,6 +220,20 @@ def test_scenario_kill_mid_handoff():
     obs = _scenario("kill_mid_handoff", 5, lambda ev: [
         ev["handoff"], ev["dead_replicas"]])
     assert obs[3][0]["replaced"] >= 1 and obs[3][1]
+
+
+def test_scenario_fabric_partition():
+    """Peer links flap (drops and corrupt frames) over the loopback
+    fabric mid-handoff: no silent loss, survivors bit-equal, recovery by
+    retry, envelope re-place or cold failover, all structured; the
+    schedule and the evidence equal the JAX package's."""
+    obs = _scenario("fabric_partition", 5, lambda ev: [
+        ev["retried"], ev["replaced"], ev["cold_failovers"],
+        ev["dead_peers"], ev["survivors"]])
+    assert {t[3] for t in obs[2]} & {"drop", "corrupt"}
+    retried, replaced, cold, _, survivors = obs[3]
+    assert retried >= 1 or replaced >= 1 or cold >= 1
+    assert survivors >= 1
 
 
 def test_scenario_scale_storm():

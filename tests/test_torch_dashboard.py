@@ -7,9 +7,10 @@ three run through both packages over each one's ``Runtime`` and
 of the API, the SSE events, the bearer-token gating, the settings,
 credential and profile surfaces, the trace and Prometheus endpoints, and
 the DOM trees of the server-rendered /logs, /mailbox and /telemetry
-views. The routes whose planes the port has not got (/api/sim,
-/api/train) answer 501 with a body naming their ROADMAP item; the SPA's
-script fetches none of them. /api/chaos, /api/cluster and /api/fleet are
+views. The route whose plane the port has not got (/api/train) answers
+501 with a body naming its ROADMAP item; the SPA's script fetches none of
+them. /api/sim serves the simulator's status board. /api/chaos,
+/api/cluster and /api/fleet are
 served from real planes (a disaggregated cluster of each package over
 the same tiny weights, its fleet controller, a chaos scenario's report)
 and agree with the JAX payloads.
@@ -566,7 +567,7 @@ def test_grove_task_shows_todos_and_costs_in_dom(tmp_path):
             ported = port_page.find("ul", id="not-ported")
             assert ported is not None and {
                 li.attrs["data-plane"] for li in ported.find_all("li")} == {
-                "sim", "train"}
+                "train"}
             jt, pt = ([t.attrs for t in p.find_all("table", cls="metrics")]
                       for p in (jax_page, port_page))
             assert pt == jt
@@ -646,8 +647,8 @@ def test_spa_js_dom_and_api_contract():
 
 # The routes the port answered 501 for before their planes were ported,
 # with the ROADMAP item that ports each; None: ported since (the chaos
-# plane), the route answers 200 with its payload.
-UNPORTED_ROUTES = [("/api/chaos", None), ("/api/sim", "item 14 (sim/)"),
+# plane, the simulator), the route answers 200 with its payload.
+UNPORTED_ROUTES = [("/api/chaos", None), ("/api/sim", None),
                    ("/api/train", "item 11 (training capture)")]
 
 
@@ -662,7 +663,13 @@ def test_unported_routes_answer_501_with_their_item(route, item):
             rest = await http(server.url + "/api/status")
             return got, rest
     (status, body), rest = run(main())
-    if item is None:
+    if item is None and route == "/api/sim":
+        assert status == 200
+        assert set(body) == {"enabled", "trace", "last_replay",
+                             "last_report", "counters"}
+        assert set(body["counters"]) == {"events", "replays",
+                                         "gate_failures"}
+    elif item is None:
         from quoracle_tpu_torch.chaos.faults import INJECTION_POINTS
         assert status == 200 and body["armed"] is False
         assert set(body["points"]) == set(INJECTION_POINTS)

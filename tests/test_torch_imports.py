@@ -113,7 +113,18 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.chaos.scenarios",
              "quoracle_tpu_torch.serving.router",
              "quoracle_tpu_torch.serving.cluster",
-             "quoracle_tpu_torch.serving.fleet"):
+             "quoracle_tpu_torch.serving.fleet",
+             "quoracle_tpu_torch.serving.fabric",
+             "quoracle_tpu_torch.serving.fabric.wire",
+             "quoracle_tpu_torch.serving.fabric.transport",
+             "quoracle_tpu_torch.serving.fabric.prefixd",
+             "quoracle_tpu_torch.serving.fabric.peer",
+             "quoracle_tpu_torch.serving.fabric.frontdoor",
+             "quoracle_tpu_torch.sim",
+             "quoracle_tpu_torch.sim.workload",
+             "quoracle_tpu_torch.sim.replay",
+             "quoracle_tpu_torch.sim.gate",
+             "quoracle_tpu_torch.sim.calibrate"):
     assert name in names, name
 from quoracle_tpu_torch.governance import grove, skills
 groves = grove.list_groves(os.path.join({repo!r}, "groves"))
@@ -146,3 +157,35 @@ def test_port_and_chip_smoke_import_no_jax():
     n, bad = out.stdout.split(" ", 1)
     assert int(n) >= 110, out.stdout          # every module was imported
     assert bad.strip() == "[]", out.stdout
+
+
+BF16_PROBE = """
+import sys
+sys.path.insert(0, {repo!r})
+import torch
+from quoracle_tpu_torch.serving.fabric import wire
+from quoracle_tpu_torch.serving.handoff import HandoffEnvelope
+from quoracle_tpu_torch.serving.kvtier import _HostSession
+g = torch.Generator().manual_seed(0)
+k = torch.randn((2, 1, 16, 2, 8), generator=g).to(torch.bfloat16)
+env = HandoffEnvelope("s", "xla:tiny", "sig", _HostSession([1, 2], 0, k, -k))
+out = wire.decode_envelope(wire.encode_envelope(env), expect_signature="sig")
+assert out.entry.k.dtype == torch.bfloat16
+assert torch.equal(out.entry.k.view(torch.int16), k.view(torch.int16))
+assert torch.equal(out.entry.v.view(torch.int16), (-k).view(torch.int16))
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("ml_dtypes",
+                                                           "jax")))
+"""
+
+
+def test_bf16_envelope_round_trips_without_ml_dtypes():
+    """The wire codec carries a bf16 envelope as raw bytes with its dtype
+    name: encoding and decoding one loads neither ``ml_dtypes`` (which
+    the JAX codec resolves bf16 through, and the card's machine lacks)
+    nor JAX."""
+    out = subprocess.run(
+        [sys.executable, "-c", BF16_PROBE.format(repo=REPO)],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+        env={**os.environ, "PYTHONPATH": ""})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

@@ -324,15 +324,39 @@ class StepClock:
         return self.monotonic()
 
 
+@contextlib.contextmanager
+def fresh_budget_planes(pkg):
+    """Each package's error budgets, incident counts and the two planes a
+    burn trip passes through (cost accounting, which scores the row, and
+    introspect, which opens its incident) as a new process has them,
+    restored after. The trip's flight records depend on them: on how many
+    incidents of its kind and key the process opened before, and on
+    whether an earlier test in the same worker left a plane off."""
+    was = (pkg.co.enabled(), pkg.intro.enabled())
+    pkg.co.reset()
+    pkg.co.enable()
+    pkg.intro.enable()
+    inc = pkg.fleet.INCIDENTS
+    with inc._lock:
+        inc._counts.clear()
+    try:
+        yield
+    finally:
+        for on, plane in zip(was, (pkg.co, pkg.intro)):
+            if not on:
+                plane.disable()
+
+
 def test_serving_counters_flight_records_and_padding_equal_jax(monkeypatch):
     out = {}
     for pkg in PKGS:
-        monkeypatch.setattr(pkg.gen, "time", StepClock())
-        before = _family_state(pkg)
-        pkg.fr.FLIGHT.record("marker", m="serving")
-        res = _serving_script(pkg)
-        out[pkg.name] = (res, _delta(before, _family_state(pkg)),
-                         _flights_after(pkg, "serving"))
+        with fresh_budget_planes(pkg):
+            monkeypatch.setattr(pkg.gen, "time", StepClock())
+            before = _family_state(pkg)
+            pkg.fr.FLIGHT.record("marker", m="serving")
+            res = _serving_script(pkg)
+            out[pkg.name] = (res, _delta(before, _family_state(pkg)),
+                             _flights_after(pkg, "serving"))
     (jres, jdelta, jfl), (tres, tdelta, tfl) = out["jax"], out["port"]
     assert tres == jres
     assert tdelta == jdelta

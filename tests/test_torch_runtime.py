@@ -155,8 +155,9 @@ def test_cluster_and_serving_flags_require_a_real_backend(kw):
 
 
 # Every field the port refused before its module was ported, with the
-# ROADMAP item that ports it; None: ported since (the multi-replica plane
-# and the chaos plane), the field is taken.
+# ROADMAP item that ports it; None: ported since (the multi-replica plane,
+# the chaos plane, the cross-host fabric and the simulator), the field is
+# taken.
 NOT_PORTED = [
     ("tp", 2, "item 12"), ("coordinator_address", "h:1", "item 12"),
     ("num_processes", 2, "item 12"), ("process_id", 0, "item 12"),
@@ -165,12 +166,12 @@ NOT_PORTED = [
     ("fleet_min", 2, None),
     ("fleet_max", 2, None),
     ("fleet_tick_s", 1.0, None),
-    ("fabric_peers", ["h:1"], "item 14"),
-    ("fabric_listen", "h:1", "item 14"),
-    ("prefixd", "h:1", "item 14"),
+    ("fabric_peers", ["h:1"], None),
+    ("fabric_listen", "h:1", None),
+    ("prefixd", "h:1", None),
     ("chaos_plan", "plan.json", None),
-    ("sim_trace", "trace.json", "item 14"),
-    ("sim_seed", 3, "item 14"),
+    ("sim_trace", "trace.json", None),
+    ("sim_seed", 3, None),
     ("capture_dir", "capture", "item 11"),
     ("capture_mb", 64.0, "item 11"),
     ("image_backend", "diffusion", "item 10"),
@@ -187,7 +188,8 @@ def test_each_left_out_field_raises_and_names_its_item(field, value, item,
     runtime builds, on the CPU here: a ClusterPlane for ``replicas`` and
     ``disaggregate`` (the fleet fields with a plane under them), a
     FleetController ticked by the ``fleet-ticker`` thread for
-    ``fleet_max``, an armed plan for ``chaos_plan``."""
+    ``fleet_max``, an armed plan for ``chaos_plan``, and the fabric and
+    simulator fields as ``_fabric_or_sim_field`` checks them."""
     if item is not None:
         cfg = PORT.rt.RuntimeConfig(backend="torch", device="cpu",
                                     model_pool=["xla:tiny"],
@@ -199,6 +201,9 @@ def test_each_left_out_field_raises_and_names_its_item(field, value, item,
         with pytest.raises(NotImplementedError, match=item):
             PORT.rt.Runtime(PORT.rt.RuntimeConfig(**{field: value}),
                             backend=PORT.runtime.MockBackend())
+        return
+    if field.startswith(("fabric", "prefixd", "sim")):
+        _fabric_or_sim_field(field, tmp_path)
         return
     from quoracle_tpu_torch.chaos.faults import CHAOS
     kw = {field: value}
@@ -236,6 +241,81 @@ def test_each_left_out_field_raises_and_names_its_item(field, value, item,
         rt.close()
         rt.backend.close()
     assert rt._fleet_thread is None
+
+
+def _fabric_or_sim_field(field: str, tmp_path) -> None:
+    """A fabric or simulator field on a CPU runtime, over real sockets on
+    127.0.0.1 port 0: ``fabric_listen`` serves the backend as a peer
+    (tiered, answering its hello), ``fabric_peers`` makes a front door
+    over such a peer, ``prefixd`` attaches a client of a running prefix
+    service to every engine tier, ``sim_trace`` and ``sim_seed`` replay
+    on the ``sim-replay`` thread. Everything closes in ``finally``."""
+    from quoracle_tpu_torch.serving.fabric import wire
+    from quoracle_tpu_torch.serving.fabric.prefixd import PrefixService
+    from quoracle_tpu_torch.serving.fabric.transport import (
+        PeerServer, TcpTransport,
+    )
+    from quoracle_tpu_torch.sim.workload import bench_trace
+    cfg = dict(backend="torch", device="cpu", model_pool=["xla:tiny"])
+    server = None
+    try:
+        if field == "fabric_peers":
+            def hello(msg_type, payload):
+                return wire.MSG_OK, wire.encode_json(
+                    {"replica_id": "unified-0", "role": "unified",
+                     "pool": ["xla:tiny"]})
+            server = PeerServer(hello, host="127.0.0.1", port=0,
+                                name=f"test-runtime-{field}")
+            cfg = dict(backend="torch",
+                       fabric_peers=[f"unified@{server.addr}"])
+        elif field == "fabric_listen":
+            cfg["fabric_listen"] = "unified@127.0.0.1:0"
+        elif field == "prefixd":
+            server = PeerServer(PrefixService(str(tmp_path)).handle,
+                                host="127.0.0.1", port=0,
+                                name=f"test-runtime-{field}")
+            cfg["prefixd"] = server.addr
+        elif field == "sim_trace":
+            trace = tmp_path / "trace.json"
+            trace.write_text(bench_trace("interactive", 4, seed=1).to_json())
+            cfg = {"sim_trace": str(trace)}
+        else:
+            cfg = {"sim_seed": 3}
+        rt = PORT.rt.Runtime(PORT.rt.RuntimeConfig(**cfg))
+        try:
+            if field == "fabric_peers":
+                assert type(rt.backend).__name__ == "FabricPlane"
+                assert rt.default_pool() == ["xla:tiny"]
+            elif field == "fabric_listen":
+                peer = rt._fabric_peer
+                t = TcpTransport(peer._server.host, peer._server.port,
+                                 retries=0, io_timeout=30.0)
+                try:
+                    _, payload = t.request(wire.MSG_HELLO, b"{}")
+                finally:
+                    t.close()
+                hello = wire.decode_json(payload)
+                assert (hello["role"], hello["pool"]) == ("unified",
+                                                          ["xla:tiny"])
+                assert rt.backend.engines["xla:tiny"].sessions.tier
+            elif field == "prefixd":
+                eng = rt.backend.engines["xla:tiny"]
+                client = eng.sessions.tier.prefixd
+                assert client.signature == eng.kv_signature()
+            else:
+                assert rt._sim_thread.name == "sim-replay"
+                rt._sim_thread.join(timeout=60)
+                assert not rt._sim_thread.is_alive()
+        finally:
+            rt.close()
+            getattr(rt.backend, "close", lambda: None)()
+        if field == "fabric_listen":
+            assert rt._fabric_peer._server is None
+        if field.startswith("sim"):
+            assert rt._sim_thread is None
+    finally:
+        if server is not None:
+            server.close()
 
 
 def test_list_groves_with_a_groves_setting_raises():
