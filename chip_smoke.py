@@ -352,6 +352,35 @@ never prints its last line):
              process) are zeroed before (a) and read after (b); the
              first bf16 ragged chunk and decode ticks and flash call are
              then held against their twins and timed
+  tok        checkpoint tokenizers beyond byte-level BPE: the native BPE
+             (quoracle_tpu_torch/native/bpe.cpp, built with g++ into
+             build/native/) must load on this host, its ids over the
+             repository's text (TOK_TEXT_CHARS) equal the Python path's,
+             both timed in characters a second; the decide pool's
+             mistral-7b and gemma-7b (full width, DEPTH_CUT layers)
+             exported with SentencePiece-form tokenizers written here as
+             plain JSON (sp_tokenizer: byte fallback over the port's
+             merges; Mistral's Prepend + Replace normalizer, [INST]
+             template and Strip decoder; Gemma's Replace normalizer and
+             <start_of_turn> template) to a temporary directory outside
+             the checkout, registered, each form's HFTokenizer timed over
+             TOK_FORM_CHARS and its HFAutoTokenizer's ids over the seeded
+             corpus (tok_corpus) held by sha256 against
+             tests/torch_tok_golden.json (written from the JAX package
+             by tests/test_torch_tokenizer_forms.py), every id decoded
+             and timed (256,000 for gemma); a TorchBackend over
+             llama-3-8b (an engine of its own over the pool's weights and
+             grammar tables, its native tokenizer) and the two
+             registered names (loaded from their directories), members
+             served in turn, each grammar table built in turn and timed;
+             one decide of DECIDE_MAX_TOKENS new tokens a member, one
+             round (TOK_REFINEMENT_ROUNDS), and the agent's next step:
+             every member answers both, and the next step resumes on
+             every member without a window (a windowed one resumes only
+             on a clean extension); the embedder on the system prompt.
+             The launch counts are zeroed before the decides and read
+             after the embedder: ragged_fwd and flash_fwd must have run;
+             their first kept inputs are then held against the twins
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -460,7 +489,7 @@ never prints its last line):
              one tokenizer share the JSON grammar's host table
 
 in that order but for batch, continuous, obs, agent, runtime, web,
-cluster, fabric and spec, which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
+cluster, fabric, tok and spec, which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
 line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
@@ -475,8 +504,8 @@ decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
 ``--only calib``, ``--only batch``, ``--only continuous``, ``--only
 spec``, ``--only tiers``, ``--only obs``, ``--only agent``, ``--only
-runtime``, ``--only web``, ``--only cluster`` and ``--only fabric`` run
-that phase after
+runtime``, ``--only web``, ``--only cluster``, ``--only fabric`` and
+``--only tok`` run that phase after
 the build, over weights drawn here (no last line); ``--only reference`` runs
 the reference phase after the build (no last line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
 the build (no last line). Every
@@ -489,10 +518,12 @@ import asyncio
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import io
 import itertools
 import json
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -6611,6 +6642,444 @@ def phase_ckpt(torch, R, kernels, dfa, backend, serve_report) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# tok: checkpoint tokenizers of the SentencePiece form
+# ---------------------------------------------------------------------------
+
+# the two SentencePiece-form files the tok phase writes: each form's
+# specials (as the shipped files number them), its added tokens beyond
+# them, the tokenizer class and the model entry its checkpoint carries
+SP_FORMS = {
+    "mistral": {"specials": ("<unk>", "<s>", "</s>", "[INST]", "[/INST]"),
+                "added": ("<unk>", "<s>", "</s>", "[INST]", "[/INST]"),
+                "class": "LlamaTokenizer", "model": "xla:mistral-7b",
+                "bos": "<s>", "eos": "</s>", "pad": None},
+    "gemma": {"specials": ("<pad>", "<eos>", "<bos>", "<unk>",
+                           "<start_of_turn>", "<end_of_turn>"),
+              "added": ("<pad>", "<eos>", "<bos>", "<unk>",
+                        "<start_of_turn>", "<end_of_turn>"),
+              "class": "GemmaTokenizer", "model": "xla:gemma-7b",
+              "bos": "<bos>", "eos": "<eos>", "pad": "<pad>"},
+}
+# the chat templates: the system message joins the first user turn
+SP_TEMPLATES = {
+    "mistral": (
+        "{{ bos_token }}{% set ns = namespace(sys='') %}"
+        "{% for m in messages %}{% if m['role'] == 'system' %}"
+        "{% set ns.sys = m['content'] + '\\n\\n' %}"
+        "{% elif m['role'] == 'user' %}"
+        "{{ '[INST] ' + ns.sys + m['content'] + ' [/INST]' }}"
+        "{% set ns.sys = '' %}"
+        "{% else %}{{ m['content'] + eos_token }}{% endif %}{% endfor %}"),
+    "gemma": (
+        "{{ bos_token }}{% set ns = namespace(sys='') %}"
+        "{% for m in messages %}{% if m['role'] == 'system' %}"
+        "{% set ns.sys = m['content'] + '\\n\\n' %}{% else %}"
+        "{% set role = 'model' if m['role'] == 'assistant' "
+        "else m['role'] %}"
+        "{{ '<start_of_turn>' + role + '\\n' + ns.sys "
+        "+ m['content'] | trim + '<end_of_turn>\\n' }}"
+        "{% set ns.sys = '' %}{% endif %}{% endfor %}"
+        "{% if add_generation_prompt %}{{ '<start_of_turn>model\\n' }}"
+        "{% endif %}"),
+}
+SP_SPACE = "▁"
+
+
+def sp_tokenizer(form: str, vocab_cap: int) -> tuple:
+    """The port's committed byte-level merges as a SentencePiece-form
+    ``tokenizer.json`` and ``tokenizer_config.json`` (plain JSON: the
+    card's machine has no ``tokenizers``): the form's specials, the 256
+    ``<0xXX>`` byte tokens and every character of the pieces as ordinary
+    vocab entries, then each merge whose two parts and result are valid
+    UTF-8 (a space as U+2581) and already in the vocab, at most
+    ``vocab_cap`` entries. BPE with byte_fallback and fuse_unk; mistral:
+    normalizer Prepend(U+2581) + Replace(" ", U+2581), decoder Replace,
+    ByteFallback, Fuse, Strip(" ", 1, 0); gemma: Replace alone, no Strip.
+    Returns (tokenizer.json, tokenizer_config.json)."""
+    from quoracle_tpu_torch.native.tokenizer import (
+        FIRST_MERGE_ID, _python_tables,
+    )
+    f = SP_FORMS[form]
+    ranks, expansions = _python_tables()
+
+    def piece(nid: int):
+        try:
+            return expansions[nid].decode("utf-8").replace(" ", SP_SPACE)
+        except UnicodeDecodeError:
+            return None
+
+    vocab = {s: i for i, s in enumerate(f["specials"])}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    merges = sorted(ranks, key=ranks.get)
+    texts = [piece(FIRST_MERGE_ID + r) for r in range(len(merges))]
+    for ch in [SP_SPACE] + [chr(c) for c in range(0x21, 0x7F)] + [
+            c for t in texts if t for c in t]:
+        vocab.setdefault(ch, len(vocab))
+    out_merges = []
+    for (a, b), new in zip(merges, texts):
+        if len(vocab) >= vocab_cap:
+            break
+        pa, pb = piece(a), piece(b)
+        if new is None or pa not in vocab or pb not in vocab:
+            continue
+        out_merges.append([pa, pb])
+        vocab.setdefault(new, len(vocab))
+    normalizer = {"type": "Replace", "pattern": {"String": " "},
+                  "content": SP_SPACE}
+    decoders = [{"type": "Replace", "pattern": {"String": SP_SPACE},
+                 "content": " "},
+                {"type": "ByteFallback"}, {"type": "Fuse"}]
+    if form == "mistral":
+        normalizer = {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": SP_SPACE}, normalizer]}
+        decoders.append({"type": "Strip", "content": " ", "start": 1,
+                         "stop": 0})
+    tj = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": vocab[s], "content": s, "single_word": False,
+             "lstrip": False, "rstrip": False, "normalized": False,
+             "special": True} for s in f["added"]],
+        "normalizer": normalizer, "pre_tokenizer": None,
+        "post_processor": None,
+        "decoder": {"type": "Sequence", "decoders": decoders},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": out_merges}}
+    conf = {"tokenizer_class": f["class"], "bos_token": f["bos"],
+            "eos_token": f["eos"], "unk_token": "<unk>",
+            "add_bos_token": True, "add_eos_token": False,
+            "chat_template": SP_TEMPLATES[form],
+            "model_max_length": 1 << 20}
+    if f["pad"]:
+        conf["pad_token"] = f["pad"]
+    extra = [s for s in f["added"] if s not in (f["bos"], f["eos"],
+                                                 f["pad"], "<unk>")]
+    if extra:
+        conf["additional_special_tokens"] = extra
+    return tj, conf
+
+
+def write_sp_tokenizer(out_dir: str, form: str, vocab_cap: int) -> dict:
+    """Write ``sp_tokenizer``'s two files into ``out_dir``; returns
+    {special: id}."""
+    tj, conf = sp_tokenizer(form, vocab_cap)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(tj, f, ensure_ascii=False)
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(conf, f, indent=1, ensure_ascii=False)
+    return {s: tj["model"]["vocab"][s] for s in SP_FORMS[form]["specials"]}
+
+
+# the seeded corpus whose ids the golden file's digests cover
+TOK_ATOMS = (
+    "hello", " world", "I'm", "don't", "we've", "they'll", "She'd", " 's",
+    "IT'S", "x²", "½ cup", "٣٣", "1234567", "漢字かな", "😀👍🏽", "🙂",
+    "   ", "\t\t", "\n\n", " \n ", "\r\n", "café", "naïve", "Ωmega",
+    "　", "\xa0", "foo_bar", '{"action": "wait"}', "...", "?!", "   end",
+    "ß", "\x00", "\x7f", "<s>", "</s>", "[INST]", " [/INST]", "<unk>",
+    "<start_of_turn>", "<end_of_turn>\n", "<bos>", "▁x", "<0x41>",
+    " the consensus", "def f(x):\n    return x", "\U0001F600")
+TOK_CORPUS = (0, 300)       # (seed, texts)
+
+
+def tok_corpus(seed: int = TOK_CORPUS[0], n: int = TOK_CORPUS[1]) -> list:
+    rng = random.Random(seed)
+    return ["".join(rng.choice(TOK_ATOMS)
+                    for _ in range(rng.randint(1, 12))) for _ in range(n)]
+
+
+def ids_digest(id_lists) -> str:
+    """sha256 of the ids, one JSON list a text."""
+    h = hashlib.sha256()
+    for ids in id_lists:
+        h.update(json.dumps(list(ids)).encode())
+        h.update(b"\n")
+    return h.hexdigest()
+
+
+TOK_GOLDEN = os.path.join(REPO, "tests", "torch_tok_golden.json")
+
+
+TOK_TEXT_CHARS = 400_000    # the repository text the native BPE encodes
+TOK_FORM_CHARS = 100_000    # ... and each form's HFTokenizer
+# the tok phase's decides take one round each (the second resumes): three
+# members served in turn, 256 new tokens a member, for the time limit
+TOK_REFINEMENT_ROUNDS = 0
+
+
+def repo_text(limit: int = TOK_TEXT_CHARS) -> str:
+    """The repository's own text: the port's sources and the documents,
+    in a fixed order, at most ``limit`` characters."""
+    root = os.path.join(REPO, "quoracle_tpu_torch")
+    paths = sorted(os.path.join(d, f) for d, _, fs in os.walk(root)
+                   for f in fs if f.endswith((".py", ".cu", ".cuh", ".cpp")))
+    parts, n = [], 0
+    for p in paths + [os.path.join(REPO, f) for f in ("README.md",
+                                                      "ROADMAP.md",
+                                                      "PERF.md")]:
+        if n >= limit or not os.path.isfile(p):
+            continue
+        with open(p, encoding="utf-8", errors="replace") as f:
+            parts.append(f.read())
+        n += len(parts[-1])
+    return "".join(parts)[:limit]
+
+
+def chars_per_s(fn, text: str) -> tuple:
+    """(ids, characters a second) of one ``fn(text)`` on the host."""
+    t0 = time.perf_counter()
+    ids = fn(text)
+    return ids, len(text) / (time.perf_counter() - t0)
+
+
+def sp_hf_config(cfg, form: str, ids: dict) -> dict:
+    """config.json of an HF export of the decide pool's ``form`` member
+    (mistral-7b or gemma-7b at DEPTH_CUT layers), with the form's special
+    ids."""
+    f = SP_FORMS[form]
+    hf = {"vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+          "intermediate_size": cfg.ffn_dim,
+          "num_hidden_layers": cfg.n_layers,
+          "num_attention_heads": cfg.n_heads,
+          "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+          "max_position_embeddings": cfg.context_window,
+          "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+          "bos_token_id": ids[f["bos"]], "eos_token_id": ids[f["eos"]],
+          "pad_token_id": ids[f["pad"] or f["eos"]],
+          "torch_dtype": "bfloat16"}
+    if form == "mistral":
+        hf.update(architectures=["MistralForCausalLM"], model_type="mistral",
+                  hidden_act="silu", tie_word_embeddings=False,
+                  sliding_window=cfg.sliding_window)
+    else:
+        hf.update(architectures=["GemmaForCausalLM"], model_type="gemma",
+                  hidden_act="gelu_pytorch_tanh", tie_word_embeddings=True)
+    return hf
+
+
+def phase_tok(torch, R, F, P, kernels, pool_backend) -> dict:
+    """Checkpoint tokenizers beyond byte-level BPE on the card's host and
+    the card: (1) the native BPE must be built and loaded; its ids over
+    the repository's text equal the Python path's, each timed in
+    characters a second; (2) the decide pool's mistral-7b and gemma-7b
+    (full width, DEPTH_CUT layers) exported with the SentencePiece-form
+    tokenizer files of ``sp_tokenizer`` to a temporary directory outside
+    the checkout, registered, and their tokenizers' ids over the seeded
+    corpus held by sha256 against the golden file the CPU tests write
+    from the JAX package; (3) a TorchBackend over llama-3-8b (an engine
+    of its own over the pool's weights and grammar tables) and the two
+    registered names (loaded from their directories), members served in
+    turn, each member's grammar table built in turn and timed; one
+    decide of DECIDE_MAX_TOKENS new tokens a member (one round,
+    TOK_REFINEMENT_ROUNDS) and the agent's next step, which must resume
+    on every member without a window; then the embedder on the system
+    prompt. The launch counts are zeroed before the decides and read
+    after the embedder: ragged_fwd and flash_fwd must have run; their
+    first kept inputs are then held against the twins."""
+    import numpy as np
+
+    from quoracle_tpu_torch.consensus import engine as CE
+    from quoracle_tpu_torch.models import loader
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.tokenizer import (
+        HFTokenizer, get_tokenizer,
+    )
+    from quoracle_tpu_torch.native import so_path
+    from quoracle_tpu_torch.native import tokenizer as native
+    t_phase = time.monotonic()
+    report = {"phase": "tok", "forms": {}}
+    if not native.native_available():
+        raise AssertionError("the native BPE did not build on this host")
+    text = repo_text()
+    nat = native.NativeBPETokenizer.for_vocab(
+        pool_backend.engines[MODEL].cfg.vocab_size)
+    ids_n, rate_n = chars_per_s(nat.encode, text)
+    ids_p, rate_p = chars_per_s(
+        lambda s: native._py_encode(s, nat.n_merges), text)
+    report["bpe"] = {"chars": len(text), "ids": len(ids_n),
+                     "native_chars_per_s": rate_n,
+                     "python_chars_per_s": rate_p,
+                     "native_so": os.path.relpath(
+                         so_path(native.SRC_PATH), REPO)}
+    if ids_n != ids_p:
+        raise AssertionError("native and Python BPE ids differ")
+    with open(TOK_GOLDEN) as f:
+        golden = json.load(f)
+    if golden["corpus"] != list(TOK_CORPUS):
+        raise AssertionError(f"the golden file's corpus is "
+                             f"{golden['corpus']}, not {TOK_CORPUS}")
+    corpus = tok_corpus()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tok_")
+    specs, backend, kept = {}, None, {}
+    orig_flash, orig_ragged = F.flash_attend, P.ragged_attend
+    try:
+        for form in SP_FORMS:
+            src = pool_backend.engines[SP_FORMS[form]["model"]]
+            cfg = src.cfg
+            base = os.path.join(root, f"base-{form}")
+            ids = write_sp_tokenizer(base, form, cfg.vocab_size)
+            with open(os.path.join(base, "config.json"), "w") as f:
+                json.dump(sp_hf_config(cfg, form, ids), f, indent=1)
+            with open(os.path.join(base, "config.json")) as f:
+                back = loader.config_from_hf(json.load(f), cfg.name)
+            wrong = [k for k in CONFIG_FIELDS
+                     if getattr(back, k) != getattr(cfg, k)]
+            if wrong:
+                raise AssertionError(f"{form}: config.json gives back "
+                                     f"other {wrong}")
+            t0 = time.monotonic()
+            out = loader.export_hf_checkpoint(
+                src.params, cfg, os.path.join(root, f"{form}-ckpt"), base)
+            row = {"export_s": time.monotonic() - t0,
+                   "bytes_written": os.path.getsize(
+                       os.path.join(out, "model.safetensors"))}
+            spec = "xla:" + loader.register_hf_checkpoint(
+                out, f"{cfg.name}-{form}-ckpt").name
+            specs[form] = spec
+            t0 = time.monotonic()
+            tok = HFTokenizer(os.path.join(out, "tokenizer.json"))
+            row["tokenizer_load_s"] = time.monotonic() - t0
+            _, row["encode_chars_per_s"] = chars_per_s(
+                tok.encode, text[:TOK_FORM_CHARS])
+            auto = get_tokenizer(spec)
+            digest = ids_digest(auto.encode(t) for t in corpus)
+            want = golden["forms"][form]
+            row.update(vocab_size=auto.vocab_size, sha256=digest,
+                       golden=digest == want["sha256"]
+                       and auto.vocab_size == want["vocab_size"])
+            t0 = time.monotonic()
+            for tid in range(cfg.vocab_size):
+                auto.decode([tid])
+            row["decode_all_ids_s"] = time.monotonic() - t0
+            report["forms"][form] = row
+            if not row["golden"]:
+                emit(report)
+                raise AssertionError(f"{form}: ids differ from the golden "
+                                     f"file's")
+        pool = [MODEL, specs["mistral"], specs["gemma"]]
+        base_llama = pool_backend.engines[MODEL]
+        llama = GenerateEngine(base_llama.cfg, base_llama.params,
+                               base_llama.tokenizer, seed=0,
+                               device=base_llama.device)
+        llama._json_cache = base_llama._json_cache
+        loads = []
+        orig_load = R.loader.load_params
+
+        def timed_load(*a, **kw):
+            t = time.monotonic()
+            model = orig_load(*a, **kw)
+            torch.cuda.synchronize()
+            loads.append(time.monotonic() - t)
+            return model
+        R.loader.load_params = timed_load
+        try:
+            t0 = time.monotonic()
+            backend = R.TorchBackend(pool, device=base_llama.device,
+                                     engines={MODEL: llama},
+                                     embedder=pool_backend.embedder,
+                                     overlap=False)
+            torch.cuda.synchronize()
+            report["init_s"] = time.monotonic() - t0
+        finally:
+            R.loader.load_params = orig_load
+        report["load_s"] = loads
+        kinds = {s: type(backend.engines[s].tokenizer).__name__
+                 for s in pool}
+        if kinds != {MODEL: "NativeBPETokenizer",
+                     specs["mistral"]: "HFAutoTokenizer",
+                     specs["gemma"]: "HFAutoTokenizer"} or not \
+                backend.engines[MODEL].tokenizer.native:
+            raise AssertionError(f"the pool's tokenizers: {kinds}")
+        grammar = {}
+        for spec in pool:           # in turn: threads cost ~3.5x
+            t0 = time.monotonic()
+            backend.engines[spec]._json_table_device((("wait",),))
+            grammar[spec] = time.monotonic() - t0
+        report["grammar_build_s"] = grammar
+
+        def flash_rec(*a, **kw):
+            if "flash_fwd" not in kept:
+                kept["flash_fwd"] = (
+                    [x.clone() if torch.is_tensor(x) else x for x in a],
+                    {n: x.clone() if torch.is_tensor(x) else x
+                     for n, x in kw.items()})
+            return orig_flash(*a, **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        F.flash_attend = flash_rec
+        P.ragged_attend = ragged_recorder(
+            torch, P, kept.setdefault("ragged_fwd", {}), lambda: True)
+        try:
+            outcomes, records = run_decides(
+                R, CE, backend, pool, DECIDE_MAX_TOKENS,
+                max_refinement_rounds=TOK_REFINEMENT_ROUNDS,
+                session_key="agent-tok")
+            t0 = time.monotonic()
+            vecs = backend.embed([wait_only_system_prompt()])
+            torch.cuda.synchronize()
+            report["embed_ms"] = (time.monotonic() - t0) * 1e3
+        finally:
+            F.flash_attend, P.ragged_attend = orig_flash, orig_ragged
+        launches = kernels.launch_counts()
+        decides = [decide_summary(o, r) for o, r in zip(outcomes, records)]
+        resumed = records[1]["cached"][0] if records[1]["cached"] else {}
+        windowed = {s for s in pool
+                    if backend.engines[s].cfg.sliding_window is not None}
+        report.update(pool=pool, decides=decides, launches=launches,
+                      resumed_cached_tokens=resumed,
+                      windowed=sorted(windowed),
+                      embed_norm=float(np.linalg.norm(vecs[0])))
+        checks = {
+            # every member answered both decides (random weights: a
+            # status need not be ok; mistral's Strip decoder drops the
+            # leading space of each id's text, so its grammar lets
+            # spaces into JSON keys, in the JAX package alike)
+            "decides": all(
+                {p.model_spec for p in o.proposals}
+                | {f.model_spec for f in o.failures if f.raw_text}
+                == set(pool) for o in outcomes),
+            # a windowed member resumes only on a clean extension, which
+            # the re-encoded answer under a Prepend normalizer seldom is
+            "resumed": (set(resumed) == set(pool) and all(
+                n > 0 for s, n in resumed.items() if s not in windowed)),
+            "kernels": launches["ragged_fwd"] > 0
+            and launches["flash_fwd"] > 0 and all(
+                launches[n] == 0 for n in ("paged_fwd", "paged_prefill_fwd",
+                                           "ragged_q8_fwd")),
+            "embed": abs(report["embed_norm"] - 1.0) <= 1e-5}
+        report["checks"] = checks
+        if not all(checks.values()):
+            emit(report)
+            raise AssertionError(f"the tok phase failed its checks: "
+                                 f"{[k for k, v in checks.items() if not v]}")
+    finally:
+        F.flash_attend, P.ragged_attend = orig_flash, orig_ragged
+        if backend is not None:
+            backend.close()
+        del backend
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the kept bf16 inputs against the twins (launches not counted)
+    report["ticks"] = {key: ragged_tick_numbers(
+        torch, P, kernels.RAGGED, *kept["ragged_fwd"][key])
+        for key in ("decode", "chunk")}
+    report["flash"] = flash_entry(torch, F, kernels, kept["flash_fwd"],
+                                  launches["flash_fwd"])
+    del kept
+    torch.cuda.empty_cache()
+    report["seconds"] = time.monotonic() - t_phase
+    return report
+
+
 REFERENCE_TIERS = {
     # (int8 weights and pages, engine attributes)
     # the unified kernel (the card's default; forced on the CPU)
@@ -7403,7 +7872,7 @@ def main(argv) -> int:
     only = None
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
               "continuous", "spec", "ckpt", "tiers", "obs", "agent",
-              "runtime", "web", "cluster", "fabric", "reference")
+              "runtime", "web", "cluster", "fabric", "tok", "reference")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -7500,6 +7969,11 @@ def main(argv) -> int:
         emit(phase_fabric(torch, R, F, P, kernels,
                           decide_pool_backend(torch, R, backend)[0]))
         return 0
+    if only == "tok":
+        backend = R.TorchBackend([MODEL], seed=0)
+        emit(phase_tok(torch, R, F, P, kernels,
+                       decide_pool_backend(torch, R, backend)[0]))
+        return 0
     if only == "reference":
         emit(phase_reference(torch, R))
         return 0
@@ -7561,6 +8035,8 @@ def main(argv) -> int:
     emit(cluster_report)
     fabric_report = phase_fabric(torch, R, F, P, kernels, pool_backend)
     emit(fabric_report)
+    tok_report = phase_tok(torch, R, F, P, kernels, pool_backend)
+    emit(tok_report)
     # phase_spec releases the decide pool once its decide has run
     pools = [pool_backend]
     del pool_backend
@@ -7586,6 +8062,7 @@ def main(argv) -> int:
         e["web_launches"] = web_report["launches"][e["name"]]
         e["cluster_launches"] = cluster_report["launches"][e["name"]]
         e["fabric_launches"] = fabric_report["launches"][e["name"]]
+        e["tok_launches"] = tok_report["launches"][e["name"]]
         if e["name"] == "ragged_fwd":
             e["verify"] = spec_report["verify_ticks"]["ragged_fwd_bf16"]
             e["verify_fp32"] = spec_report["verify_ticks"]["ragged_fwd"]

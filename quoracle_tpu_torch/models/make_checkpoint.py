@@ -40,7 +40,8 @@ from typing import Optional
 import torch
 
 from quoracle_tpu_torch.models.safetensors_io import save_file
-from quoracle_tpu_torch.models.tokenizer import _python_tables, byte_chars
+from quoracle_tpu_torch.models.tokenizer_pipeline import byte_chars
+from quoracle_tpu_torch.native.tokenizer import _python_tables
 
 SPECIALS = ["<|pad|>", "<|bos|>", "<|eos|>", "<|system|>", "<|user|>",
             "<|assistant|>", "<|image|>"]

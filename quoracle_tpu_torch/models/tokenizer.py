@@ -1,53 +1,68 @@
 """Tokenizers for the port's model pool.
 
 The port's own copy of the JAX package's tokenizer layer
-(``quoracle_tpu/models/tokenizer.py`` plus the pure-Python BPE of
-``quoracle_tpu/native/tokenizer.py``). The learned byte-level BPE reads
-``bpe_merges.txt`` beside this file, a byte-identical copy of
-``quoracle_tpu/native/bpe_merges.txt``, so ids match the JAX package
-exactly. The JAX package can also encode through a C++ build of the same
-algorithm; its Python path is documented as bit-identical, so the port
-keeps only that one.
+(``quoracle_tpu/models/tokenizer.py``). A catalog model without a
+checkpoint encodes through the learned byte-level BPE of
+``quoracle_tpu_torch/native/`` (``NativeBPETokenizer``, re-exported here):
+a C++ build of the algorithm over ``bpe_merges.txt`` beside this file, a
+byte-identical copy of ``quoracle_tpu/native/bpe_merges.txt``, with an
+identical pure-Python path when ``g++`` is missing; ids match the JAX
+package exactly.
 
 A checkpoint brings its own tokenizer (``HFAutoTokenizer``: its
 ``tokenizer.json``, special tokens and chat template; ``HFTokenizer``: a
 bare ``tokenizer.json``). The JAX package wraps ``transformers`` and
 ``tokenizers`` for these; the port reads the files itself, without either
-library or ``regex``: byte-level BPE only (the ``ByteLevel``
-pre-tokenizer, alone or after ``Split`` as llama-3 ships it, BPE by merge
-rank, the ``ByteLevel`` decoder), the added tokens split out first, and
-the chat template rendered by ``jinja2`` as ``transformers`` renders it.
-Any other model, normalizer, pre-tokenizer or decoder raises
-``NotImplementedError`` (SentencePiece, Unigram and WordPiece files are
-queued in ROADMAP.md, Queue 1 item 13).
+library or ``regex``: the added tokens split out first, then the file's
+normalizer, pre-tokenizer and model (BPE, with or without byte fallback,
+Unigram, WordPiece), and its decoder chain on the way back
+(models/tokenizer_pipeline.py lists every component read). Directories
+without ``tokenizer.json`` are converted as ``transformers`` converts
+them: ``vocab.json`` with ``merges.txt`` (GPT-2) and ``vocab.txt`` (BERT
+WordPiece). The chat template is rendered by ``jinja2`` as
+``transformers`` renders it. A SentencePiece ``tokenizer.model`` alone,
+and any component outside that list, raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import abc
-import heapq
 import json
 import os
 import re
 import threading
-import unicodedata
-from functools import lru_cache
 from typing import Optional, Sequence
 
+from quoracle_tpu_torch.models.tokenizer_pipeline import (
+    GPT2_PATTERN, SPACE_RE, build_decoder, build_model, build_normalizer,
+    build_pre_tokenizer, byte_chars, decode_tokens, is_word_char,
+    translate_regex,
+)
 from quoracle_tpu_torch.utils.normalize import (
     stringify_content as _stringify_content,
 )
+
+__all__ = [
+    "BOS_ID", "EOS_ID", "GPT2_PATTERN", "PAD_ID", "ByteTokenizer",
+    "HFAutoTokenizer", "HFTokenizer", "NativeBPETokenizer", "Tokenizer",
+    "byte_chars", "get_tokenizer", "native_available", "translate_regex",
+]
 
 PAD_ID = 0
 BOS_ID = 1
 EOS_ID = 2
 _N_SPECIALS = 3
 
-MERGES_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "bpe_merges.txt")
-BYTE_BASE = _N_SPECIALS             # byte b -> id b + BYTE_BASE
-FIRST_MERGE_ID = BYTE_BASE + 256
-MAX_WORD_LEN = 128
+# the native BPE's names, re-exported (the native module imports
+# ``Tokenizer`` from here, so they resolve at first use)
+_NATIVE_NAMES = ("NativeBPETokenizer", "native_available", "MERGES_PATH")
+
+
+def __getattr__(name: str):
+    if name in _NATIVE_NAMES:
+        from quoracle_tpu_torch.native import tokenizer as native
+        return getattr(native, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class Tokenizer(abc.ABC):
@@ -110,261 +125,8 @@ class ByteTokenizer(Tokenizer):
 
 
 # ---------------------------------------------------------------------------
-# Byte-level BPE (pure Python, lockstep with the JAX package's bpe.cpp)
+# HF tokenizer files: tokenizer.json
 # ---------------------------------------------------------------------------
-
-def pre_split(text: str) -> list[bytes]:
-    """Split text into merge units: a run of whitespace binds to the word
-    that follows it (GPT-2 style ' word' units) so merges never cross word
-    boundaries. Long runs are capped so pathological inputs stay O(n)."""
-    words: list[bytes] = []
-    data = text.encode("utf-8")
-    start = 0
-    in_space = True
-    for i, b in enumerate(data):
-        is_space = b in (0x20, 0x09, 0x0A, 0x0D)
-        if is_space and not in_space:
-            words.append(data[start:i])
-            start = i
-        elif b == 0x0A:                      # newline always closes a unit
-            words.append(data[start:i + 1])
-            start = i + 1
-            in_space = True
-            continue
-        if i - start >= MAX_WORD_LEN:
-            words.append(data[start:i])
-            start = i
-        in_space = is_space
-    if start < len(data):
-        words.append(data[start:])
-    return [w for w in words if w]
-
-
-def load_merges(path: str) -> list[tuple[int, int]]:
-    merges = []
-    with open(path) as f:
-        for line in f:
-            line = line.strip()
-            if not line or line.startswith("#"):
-                continue
-            a, b = line.split()
-            merges.append((int(a), int(b)))
-    return merges
-
-
-@lru_cache(maxsize=1)
-def _python_tables():
-    merges = load_merges(MERGES_PATH)
-    ranks = {pair: i for i, pair in enumerate(merges)}
-    expansions: list[bytes] = [b""] * FIRST_MERGE_ID
-    for b in range(256):
-        expansions[BYTE_BASE + b] = bytes([b])
-    for a, b in merges:
-        expansions.append(expansions[a] + expansions[b])
-    return ranks, expansions
-
-
-def _py_encode_unit(data: bytes, ranks, n_merges: int,
-                    out: list[int]) -> None:
-    n = len(data)
-    if n == 0:
-        return
-    if n == 1:
-        out.append(BYTE_BASE + data[0])
-        return
-    ids = [BYTE_BASE + b for b in data]
-    prev = list(range(-1, n - 1))
-    nxt = list(range(1, n + 1))
-    nxt[-1] = -1
-    alive = [True] * n
-    heap: list[tuple[int, int, int]] = []
-
-    def push(pos: int) -> None:
-        r = nxt[pos]
-        if pos < 0 or r < 0:
-            return
-        rank = ranks.get((ids[pos], ids[r]))
-        if rank is not None and rank < n_merges:
-            heapq.heappush(heap, (rank, pos, r))
-
-    for i in range(n - 1):
-        push(i)
-    while heap:
-        rank, pos, right = heapq.heappop(heap)
-        if not alive[pos] or nxt[pos] != right or not alive[right]:
-            continue
-        if ranks.get((ids[pos], ids[right])) != rank:
-            continue
-        ids[pos] = FIRST_MERGE_ID + rank
-        alive[right] = False
-        rr = nxt[right]
-        nxt[pos] = rr
-        if rr >= 0:
-            prev[rr] = pos
-        if prev[pos] >= 0:
-            push(prev[pos])
-        push(pos)
-    i = 0
-    while i >= 0:
-        if alive[i]:
-            out.append(ids[i])
-        i = nxt[i]
-
-
-def _py_encode(text: str, n_merges: int) -> list[int]:
-    ranks, _ = _python_tables()
-    out: list[int] = []
-    for unit in pre_split(text):
-        _py_encode_unit(unit, ranks, n_merges, out)
-    return out
-
-
-class NativeBPETokenizer(Tokenizer):
-    """Byte-level BPE over the shared merges artifact, truncated to
-    ``n_merges`` so the id space fits the model's vocab
-    (vocab_size = 259 + n_merges ceiling). The name matches the JAX
-    package's class; the port runs its Python implementation."""
-
-    def __init__(self, n_merges: int = 1 << 30):
-        ranks, expansions = _python_tables()
-        self.n_merges = min(n_merges, len(ranks))
-        self._expansions = expansions
-
-    @classmethod
-    def for_vocab(cls, vocab_size: int) -> "NativeBPETokenizer":
-        return cls(n_merges=max(0, vocab_size - FIRST_MERGE_ID))
-
-    @property
-    def vocab_size(self) -> int:
-        return FIRST_MERGE_ID + self.n_merges
-
-    def encode(self, text: str, add_bos: bool = False) -> list[int]:
-        ids = _py_encode(text, self.n_merges)
-        return [self.bos_id] + ids if add_bos else ids
-
-    def decode(self, ids: Sequence[int]) -> str:
-        exp = self._expansions
-        limit = FIRST_MERGE_ID + self.n_merges
-        data = b"".join(
-            exp[i] for i in ids
-            if BYTE_BASE <= i < limit and i < len(exp))
-        return data.decode("utf-8", errors="replace")
-
-
-# ---------------------------------------------------------------------------
-# HF tokenizer files: tokenizer.json (byte-level BPE)
-# ---------------------------------------------------------------------------
-
-@lru_cache(maxsize=1)
-def byte_chars() -> tuple[str, ...]:
-    """GPT-2's byte -> printable character table (``ByteLevel``): bytes
-    that print stand for themselves, the others map to 256 + n in order."""
-    keep = set(range(ord("!"), ord("~") + 1)) | set(
-        range(0xA1, 0xAD)) | set(range(0xAE, 0x100))
-    out, n = [], 0
-    for b in range(256):
-        if b in keep:
-            out.append(chr(b))
-        else:
-            out.append(chr(256 + n))
-            n += 1
-    return tuple(out)
-
-
-@lru_cache(maxsize=1)
-def _char_bytes() -> dict[str, int]:
-    return {c: b for b, c in enumerate(byte_chars())}
-
-
-# Unicode White_Space: what the tokenizers library's regex engines mean by
-# \s (Python's \s also takes U+001C..U+001F)
-_WHITE_SPACE = (r"\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028\u2029"
-                r"\u202f\u205f\u3000")
-_SPACE_RE = re.compile(f"[{_WHITE_SPACE}]")
-
-
-@lru_cache(maxsize=1)
-def _unicode_classes() -> dict[str, str]:
-    """Character-class bodies for \\p{L} and \\p{N}, which the standard
-    library's ``re`` does not know, built from ``unicodedata``'s general
-    categories (L*: letters; Nd, Nl, No: numbers)."""
-    spans: dict[str, list] = {"L": [], "N": []}
-    for cp in range(0x110000):
-        ranges = spans.get(unicodedata.category(chr(cp))[0])
-        if ranges is None:
-            continue
-        if ranges and ranges[-1][1] == cp - 1:
-            ranges[-1][1] = cp
-        else:
-            ranges.append([cp, cp])
-    return {k: "".join(f"\\U{lo:08x}" if lo == hi
-                       else f"\\U{lo:08x}-\\U{hi:08x}" for lo, hi in v)
-            for k, v in spans.items()}
-
-
-# escapes whose meaning differs between Oniguruma and ``re``
-_UNSUPPORTED_ESCAPES = set("PwWbBhHXRKGz")
-
-
-def translate_regex(pattern: str) -> str:
-    """A tokenizer file's (Oniguruma) pattern -> Python ``re``: \\p{L},
-    \\p{N}, \\s and \\S become explicit classes; escapes whose meaning
-    differs between the engines raise."""
-    out, i, in_class = [], 0, False
-    while i < len(pattern):
-        c = pattern[i]
-        if c == "\\" and i + 1 < len(pattern):
-            e = pattern[i + 1]
-            if e == "p":
-                m = re.match(r"\{(\w+)\}", pattern[i + 2:])
-                if not m or m.group(1) not in ("L", "N"):
-                    raise NotImplementedError(
-                        f"tokenizer regex: {pattern[i:i + 8]!r} is not "
-                        f"supported (only \\p{{L}} and \\p{{N}})")
-                body = _unicode_classes()[m.group(1)]
-                out.append(body if in_class else f"[{body}]")
-                i += 2 + m.end()
-                continue
-            if e == "s":
-                out.append(_WHITE_SPACE if in_class else f"[{_WHITE_SPACE}]")
-            elif e == "S":
-                if in_class:
-                    raise NotImplementedError(
-                        "tokenizer regex: \\S inside a class")
-                out.append(f"[^{_WHITE_SPACE}]")
-            elif e in _UNSUPPORTED_ESCAPES:
-                raise NotImplementedError(
-                    f"tokenizer regex: \\{e} is not supported")
-            else:
-                out.append(c + e)
-            i += 2
-            continue
-        out.append(c)
-        if c == "[" and not in_class:
-            in_class = True
-            if pattern[i + 1:i + 2] == "^":
-                out.append("^")
-                i += 1
-            if pattern[i + 1:i + 2] == "]":       # a literal ] comes first
-                out.append("\\]")
-                i += 1
-        elif c == "]" and in_class:
-            in_class = False
-        i += 1
-    return "".join(out)
-
-
-# GPT-2's pattern: the ByteLevel pre-tokenizer's own split (use_regex)
-GPT2_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+"
-                r"| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+")
-
-
-def _is_word_char(ch: str) -> bool:
-    """\\w of the regex engine that places added tokens (Unicode)."""
-    cat = unicodedata.category(ch)
-    return (ch.isalpha() or cat[0] == "M" or cat in ("Nd", "Nl", "Pc")
-            or ch in "\u200c\u200d")
-
 
 class _Added:
     """One entry of a tokenizer file's ``added_tokens``."""
@@ -381,280 +143,188 @@ class _Added:
         self.normalized = bool(d.get("normalized", not self.special))
 
 
-def _unsupported(what: str, value) -> NotImplementedError:
-    if isinstance(value, dict):
-        value = value.get("type", value)
-    return NotImplementedError(
-        f"tokenizer.json: {what} {value!r} is not supported (the port "
-        f"reads byte-level BPE files only)")
+def _limits(spec: dict) -> tuple:
+    """The file's truncation (max length, keep the left end) and padding
+    (fixed length or None, multiple, pad id, pad on the left)."""
+    trunc = pad = None
+    t = spec.get("truncation")
+    p = spec.get("padding")
+    for name, block, keys in (
+            ("truncation", t, ("max_length", "strategy", "stride")),
+            ("padding", p, ("strategy", "direction", "pad_id",
+                            "pad_type_id", "pad_token"))):
+        missing = [k for k in keys if block is not None and k not in block]
+        if missing:
+            raise ValueError(f"tokenizer.json: {name} lacks {missing}")
+    if t is not None:
+        trunc = (int(t["max_length"]), t.get("direction", "Right") == "Left")
+    if p is not None:
+        strategy = p["strategy"]
+        fixed = (int(strategy["Fixed"]) if isinstance(strategy, dict)
+                 else None)
+        pad = (fixed, p.get("pad_to_multiple_of") or 0, int(p["pad_id"]),
+               p["direction"] == "Left")
+    return trunc, pad
 
 
 class HFTokenizer(Tokenizer):
-    """A ``tokenizer.json`` whose model is byte-level BPE, run by the port
-    (ids and texts as the ``tokenizers`` library gives them):
+    """A ``tokenizer.json`` run by the port, ids and texts as the
+    ``tokenizers`` library gives them (``Tokenizer.from_file``, encoded
+    without added specials):
 
     * the added tokens are split out of the text first (leftmost-longest;
-      ``lstrip``, ``rstrip``, ``single_word``; the non-normalized ones
-      before the normalized, as the library does), special or not;
-    * the rest is pre-tokenized: ``Split`` steps (regex or string,
-      ``Isolated``), then ``ByteLevel`` (``add_prefix_space``; its own
-      GPT-2 split when ``use_regex``), which maps bytes to characters;
-    * each piece merges by BPE rank (``ignore_merges``: a piece in the
-      vocab is taken whole; characters outside the vocab become
-      ``unk_token``, fused or not, or are dropped);
-    * decoding drops ids outside the vocab (and special tokens unless
-      asked), maps characters back to bytes (a token with a character
-      outside the byte table keeps its own UTF-8) and replaces invalid
-      UTF-8 with U+FFFD.
+      ``lstrip``, ``rstrip``, ``single_word``): the non-normalized ones
+      on the raw text; each text between them is normalized on its own,
+      and the normalized ones (their contents normalized too) are split
+      out of it;
+    * each remaining text is pre-tokenized and each piece run through
+      the model (tokenizer_pipeline.py);
+    * the file's ``truncation``, then its ``padding``, apply to the ids
+      (``limits=False`` drops both, as ``transformers`` does);
+    * decoding maps ids to tokens (the added tokens' contents; special
+      ones dropped unless asked), then runs the decoder chain, or joins
+      the tokens with spaces when the file has no decoder.
     """
 
-    _CACHE_WORDS = 1 << 16
-
-    def __init__(self, path: str, bos_id: int = BOS_ID, eos_id: int = EOS_ID,
-                 extra_specials: Sequence[str] = ()):
-        with open(path, encoding="utf-8") as f:
-            spec = json.load(f)
+    def __init__(self, path: Optional[str] = None, bos_id: int = BOS_ID,
+                 eos_id: int = EOS_ID, extra_specials: Sequence[str] = (),
+                 spec: Optional[dict] = None, limits: bool = True):
+        if spec is None:
+            with open(path, encoding="utf-8") as f:
+                spec = json.load(f)
         self.path = path
         self.bos_id, self.eos_id = bos_id, eos_id
-        for key in ("normalizer", "truncation", "padding"):
-            if spec.get(key) is not None:
-                raise _unsupported(key, spec[key])
-        self._load_model(spec.get("model") or {})
-        self._load_pre_tokenizer(spec.get("pre_tokenizer"))
-        dec = spec.get("decoder")
-        if not (isinstance(dec, dict) and dec.get("type") == "ByteLevel"):
-            raise _unsupported("decoder", dec)
-        self._added = [_Added(d) for d in spec.get("added_tokens") or []]
+        # the library checks both blocks whether or not they apply
+        self._trunc, self._pad = _limits(spec)
+        if not limits:
+            self._trunc = self._pad = None
+        self._model = build_model(spec.get("model") or {})
+        self._vocab = self._model.vocab
+        self._normalizer = build_normalizer(spec.get("normalizer"))
+        self._pre = build_pre_tokenizer(spec.get("pre_tokenizer"))
+        self._decoder = build_decoder(spec.get("decoder"))
+        # only a Metaspace prepending to the input's first piece reads
+        # where each character came from
+        self._offsets = bool(self._pre and self._pre.needs_offsets)
+        self._added: list[_Added] = []
+        for d in spec.get("added_tokens") or []:
+            self._add(_Added(d))
         for content in extra_specials:
             if not any(a.content == content for a in self._added):
-                self._add_special(content)
+                self._add(_Added({"id": -1, "content": content,
+                                  "special": True, "normalized": False}))
         self._index_added()
-        self._cache: dict[str, tuple[int, ...]] = {}
 
     # -- the file ------------------------------------------------------------
-    def _load_model(self, m: dict) -> None:
-        if m.get("type") != "BPE":
-            raise _unsupported("model", m.get("type"))
-        if m.get("dropout") not in (None, 0, 0.0):
-            raise _unsupported("BPE dropout", m.get("dropout"))
-        for key in ("continuing_subword_prefix", "end_of_word_suffix"):
-            if m.get(key):
-                raise _unsupported(f"BPE {key}", m[key])
-        if m.get("byte_fallback"):
-            raise _unsupported("BPE byte_fallback", True)
-        self._vocab: dict[str, int] = dict(m["vocab"])
-        self._inv = {i: t for t, i in self._vocab.items()}
-        self._unk = m.get("unk_token")
-        if self._unk is not None and self._unk not in self._vocab:
-            raise ValueError(f"tokenizer.json: unk_token {self._unk!r} is "
-                             f"not in the vocab")
-        self._fuse_unk = bool(m.get("fuse_unk", False))
-        self._ignore_merges = bool(m.get("ignore_merges", False))
-        self._merges: dict[tuple[int, int], tuple[int, int]] = {}
-        for rank, pair in enumerate(m.get("merges") or []):
-            a, b = pair.split(" ", 1) if isinstance(pair, str) else pair
-            try:
-                key = (self._vocab[a], self._vocab[b])
-                new = self._vocab[a + b]
-            except KeyError as e:
-                raise ValueError(f"tokenizer.json: merge {a!r} {b!r} names "
-                                 f"a token outside the vocab: {e}") from None
-            self._merges.setdefault(key, (rank, new))
-
-    def _load_pre_tokenizer(self, pt) -> None:
-        seq = isinstance(pt, dict) and pt.get("type") == "Sequence"
-        steps = list(pt.get("pretokenizers") or []) if seq else [pt]
-        if not (steps and isinstance(steps[-1], dict)
-                and steps[-1].get("type") == "ByteLevel"):
-            raise _unsupported("pre_tokenizer", pt)
-        self._splits: list[re.Pattern] = []
-        for st in steps[:-1]:
-            if st.get("type") != "Split":
-                raise _unsupported("pre_tokenizer step", st)
-            if st.get("behavior") != "Isolated" or st.get("invert"):
-                raise _unsupported("Split behavior",
-                                   (st.get("behavior"), st.get("invert")))
-            pat = st["pattern"]
-            self._splits.append(re.compile(
-                translate_regex(pat["Regex"]) if "Regex" in pat
-                else re.escape(pat["String"])))
-        bl = steps[-1]
-        self._prefix_space = bool(bl.get("add_prefix_space", False))
-        # ByteLevel prefixes each piece the Split steps made, then splits
-        # it by the GPT-2 pattern when use_regex
-        self._bl_split = (re.compile(translate_regex(GPT2_PATTERN))
-                          if bl.get("use_regex", True) else None)
-
-    def _add_special(self, content: str) -> None:
-        """Register ``content`` as a special added token with the id the
-        library gives it: its vocab id, else one past the largest."""
+    def _add(self, tok: _Added) -> None:
+        """Register an added token under the id the library gives it (the
+        file's id is only checked there): its vocab id, else one past
+        the largest added id at or above the vocab's size."""
+        if not tok.content or any(a.content == tok.content
+                                  for a in self._added):
+            return
         ids = [a.id for a in self._added]
-        if content in self._vocab:
-            new = self._vocab[content]
+        if tok.content in self._vocab:
+            tok.id = self._vocab[tok.content]
         elif ids and max(ids) >= len(self._vocab):
-            new = max(ids) + 1
+            tok.id = max(ids) + 1
         else:
-            new = len(self._vocab)
-        self._added.append(_Added({"id": new, "content": content,
-                                   "special": True, "normalized": False}))
+            tok.id = len(self._vocab)
+        self._added.append(tok)
 
     def _index_added(self) -> None:
         self._added_by_id = {a.id: a for a in self._added}
         self._added_by_content = {a.content: a for a in self._added}
+        self._special_contents = {a.content for a in self._added
+                                  if a.special}
+        # the normalized tokens match by their normalized contents
+        self._added_by_match: list[dict] = [{}, {}]
         self._added_res = []
-        for normalized in (False, True):
-            group = sorted((a.content for a in self._added
-                            if a.normalized == normalized),
-                           key=lambda c: -len(c))
+        for k, normalized in enumerate((False, True)):
+            table = self._added_by_match[k]
+            for a in self._added:
+                if a.normalized != normalized:
+                    continue
+                pat = a.content
+                if normalized and self._normalizer is not None:
+                    pat = self._normalizer.text(pat)
+                if pat:
+                    table.setdefault(pat, a)
+            group = sorted(table, key=lambda c: -len(c))
             self._added_res.append(
                 re.compile("|".join(map(re.escape, group)))
                 if group else None)
 
     # -- encoding ------------------------------------------------------------
-    def _split_added(self, text: str, pattern) -> list:
-        """[(added token or None, text)] over ``text``: the library's
-        ``find_matches``."""
+    def _split_added(self, text: str, k: int) -> list:
+        """[(added token or None, start, stop)] over ``text``: the
+        library's ``find_matches`` with the non-normalized (k 0) or the
+        normalized (k 1) tokens."""
+        pattern = self._added_res[k]
         if pattern is None or not text:
-            return [(None, text)]
+            return [(None, 0, len(text))]
+        table = self._added_by_match[k]
         out, at = [], 0
         for m in pattern.finditer(text):
-            tok = self._added_by_content[m.group(0)]
+            tok = table[m.group(0)]
             start, stop = m.start(), m.end()
             if tok.single_word and (
-                    (start > 0 and _is_word_char(text[start - 1]))
-                    or (stop < len(text) and _is_word_char(text[stop]))):
+                    (start > 0 and is_word_char(text[start - 1]))
+                    or (stop < len(text) and is_word_char(text[stop]))):
                 continue
             if tok.lstrip:
                 s = start
-                while s > 0 and _SPACE_RE.match(text[s - 1]):
+                while s > 0 and SPACE_RE.match(text[s - 1]):
                     s -= 1
                 start = max(s, at)
             if tok.rstrip:
-                while stop < len(text) and _SPACE_RE.match(text[stop]):
+                while stop < len(text) and SPACE_RE.match(text[stop]):
                     stop += 1
             if at < start:
-                out.append((None, text[at:start]))
-            out.append((tok, text[start:stop]))
+                out.append((None, at, start))
+            out.append((tok, start, stop))
             at = stop
         if at < len(text):
-            out.append((None, text[at:]))
-        return out
-
-    @staticmethod
-    def _isolate(pieces: list[str], pattern: re.Pattern) -> list[str]:
-        """Split each piece into its matches and the gaps between them."""
-        out = []
-        for p in pieces:
-            at = 0
-            for m in pattern.finditer(p):
-                if m.start() == m.end():
-                    continue
-                if at < m.start():
-                    out.append(p[at:m.start()])
-                out.append(m.group(0))
-                at = m.end()
-            if at < len(p):
-                out.append(p[at:])
-        return out
-
-    def _pre_tokenize(self, text: str) -> list[str]:
-        pieces = [text]
-        for pat in self._splits:
-            pieces = self._isolate(pieces, pat)
-        if self._prefix_space:
-            pieces = [p if p.startswith(" ") else " " + p for p in pieces]
-        if self._bl_split is not None:
-            pieces = self._isolate(pieces, self._bl_split)
-        table = byte_chars()
-        return ["".join(table[b] for b in p.encode("utf-8"))
-                for p in pieces if p]
-
-    def _bpe(self, word: str) -> tuple[int, ...]:
-        hit = self._cache.get(word)
-        if hit is not None:
-            return hit
-        vocab = self._vocab
-        if self._ignore_merges and word in vocab:
-            out: tuple[int, ...] = (vocab[word],)
-        else:
-            ids: list[int] = []
-            unk = None                  # a pending (fusable) unk symbol
-            for ch in word:
-                tid = vocab.get(ch)
-                if tid is not None:
-                    if unk is not None:
-                        ids.append(unk)
-                        unk = None
-                    ids.append(tid)
-                elif self._unk is not None:
-                    if unk is not None and not self._fuse_unk:
-                        ids.append(unk)
-                    unk = vocab[self._unk]
-            if unk is not None:
-                ids.append(unk)
-            out = tuple(self._merge(ids))
-        if len(self._cache) < self._CACHE_WORDS:
-            self._cache[word] = out
-        return out
-
-    def _merge(self, ids: list[int]) -> list[int]:
-        """Apply merges lowest rank first (leftmost on a tie) until none
-        applies: the library's ``Word::merge_all``."""
-        n = len(ids)
-        if n < 2:
-            return ids
-        merges = self._merges
-        nxt = list(range(1, n + 1))
-        nxt[-1] = -1
-        prev = list(range(-1, n - 1))
-        alive = [True] * n
-        heap: list = []
-
-        def push(pos: int) -> None:
-            r = nxt[pos]
-            if pos >= 0 and r >= 0:
-                hit = merges.get((ids[pos], ids[r]))
-                if hit is not None:
-                    heapq.heappush(heap, (hit[0], pos, hit[1]))
-
-        for i in range(n - 1):
-            push(i)
-        while heap:
-            _, pos, new = heapq.heappop(heap)
-            right = nxt[pos]
-            if not alive[pos] or right < 0:
-                continue
-            hit = merges.get((ids[pos], ids[right]))
-            if hit is None or hit[1] != new:
-                continue
-            ids[pos] = new
-            alive[right] = False
-            nxt[pos] = nxt[right]
-            if nxt[pos] >= 0:
-                prev[nxt[pos]] = pos
-            if prev[pos] >= 0:
-                push(prev[pos])
-            push(pos)
-        out, i = [], 0
-        while i >= 0:
-            out.append(ids[i])
-            i = nxt[i]
+            out.append((None, at, len(text)))
         return out
 
     def encode_ids(self, text: str) -> list[int]:
         """The library's ``encode(text, add_special_tokens=False).ids``."""
         out: list[int] = []
-        raw, normalized = self._added_res
-        for tok, part in self._split_added(text, raw):
+        norm, pre, tokenize = self._normalizer, self._pre, \
+            self._model.tokenize
+        for tok, s0, e0 in self._split_added(text, 0):
             if tok is not None:
                 out.append(tok.id)
                 continue
-            for tok2, part2 in self._split_added(part, normalized):
+            seg = text[s0:e0]
+            al = list(range(s0, e0)) if self._offsets else None
+            if norm is not None:
+                seg, al = norm(seg, al)
+            for tok2, s1, e1 in self._split_added(seg, 1):
                 if tok2 is not None:
                     out.append(tok2.id)
                     continue
-                for word in self._pre_tokenize(part2):
-                    out.extend(self._bpe(word))
+                if s1 == e1:
+                    continue
+                piece = (seg[s1:e1], None if al is None else al[s1:e1])
+                if pre is None:
+                    out.extend(tokenize(piece[0]))
+                    continue
+                for word, _ in pre([piece]):
+                    out.extend(tokenize(word))
+        if self._trunc is not None:
+            n, left = self._trunc
+            if len(out) > n:
+                out = out[len(out) - n:] if left else out[:n]
+        if self._pad is not None:
+            fixed, multiple, pad_id, left = self._pad
+            target = len(out) if fixed is None else fixed
+            if multiple and target % multiple:
+                target += multiple - target % multiple
+            if len(out) < target:
+                fill = [pad_id] * (target - len(out))
+                out = fill + out if left else out + fill
         return out
 
     def encode(self, text: str, add_bos: bool = False) -> list[int]:
@@ -667,23 +337,17 @@ class HFTokenizer(Tokenizer):
         return a.id if a is not None else self._vocab.get(token)
 
     def decode_ids(self, ids: Sequence[int], skip_special: bool) -> str:
-        table = _char_bytes()
-        data = bytearray()
+        tokens = []
         for tid in ids:
-            a = self._added_by_id.get(int(tid))
-            if a is not None:
-                if skip_special and a.special:
-                    continue
-                tok = a.content
-            else:
-                tok = self._inv.get(int(tid))
-                if tok is None:
-                    continue
-            try:
-                data.extend([table[c] for c in tok])
-            except KeyError:
-                data.extend(tok.encode("utf-8"))
-        return data.decode("utf-8", errors="replace")
+            tid = int(tid)
+            a = self._added_by_id.get(tid)
+            tok = a.content if a is not None else \
+                self._model.id_to_token(tid)
+            if tok is None or (skip_special
+                               and tok in self._special_contents):
+                continue
+            tokens.append(tok)
+        return decode_tokens(self._decoder, tokens)
 
     def decode(self, ids: Sequence[int]) -> str:
         return self.decode_ids(ids, skip_special=True)
@@ -698,8 +362,35 @@ class HFTokenizer(Tokenizer):
         return len(set(self._vocab) | set(self._added_by_content))
 
 
+# ---------------------------------------------------------------------------
+# checkpoint directories, as transformers' AutoTokenizer reads them
+# ---------------------------------------------------------------------------
+
 _SPECIAL_KEYS = ("bos_token", "eos_token", "unk_token", "sep_token",
                  "pad_token", "cls_token", "mask_token")
+
+# transformers' tokenizer classes the port follows, with each class's
+# special tokens where tokenizer_config.json names none
+_CLASSES = {
+    "llama": {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"},
+    "gemma": {"unk_token": "<unk>", "bos_token": "<bos>",
+              "eos_token": "<eos>", "pad_token": "<pad>"},
+    "gpt2": {"unk_token": "<|endoftext|>", "bos_token": "<|endoftext|>",
+             "eos_token": "<|endoftext|>"},
+    "bert": {"unk_token": "[UNK]", "sep_token": "[SEP]",
+             "pad_token": "[PAD]", "cls_token": "[CLS]",
+             "mask_token": "[MASK]"},
+    "qwen2": {"unk_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+              "pad_token": "<|endoftext|>"},
+    None: {},
+}
+_CLASS_NAMES = {"LlamaTokenizer": "llama", "GemmaTokenizer": "gemma",
+                "GPT2Tokenizer": "gpt2", "BertTokenizer": "bert",
+                "Qwen2Tokenizer": "qwen2"}
+# config.json's model_type -> tokenizer class, where tokenizer_config.json
+# names none
+_MODEL_TYPES = {"llama": "llama", "mistral": "llama", "gemma": "gemma",
+                "gpt2": "gpt2", "bert": "bert", "qwen2": "qwen2"}
 
 
 def _token_text(v) -> Optional[str]:
@@ -707,6 +398,107 @@ def _token_text(v) -> Optional[str]:
     if v is None or isinstance(v, str):
         return v
     return v["content"]
+
+
+def _read_json(path: str) -> dict:
+    if not os.path.isfile(path):
+        return {}
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _tokenizer_class(path: str, conf: dict) -> Optional[str]:
+    """The transformers class the directory loads as, by
+    ``tokenizer_config.json``'s name, else ``config.json``'s model type
+    (None: ``PreTrainedTokenizerFast``). A class whose defaults the port
+    does not follow raises rather than read the files otherwise."""
+    name = conf.get("tokenizer_class")
+    if name:
+        base = name.removesuffix("Fast")
+        if base == "PreTrainedTokenizer":
+            return None
+        if base not in _CLASS_NAMES:
+            raise NotImplementedError(
+                f"checkpoint dir {path!r}: tokenizer class {name!r} is not "
+                f"one the port follows ({sorted(_CLASS_NAMES)})")
+        return _CLASS_NAMES[base]
+    model_type = _read_json(os.path.join(path, "config.json")).get(
+        "model_type")
+    if model_type is None:
+        raise ValueError(f"checkpoint dir {path!r}: tokenizer_config.json "
+                         f"names no tokenizer_class and config.json no "
+                         f"model_type")
+    if model_type not in _MODEL_TYPES:
+        raise NotImplementedError(
+            f"checkpoint dir {path!r}: model type {model_type!r} has a "
+            f"tokenizer class the port does not follow")
+    return _MODEL_TYPES[model_type]
+
+
+def _gpt2_spec(path: str, conf: dict) -> dict:
+    """transformers' GPT2Converter over ``vocab.json`` and ``merges.txt``
+    (the slow tokenizer drops the merges file's first and last lines)."""
+    vocab = _read_json(os.path.join(path, "vocab.json"))
+    with open(os.path.join(path, "merges.txt"), encoding="utf-8") as f:
+        lines = f.read().split("\n")[1:-1]
+    merges = list(dict.fromkeys(tuple(ln.split()) for ln in lines))
+    prefix = bool(conf.get("add_prefix_space", False))
+    byte_level = {"type": "ByteLevel", "add_prefix_space": prefix,
+                  "trim_offsets": True, "use_regex": True}
+    return {"normalizer": None, "pre_tokenizer": byte_level,
+            "decoder": dict(byte_level),
+            "model": {"type": "BPE", "vocab": vocab,
+                      "merges": [list(m) for m in merges]}}
+
+
+def _bert_spec(path: str, conf: dict) -> dict:
+    """transformers' BertConverter over ``vocab.txt``."""
+    vocab: dict[str, int] = {}
+    with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as f:
+        for i, line in enumerate(f.readlines()):
+            vocab[line.rstrip("\n")] = i
+    basic = conf.get("do_basic_tokenize", True)
+    lower = bool(conf.get("do_lower_case", True))
+    unk = _token_text(conf.get("unk_token", "[UNK]"))
+    return {"normalizer": {
+                "type": "BertNormalizer", "clean_text": True,
+                "handle_chinese_chars":
+                    bool(conf.get("tokenize_chinese_chars", True)) and basic,
+                "strip_accents": conf.get("strip_accents") if basic
+                else False,
+                "lowercase": lower and basic},
+            "pre_tokenizer": {"type": "BertPreTokenizer"},
+            "decoder": {"type": "WordPiece", "prefix": "##",
+                        "cleanup": True},
+            "model": {"type": "WordPiece", "vocab": vocab,
+                      "unk_token": unk, "continuing_subword_prefix": "##",
+                      "max_input_chars_per_word": 100}}
+
+
+def _load_spec(path: str, conf: dict) -> tuple:
+    """(the directory's ``tokenizer.json``, or the file ``transformers``
+    converts its slow-tokenizer files into; the tokenizer class)."""
+    def has(*names):
+        return all(os.path.isfile(os.path.join(path, n)) for n in names)
+    if has("tokenizer.json"):
+        return _read_json(os.path.join(path, "tokenizer.json")), \
+            _tokenizer_class(path, conf)
+    if not (has("tokenizer.model") or has("vocab.json") or has("vocab.txt")):
+        raise ValueError(
+            f"checkpoint dir {path!r} has no tokenizer files "
+            "(tokenizer.json) — a served checkpoint must ship its own "
+            "tokenizer")
+    cls = (_tokenizer_class(path, conf)
+           if has("vocab.json") or has("vocab.txt") else None)
+    if cls == "gpt2" and has("vocab.json", "merges.txt"):
+        return _gpt2_spec(path, conf), cls
+    if cls == "bert" and has("vocab.txt"):
+        return _bert_spec(path, conf), cls
+    raise NotImplementedError(
+        f"checkpoint dir {path!r} has no tokenizer.json and its "
+        f"slow-tokenizer files are not ones the port converts (GPT-2 "
+        f"vocab.json + merges.txt, BERT vocab.txt; a SentencePiece "
+        f"tokenizer.model needs the sentencepiece library)")
 
 
 def _template_env():
@@ -747,43 +539,82 @@ def _clean_up_spaces(text: str) -> str:
 class HFAutoTokenizer(Tokenizer):
     """The tokenizer of a served checkpoint directory, as the JAX
     package's ``transformers.AutoTokenizer`` gives it: ``tokenizer.json``
-    through ``HFTokenizer``; the special tokens of
-    ``tokenizer_config.json`` (those the file lacks are added, as
-    ``transformers`` adds them) and its ``clean_up_tokenization_spaces``
-    (default off); its chat template (or ``chat_template.jinja``),
-    rendered as ``transformers`` renders it and encoded without added
-    specials. Without a template the neutral one serves."""
+    (or the slow-tokenizer files converted as ``transformers`` converts
+    them) through ``HFTokenizer`` with the file's truncation and padding
+    off; the tokenizer class (``tokenizer_config.json``'s, else
+    ``config.json``'s model type) with its default special tokens and
+    the class's edits to the file (``add_prefix_space``, BERT's
+    normalizer flags); the special tokens of ``tokenizer_config.json``
+    (those the file lacks are added, as ``transformers`` adds them) and
+    its ``clean_up_tokenization_spaces``; its chat template (or
+    ``chat_template.jinja``), rendered as ``transformers`` renders it and
+    encoded without added specials. Without a template the neutral one
+    serves."""
 
     def __init__(self, path: str):
-        tj = os.path.join(path, "tokenizer.json")
-        if not os.path.isfile(tj):
-            if any(os.path.isfile(os.path.join(path, f)) for f in
-                   ("vocab.json", "tokenizer.model", "vocab.txt")):
-                raise NotImplementedError(
-                    f"checkpoint dir {path!r} has no tokenizer.json: "
-                    f"slow-tokenizer files (vocab.json, SentencePiece, "
-                    f"WordPiece) are not ported")
-            raise ValueError(
-                f"checkpoint dir {path!r} has no tokenizer files "
-                "(tokenizer.json) — a served checkpoint must ship its own "
-                "tokenizer")
-        conf: dict = {}
-        cp = os.path.join(path, "tokenizer_config.json")
-        if os.path.isfile(cp):
-            with open(cp, encoding="utf-8") as f:
-                conf = json.load(f)
+        conf = _read_json(os.path.join(path, "tokenizer_config.json"))
+        spec, cls = _load_spec(path, conf)
+        defaults = _CLASSES[cls]
+        # clean_up_tokenization_spaces is off but where the slow
+        # BertTokenizer's default (on) carries over
+        clean_up = cls == "bert" and not os.path.isfile(
+            os.path.join(path, "tokenizer.json"))
+        pre = spec.get("pre_tokenizer")
+        if cls == "llama" and conf.get("add_prefix_space") is not None:
+            # LlamaTokenizerFast rebuilds itself from the SentencePiece
+            # model then, which needs the sentencepiece library
+            raise NotImplementedError(
+                f"checkpoint dir {path!r}: add_prefix_space on a Llama "
+                f"tokenizer converts from tokenizer.model (sentencepiece)")
+        if (cls != "llama" and isinstance(pre, dict)
+                and pre.get("type") == "ByteLevel"):
+            # the class sets ByteLevel's add_prefix_space to its own
+            spec["pre_tokenizer"] = dict(
+                pre, add_prefix_space=bool(conf.get("add_prefix_space",
+                                                    False)))
+        norm = spec.get("normalizer")
+        if cls == "bert" and norm is None:
+            # BertTokenizerFast reads its normalizer's state at build
+            raise ValueError(f"checkpoint dir {path!r}: a BERT tokenizer "
+                             f"without a normalizer")
+        if cls == "bert" and norm.get("type") == "BertNormalizer":
+            want = (bool(conf.get("do_lower_case", True)),
+                    conf.get("strip_accents"),
+                    bool(conf.get("tokenize_chinese_chars", True)))
+            if (norm.get("lowercase"), norm.get("strip_accents"),
+                    norm.get("handle_chinese_chars")) != want:
+                spec["normalizer"] = dict(
+                    norm, lowercase=want[0], strip_accents=want[1],
+                    handle_chinese_chars=want[2])
         # the template's special-token variables (transformers'
-        # special_tokens_map)
-        self.special_tokens: dict = {
-            k: _token_text(conf[k]) for k in _SPECIAL_KEYS
-            if _token_text(conf.get(k)) is not None}
+        # special_tokens_map): the config's, else the class's defaults,
+        # else (the pad token) the file's padding block's
+        self.special_tokens: dict = {}
+        for k in _SPECIAL_KEYS:
+            if k in conf:
+                v = _token_text(conf[k])
+            elif k in defaults:
+                v = defaults[k]
+            else:
+                v = (spec.get("padding") or {}).get(k)
+            if v is not None:
+                self.special_tokens[k] = v
         extra = [_token_text(t)
                  for t in conf.get("additional_special_tokens") or []]
         if extra:
             self.special_tokens["additional_special_tokens"] = extra
-        self._tok = HFTokenizer(tj, extra_specials=[
-            self.special_tokens[k] for k in _SPECIAL_KEYS
-            if k in self.special_tokens] + extra)
+        if cls in ("llama", "gemma"):
+            # the class's post-processor adds bos (and, if asked, eos)
+            for key, default in (("bos", True), ("eos", False)):
+                if conf.get(f"add_{key}_token", default) and \
+                        self.special_tokens.get(f"{key}_token") is None:
+                    raise ValueError(f"checkpoint dir {path!r}: "
+                                     f"add_{key}_token without a "
+                                     f"{key}_token")
+        self._tok = HFTokenizer(
+            os.path.join(path, "tokenizer.json"), spec=spec, limits=False,
+            extra_specials=[self.special_tokens[k] for k in _SPECIAL_KEYS
+                            if k in self.special_tokens] + extra)
         for tid, d in (conf.get("added_tokens_decoder") or {}).items():
             if self._tok.token_to_id(d["content"]) != int(tid):
                 raise NotImplementedError(
@@ -801,7 +632,7 @@ class HFAutoTokenizer(Tokenizer):
         self.eos_id = eos if eos is not None else EOS_ID
         self.pad_id = pad if pad is not None else self.eos_id
         self._clean_up = bool(conf.get("clean_up_tokenization_spaces",
-                                       False))
+                                       clean_up))
         template = conf.get("chat_template")
         jinja_file = os.path.join(path, "chat_template.jinja")
         if os.path.isfile(jinja_file):
@@ -853,12 +684,13 @@ def get_tokenizer(model_name: str,
     """Tokenizer for a catalog model: a checkpoint's own
     (``HFAutoTokenizer``), else the ``tokenizer.json`` at
     ``tokenizer_path`` (``HFTokenizer``), else the learned BPE sized to
-    the model's vocab. bos/eos come from the catalog entry (a checkpoint's
-    tokenizer brings its own), so the tokenizer and the engine's stop
-    condition agree. The cache key holds the checkpoint path: a name
-    registered again, or after a first lookup, never keeps a stale
-    tokenizer."""
+    the model's vocab (``NativeBPETokenizer``, through its C++ build).
+    bos/eos come from the catalog entry (a checkpoint's tokenizer brings
+    its own), so the tokenizer and the engine's stop condition agree. The
+    cache key holds the checkpoint path: a name registered again, or
+    after a first lookup, never keeps a stale tokenizer."""
     from quoracle_tpu_torch.models.config import get_model_config
+    from quoracle_tpu_torch.native.tokenizer import NativeBPETokenizer
     try:
         cfg = get_model_config(model_name)
         bos, eos, vocab = cfg.bos_token_id, cfg.eos_token_id, cfg.vocab_size

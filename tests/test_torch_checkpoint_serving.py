@@ -273,7 +273,7 @@ def test_unsupported_checkpoint_raises_in_the_backend(ckpts, tmp_path):
     d = shutil.copytree(ckpts["llama-t"], str(tmp_path / "ck"))
     with open(f"{d}/tokenizer.json") as f:
         spec = json.load(f)
-    spec["normalizer"] = {"type": "NFKC"}
+    spec["normalizer"] = {"type": "Precompiled", "precompiled_charsmap": ""}
     with open(f"{d}/tokenizer.json", "w") as f:
         json.dump(spec, f)
     tload.register_hf_checkpoint(d, name="ts-bad")

@@ -24,7 +24,9 @@ import torch
 from _cluster_parity import (
     JAX, MEMBER, PORT, SIDES, both, build_cluster, flight_view, req, res,
 )
+from quoracle_tpu.infra import costobs as jco
 from quoracle_tpu.infra import flightrec as jflight
+from quoracle_tpu_torch.infra import costobs as tco
 from quoracle_tpu_torch.infra import flightrec as tflight
 
 torch.set_num_threads(1)
@@ -329,6 +331,11 @@ def test_router_retry_after_backs_off_monotonically():
 # ---------------------------------------------------------------------------
 
 def test_signal_snapshot_is_the_shed_ladders_numbers():
+    # the snapshot carries each package's error-budget burn, which the
+    # tests run before this one in the same worker leave behind
+    for co in (jco, tco):
+        co.reset()
+
     def case(side):
         ctrl = side.adm.AdmissionController()
         ctrl.register_depth_source("q", lambda: 7)

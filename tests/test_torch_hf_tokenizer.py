@@ -389,9 +389,21 @@ def test_get_tokenizer_not_stale_after_registration(jax_made):
     assert t3._tok.path == _tj(jax_made["gemma"])
 
 
+# The files the port refused while it read byte-level BPE only. Each is
+# now held against the library where the library reads it (the file's
+# truncation and padding apply in HFTokenizer and not in HFAutoTokenizer,
+# as in the JAX package), and refused by both packages where the library
+# refuses it (a malformed Unigram, WordPiece or Metaspace; a subword
+# prefix the library's merge table panics on; a partial truncation).
 UNSUPPORTED = {
     "normalizer_nfc": lambda d: d.update(normalizer={"type": "NFC"}),
-    "truncation": lambda d: d.update(truncation={"max_length": 8}),
+    "truncation": lambda d: d.update(
+        truncation={"max_length": 8, "strategy": "LongestFirst",
+                    "stride": 0, "direction": "Left"},
+        padding={"strategy": {"Fixed": 10}, "direction": "Right",
+                 "pad_to_multiple_of": None, "pad_id": 0, "pad_type_id": 0,
+                 "pad_token": "<|pad|>"}),
+    "truncation_partial": lambda d: d.update(truncation={"max_length": 8}),
     "model_unigram": lambda d: d["model"].update(type="Unigram"),
     "model_wordpiece": lambda d: d["model"].update(type="WordPiece"),
     "byte_fallback": lambda d: d["model"].update(byte_fallback=True),
@@ -413,13 +425,45 @@ UNSUPPORTED = {
     "decoder_metaspace": lambda d: d.update(decoder={"type": "Metaspace"}),
     "decoder_none": lambda d: d.update(decoder=None),
 }
+REFUSED_BY_BOTH = {"truncation_partial", "model_unigram", "model_wordpiece",
+                   "subword_prefix", "decoder_metaspace"}
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unsupported_components_raise(jax_made, case, tmp_path):
     path = _variant(jax_made["llama"], UNSUPPORTED[case], tmp_path)
-    with pytest.raises(NotImplementedError):
-        ttok.HFTokenizer(path)
+    if case in REFUSED_BY_BOTH:
+        # a library panic is a BaseException
+        with pytest.raises(BaseException):
+            LibTokenizer.from_file(path)
+        with pytest.raises(BaseException):
+            jtok.HFTokenizer(path)
+        with pytest.raises((NotImplementedError, ValueError)):
+            ttok.HFTokenizer(path)
+        return
+    texts = corpus(seed=3, n=150, extra=True)
+    _matches_library(path, texts)
+    ref = jtok.HFTokenizer(path, bos_id=1, eos_id=2)
+    got = ttok.HFTokenizer(path, bos_id=1, eos_id=2)
+    for text in texts:
+        ids = ref.encode(text, add_bos=True)
+        assert got.encode(text, add_bos=True) == ids, text
+        assert got.decode(ids) == ref.decode(ids)
+    if case != "truncation":
+        return
+    # the split: a bare file truncates (keeping the left end here) and
+    # pads; the checkpoint's AutoTokenizer does neither
+    d = shutil.copytree(jax_made["llama"], str(tmp_path / "ck"))
+    shutil.copy(path, os.path.join(d, "tokenizer.json"))
+    auto_ref, auto_got = jtok.HFAutoTokenizer(d), ttok.HFAutoTokenizer(d)
+    assert auto_got.pad_id == auto_ref.pad_id
+    long = [t for t in texts if len(auto_ref.encode(t)) > 8]
+    assert long and all(len(got.encode(t)) == 10 for t in texts)
+    for text in texts:
+        full = auto_ref.encode(text)
+        assert auto_got.encode(text) == full, text
+        if len(full) > 8:
+            assert got.encode(text)[:8] == full[-8:]
 
 
 def test_checkpoint_without_tokenizer_json_raises(tmp_path):

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing any of its modules, or
 chip_smoke.py, in a fresh interpreter loads neither JAX nor the JAX
 package, nor the libraries the JAX package reads checkpoints with
-(``safetensors``, ``tokenizers``, ``transformers``, ``regex``,
-``ml_dtypes``), which the card's machine lacks, nor PyYAML or
+(``safetensors``, ``tokenizers``, ``transformers``, ``sentencepiece``,
+``regex``, ``ml_dtypes``), which the card's machine lacks (the probe
+reads chip_smoke.py's SentencePiece-form tokenizers to show it), nor PyYAML or
 ``jsonschema``, which it lacks too (the port reads manifests and skills
 with ``governance/frontmatter.py`` and checks grove schemas with
 ``governance/jsonschema_lite.py``: the probe loads the shipped groves,
@@ -124,7 +125,10 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.sim.workload",
              "quoracle_tpu_torch.sim.replay",
              "quoracle_tpu_torch.sim.gate",
-             "quoracle_tpu_torch.sim.calibrate"):
+             "quoracle_tpu_torch.sim.calibrate",
+             "quoracle_tpu_torch.models.tokenizer_pipeline",
+             "quoracle_tpu_torch.native",
+             "quoracle_tpu_torch.native.tokenizer"):
     assert name in names, name
 from quoracle_tpu_torch.governance import grove, skills
 groves = grove.list_groves(os.path.join({repo!r}, "groves"))
@@ -139,10 +143,15 @@ assert skills.parse_skill_md(skills.render_skill_md("a", "b: c", "d")) \
     .description == "b: c"
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join({repo!r}, "chip_smoke.py"))
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+chip_smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(chip_smoke)
+from quoracle_tpu_torch.models.tokenizer import HFTokenizer
+for form in ("mistral", "gemma"):
+    tok = HFTokenizer(spec=chip_smoke.sp_tokenizer(form, 4096)[0])
+    assert tok.decode(tok.encode("x 漢字 y")) == "x 漢字 y", form
 BANNED = ("jax", "jaxlib", "quoracle_tpu", "safetensors", "tokenizers",
-          "transformers", "regex", "ml_dtypes", "yaml", "jsonschema",
-          "cryptography")
+          "transformers", "sentencepiece", "regex", "ml_dtypes", "yaml",
+          "jsonschema", "cryptography")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 print(len(names), bad)
 """

@@ -25,6 +25,7 @@ registries' storm window holds the same misses on both sides, and
 
 import contextlib
 import itertools
+import threading
 import types
 
 import pytest
@@ -154,10 +155,32 @@ def _engine_rounds(eng):
     return out
 
 
+class HeldPolicy:
+    """An admission policy that hands the loop no row until ``release``:
+    the rows submitted before it join the loop in one admit whatever the
+    host's speed (a row submitted while the loop admits the first would
+    join a chunk later, and the batch, so the tokens, would change)."""
+
+    def __init__(self, policy):
+        self._policy = policy
+        self._released = threading.Event()
+
+    def pop(self):
+        return self._policy.pop() if self._released.is_set() else None
+
+    def release(self, cb) -> None:
+        self._released.set()
+        cb._wake.set()
+
+    def __getattr__(self, name):
+        return getattr(self._policy, name)
+
+
 def _loop_rows(eng, speculate=False):
     eng._generator.manual_seed(77)
     spec = (tspec.BatchedSpeculator(eng, eng, k=4) if speculate else None)
-    cb = tsch.ContinuousBatcher(eng, chunk=4, speculator=spec)
+    held = HeldPolicy(tqos.FifoPolicy())
+    cb = tsch.ContinuousBatcher(eng, chunk=4, speculator=spec, policy=held)
     try:
         futs = [cb.submit(enc(SYS + f"row {i}"), temperature=t,
                           max_new_tokens=14, session_id=f"s{i}",
@@ -165,6 +188,7 @@ def _loop_rows(eng, speculate=False):
                           decide="d1", tree={"tree_id": "task-l",
                                              "node_id": "n1"})
                 for i, t in enumerate((0.0, 0.0, 0.7))]
+        held.release(cb)
         return _rows_view([f.result(WAIT) for f in futs])
     finally:
         cb.close()
@@ -287,15 +311,16 @@ def _serving_script(pkg):
     eng2 = engine(pkg, "unified")
     spec = pkg.spec.BatchedSpeculator(eng2, eng2, k=4)
     adm = pkg.adm.AdmissionController(pkg.adm.AdmissionConfig())
+    held = HeldPolicy(pkg.qos.WeightedFairPolicy(model=eng2.cfg.name))
     cb = pkg.sch.ContinuousBatcher(
-        eng2, chunk=4, speculator=spec, admission=adm,
-        policy=pkg.qos.WeightedFairPolicy(model=eng2.cfg.name))
+        eng2, chunk=4, speculator=spec, admission=adm, policy=held)
     try:
         futs = [cb.submit(enc(SYS + f"row {i}"), temperature=0.0,
                           max_new_tokens=12, priority=i % 3,
                           tenant="acme", deadline_s=(0.0 if i == 2
                                                      else None))
                 for i in range(3)]
+        held.release(cb)
         rows = []
         for f in futs:
             try:
