@@ -93,8 +93,9 @@ never prints its last line):
              copied (cow_copies) and the call runs on gather, the
              adopter's pages stay bit-identical on the card, and both
              devices give identical texts, cached counts and counters;
-             (3) a second agent's first decide over the decide pool, same
-             action set and messages: cached tokens of at least 128 on
+             (3) a second agent's first decide over the decide pool (one
+             round, SECOND_AGENT_ROUNDS), same action set and messages:
+             cached tokens of at least 128 on
              llama-3-8b and gemma-7b, 0 on mistral-7b (windowed models
              never share); its status and latency are printed
   batch      the JAX backend's default dispatch on the card: three
@@ -122,10 +123,11 @@ never prints its last line):
              temperature-0 tokens of one-shot generate, the owned
              sessions are dropped and ragged_fwd runs; (2) llama-3-8b in
              bf16 over the serve phase's weights: agent A's JSON row of
-             256 new tokens, and agent B's 8-token row sent once A's loop
-             has stepped twice, through the loop and then (B sent at the
-             same ragged launch count) through the baton batcher: both
-             rows' ms, A's chunks and ms a chunk, the rows of each step
+             LATE_A_TOKENS new tokens, and agent B's 8-token row sent
+             once A's loop has stepped twice, through the loop and then
+             (B sent at the same ragged launch count) through the baton
+             batcher: both rows' ms, A's chunks and ms a chunk, the rows
+             of each step
              (timing recorded, not failed); then the serve traffic's two
              rounds through the loop (JSON prefixes, round 2 resumed,
              ragged_fwd and never a paged kernel); (3) QoS: one slot held
@@ -381,6 +383,27 @@ never prints its last line):
              The launch counts are zeroed before the decides and read
              after the embedder: ragged_fwd and flash_fwd must have run;
              their first kept inputs are then held against the twins
+  vlm        the VLM and the diffusion image backend: the native image
+             library (native/image.cpp, built with g++ -lz into
+             build/native/) must load; a 640x480 PNG decoded and resized
+             to 224 by it and by the Python path, timed, one step apart at
+             most; make_checkpoint's vlm family at its 1b scale (llama-1b
+             decoder, a 224 px ViT of 256 patches) written to a temporary
+             directory outside the checkout, registered and loaded in
+             full (bf16, the tower with it) by a TorchBackend beside
+             llama-3-8b (an engine of its own over the pool's weights,
+             DEPTH_CUT layers), members in turn; the tower timed; one
+             decide (DECIDE_MAX_TOKENS, one round) over an agent context
+             whose fetch_web result holds the PNG as image_base64 (the
+             VLM's generate must get the image), then greedy queries with
+             that PNG and another (their texts differ; prefill ms, ms a
+             decode step) and the first through a continuous backend (the
+             same text); flash_fwd and ragged_fwd launched, their kept
+             inputs held against the twins; a 1-layer fp32 cut: the
+             tower's output and a greedy image row GPU against CPU; the
+             diffusion backend: two 256 px images (cold, warm), a 64 px
+             sample GPU against CPU from one noise, and a generate_images
+             action through Runtime(image_backend="diffusion")
   mainpath   each kernel against its twin on those kept inputs, timed
              (CUDA events, L2 flushed before every launch) beside its
              bound, the twin's time and scaled_dot_product_attention's
@@ -489,7 +512,7 @@ never prints its last line):
              one tokenizer share the JSON grammar's host table
 
 in that order but for batch, continuous, obs, agent, runtime, web,
-cluster, fabric, tok and spec, which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
+cluster, fabric, tok, vlm and spec, which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
 line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
@@ -504,8 +527,8 @@ decide after the build (no last line); ``--only prefix`` runs the decide
 phase and then the prefix phase after the build (no last line);
 ``--only calib``, ``--only batch``, ``--only continuous``, ``--only
 spec``, ``--only tiers``, ``--only obs``, ``--only agent``, ``--only
-runtime``, ``--only web``, ``--only cluster``, ``--only fabric`` and
-``--only tok`` run that phase after
+runtime``, ``--only web``, ``--only cluster``, ``--only fabric``,
+``--only tok`` and ``--only vlm`` run that phase after
 the build, over weights drawn here (no last line); ``--only reference`` runs
 the reference phase after the build (no last line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
 the build (no last line). Every
@@ -1689,17 +1712,20 @@ def untier_spy(eng) -> None:
 
 def run_decides(R, CE, backend, pool: list, max_tokens: int,
                 max_refinement_rounds: int = 4,
-                session_key: str = "agent-decide", steps: int = 2) -> tuple:
+                session_key: str = "agent-decide", steps: int = 2,
+                messages: Optional[list] = None) -> tuple:
     """Decides of one agent (session ``session_key``) through the port's
     ConsensusEngine over ``backend``, allowed actions {"wait"}, on the
-    default schedule: the first from the system prompt and a task, the
-    second (``steps`` 2) the agent's next step. Returns the outcomes and,
-    per decide, the seconds of each round (``backend.query`` call), each
-    member's tier and cached tokens per round, and the seconds spent
-    building JSON grammar tables."""
-    messages = [{"role": "system", "content": wait_only_system_prompt()},
-                {"role": "user", "content": "Task: keep the build green. "
-                                            "Decide the next step."}]
+    default schedule: the first from ``messages`` (default: the system
+    prompt and a task), the second (``steps`` 2) the agent's next step.
+    Returns the outcomes and, per decide, the seconds of each round
+    (``backend.query`` call), each member's tier and cached tokens per
+    round, and the seconds spent building JSON grammar tables."""
+    if messages is None:
+        messages = [{"role": "system", "content": wait_only_system_prompt()},
+                    {"role": "user", "content": "Task: keep the build "
+                                                "green. Decide the next "
+                                                "step."}]
     rec = {"round_s": [], "tiers": {m: [] for m in pool}, "cached": [],
            "grammar_s": 0.0}
     orig_query = backend.query
@@ -2049,6 +2075,13 @@ def prefix_cow(torch, R) -> dict:
     return report
 
 
+# the second agent's decide takes one round: its check reads the first
+# round's cached tokens only (cut for the script's 1,200 s when the vlm
+# phase came: at the default four rounds it took 24.1-36.1 s of a slow
+# H100 host's whole run)
+SECOND_AGENT_ROUNDS = 0
+
+
 def prefix_second_agent(torch, R, kernels, pool_backend) -> dict:
     """Part 3: a second agent's first decide over the decide pool, after
     the decide phase's two decides, with the same action set and
@@ -2057,9 +2090,10 @@ def prefix_second_agent(torch, R, kernels, pool_backend) -> dict:
     adopts none."""
     from quoracle_tpu_torch.consensus import engine as CE
     kernels.reset_launch_counts()
-    outcomes, records = run_decides(R, CE, pool_backend, DECIDE_POOL,
-                                    DECIDE_MAX_TOKENS,
-                                    session_key="agent-second", steps=1)
+    outcomes, records = run_decides(
+        R, CE, pool_backend, DECIDE_POOL, DECIDE_MAX_TOKENS,
+        max_refinement_rounds=SECOND_AGENT_ROUNDS,
+        session_key="agent-second", steps=1)
     torch.cuda.synchronize()
     summary = decide_summary(outcomes[0], records[0])
     first = summary["member_cached_tokens"][0]
@@ -2566,7 +2600,10 @@ def phase_batch(torch, R, kernels, dfa, backend, pool_backend) -> dict:
 # -- the continuous phase ----------------------------------------------------
 
 CONT_CHUNK = 32             # TorchBackend's continuous_chunk default
-LATE_A_TOKENS = 256         # agent A's row in the late-arrival schedule
+# agent A's row in the late-arrival schedule, cut for the script's
+# 1,200 s when the vlm phase came (at 256, A's two runs took 42.7 s of a
+# slow H100 host's whole run; B still arrives two chunks into A's row)
+LATE_A_TOKENS = 128
 LATE_B_TOKENS = 8           # agent B's row
 
 
@@ -3085,8 +3122,9 @@ def phase_continuous(torch, R, kernels, dfa, backend, pool_backend,
 SPEC_K = 6                  # TorchBackend's draft_k default
 SPEC_CUT_TOKENS = 40        # new tokens a row of the fp32 cut
 # the bf16 JSON row's new tokens, cut for the script's 1,200 s (at 256,
-# its three runs took 75 s of one slow H100 host's whole run)
-SPEC_LONG_TOKENS = 128
+# its three runs took 75 s of one slow H100 host's whole run; at 128,
+# 43.7 s, cut again when the vlm phase came)
+SPEC_LONG_TOKENS = 64
 CUT_POOL_BYTES = 512 << 20  # session pool of an fp32-cut engine
 
 
@@ -7080,6 +7118,459 @@ def phase_tok(torch, R, F, P, kernels, pool_backend) -> dict:
     return report
 
 
+# -- the vlm phase -----------------------------------------------------------
+
+# the VLM: make_checkpoint's vlm family at its 1b scale (llama-1b decoder,
+# hidden 2048, 16 layers; a 224 px ViT of 256 patches, dim 512, 6 layers),
+# full width and depth, written with this seed
+VLM_SCALE = "1b"
+VLM_SEED = 0
+VLM_PNG_SIZE = (640, 480)   # the agents' PNGs, resized to 224 by the path
+VLM_PNG_SEEDS = (11, 12)    # the decide's image, then a second one
+VLM_GREEDY_TOKENS = 32      # new tokens of the two greedy image queries
+VLM_CUT_TOKENS = 8          # ... and of the fp32 cut's GPU and CPU rows
+# the fp32 cut's tower, GPU against CPU: six 512-wide layers and a
+# 2048-wide projector summed in another order on each (TF32 off)
+VLM_TOWER_TOL = (1e-4, 1e-4)
+# one 64 px diffusion sample, GPU against CPU from the same noise: 30
+# steps whose first ones scale eps by rsqrt(alpha-bar) ~ 158, so the
+# convolutions' fp32 ulps grow; the bar is one 8-bit step of the PNG
+DIFFUSION_TOL = 1.0 / 255
+DIFFUSION_PROMPT = "a lighthouse on a cliff at dusk"
+MOCK_POOL = ["mock:consensus-model-1", "mock:consensus-model-2",
+             "mock:consensus-model-3"]
+
+
+def vlm_png(path: str, seed: int) -> bytes:
+    """A VLM_PNG_SIZE RGB gradient with seeded noise, written by the
+    port's ``write_png``; returns the file's bytes."""
+    import numpy as np
+
+    from quoracle_tpu_torch.models.images import write_png
+    w, h = VLM_PNG_SIZE
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    px = np.stack([x * 255 // (w - 1), y * 255 // (h - 1),
+                   (x + y) * 255 // (w + h - 2)], -1)
+    px = (px + rng.integers(0, 32 + 64 * (seed % 2), (h, w, 3))) % 256
+    write_png(path, px.astype(np.uint8).tobytes(), w, h)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def vlm_messages(b64: str) -> list:
+    """An agent's messages with a fetched PNG: the system prompt of an
+    agent allowed {"wait"}, a task, and a fetch_web result carrying
+    ``image_base64`` (tests/test_vision.py's shape), through the port's
+    ``build_messages_for_model``: the last message holds a text part and
+    an image part."""
+    from quoracle_tpu_torch.context.history import (
+        RESULT, USER, AgentContext, HistoryEntry,
+    )
+    from quoracle_tpu_torch.context.message_builder import (
+        build_messages_for_model,
+    )
+    ctx = AgentContext()
+    ctx.append("m", HistoryEntry(kind=USER, content="Fetch the chart and "
+                                 "decide the next step."))
+    ctx.append("m", HistoryEntry(kind=RESULT, action_type="fetch_web",
+                                 content={"action": "fetch_web", "result": {
+                                     "status": "ok",
+                                     "content_type": "image/png",
+                                     "image_base64": b64}}))
+    msgs = build_messages_for_model(ctx, "m",
+                                    system_prompt=wait_only_system_prompt())
+    if [p["type"] for p in msgs[-1]["content"]] != ["text", "image_base64"]:
+        raise AssertionError("the fetched image is not a message part")
+    return msgs
+
+
+def image_query(R, spec: str, b64: str, max_tokens: int, **kw):
+    return R.QueryRequest(spec, [{"role": "user", "content": [
+        {"type": "text", "text": "Describe the chart in one line."},
+        {"type": "image_base64", "data": b64}]}], temperature=0.0,
+        max_tokens=max_tokens, **kw)
+
+
+def vlm_native(root: str) -> tuple:
+    """The native image library must load; the decide's PNG decoded and
+    resized to 224 by the native and the Python paths, each timed (the
+    median of 5 calls), their pixels compared."""
+    import statistics
+
+    import numpy as np
+
+    from quoracle_tpu_torch.native import image as NI
+    from quoracle_tpu_torch.native import so_path
+    if not NI.native_available():
+        raise AssertionError("the native image library did not build on "
+                             "this host")
+    pngs = [vlm_png(os.path.join(root, f"chart-{s}.png"), s)
+            for s in VLM_PNG_SEEDS]
+
+    def timed(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+    nat, nat_ms = timed(lambda: NI.decode_resize(pngs[0], 224, 224))
+    py, py_ms = timed(lambda: NI._py_resize(NI._py_decode_png(pngs[0]),
+                                            224, 224))
+    diff = np.abs(nat.astype(int) - py.astype(int))
+    report = {"png": list(VLM_PNG_SIZE), "png_bytes": len(pngs[0]),
+              "native_so": os.path.relpath(
+                  so_path(NI.SRC_PATH, NI.LINK_FLAGS), REPO),
+              "native_ms": nat_ms, "python_ms": py_ms,
+              "max_diff": int(diff.max()),
+              "values_differing": int((diff > 0).sum()),
+              "values": int(diff.size)}
+    # two bilinear resizers: one step of 255 apart at most, the bar both
+    # packages' tests hold them to
+    if report["max_diff"] > 1:
+        raise AssertionError(f"native and Python resize differ: {report}")
+    return pngs, report
+
+
+def vlm_cut(torch, R, cfg, tok, b64: str) -> dict:
+    """The VLM at full width and CPU_CUT_LAYERS layers in fp32, one set
+    of weights on the card and the CPU: the tower's soft tokens within
+    VLM_TOWER_TOL, and one greedy image row's tokens identical."""
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.vision import vision_encode
+    cut = dataclasses.replace(cfg, name=f"{cfg.name}-{CPU_CUT_LAYERS}layer",
+                              n_layers=CPU_CUT_LAYERS)
+    gpu_p, cpu_p = fp32_cut(torch, cut, seed=9, cpu_copy=True)
+    engines = [GenerateEngine(cut, p, tok, device=d)
+               for p, d in ((gpu_p, "cuda"), (cpu_p, "cpu"))]
+    ids, image = R._encode_multimodal(engines[0], [{"role": "user",
+                                                     "content": [
+        {"type": "text", "text": "Describe the chart."},
+        {"type": "image_base64", "data": b64}]}])
+    px = torch.from_numpy(image)[None]
+    tower = [vision_encode(e.params.vision, cut.vision,
+                           px.to(e.device)).cpu() for e in engines]
+    err = (tower[0] - tower[1]).abs()
+    atol, rtol = VLM_TOWER_TOL
+    within = bool((err <= atol + rtol * tower[1].abs()).all())
+    rows = [e.generate([ids], temperature=0.0, max_new_tokens=VLM_CUT_TOKENS,
+                       images=[image])[0] for e in engines]
+    out = {"layers": CPU_CUT_LAYERS, "prompt_tokens": len(ids),
+           "tower_max_abs_err": float(err.max()), "tower_tol": VLM_TOWER_TOL,
+           "tower_within": within,
+           "tokens": [r.token_ids for r in rows],
+           "texts_equal": rows[0].token_ids == rows[1].token_ids}
+    del engines, gpu_p, cpu_p
+    return out
+
+
+def vlm_diffusion(torch, root: str) -> dict:
+    """The diffusion image backend on the card: two 256 px images of one
+    prompt (cold, then warm: seconds an image and a DDIM step), the same
+    prompt's pixels again; one 64 px sample GPU against CPU from the same
+    noise; one generate_images action through
+    Runtime(RuntimeConfig(image_backend="diffusion")), whose agent (a
+    scripted MockBackend pool) writes its image."""
+    import asyncio
+
+    from quoracle_tpu_torch import runtime as RT
+    from quoracle_tpu_torch.models import diffusion as D
+    from quoracle_tpu_torch.models.runtime import MockBackend
+    out = {}
+    t0 = time.monotonic()
+    dib = D.DiffusionImageBackend(seed=0)
+    torch.cuda.synchronize()
+    out["init_s"] = time.monotonic() - t0
+    runs = []
+    for _ in range(2):
+        t0 = time.monotonic()
+        imgs = dib.generate(DIFFUSION_PROMPT, count=2, size="256x256",
+                            out_dir=os.path.join(root, "diffusion"))
+        runs.append((time.monotonic() - t0, imgs))
+    steps = dib.cfg.sample_steps
+    (cold_s, first), (warm_s, second) = runs
+    same = all(open(a.path, "rb").read() == open(b.path, "rb").read()
+               for a, b in zip(first, second))
+    out.update(device=str(dib.device), cold_s=cold_s, warm_s=warm_s,
+               s_per_image=warm_s / 2, s_per_step=warm_s / steps,
+               steps=steps, images=[[i.width, i.height] for i in second],
+               deterministic=same)
+    cpu = D.UNet.empty(dib.cfg, "cpu")
+    cpu.load_state_dict(dib.params.state_dict())
+    x0 = torch.randn((1, 3, dib.cfg.image_size, dib.cfg.image_size),
+                     generator=torch.Generator().manual_seed(5))
+    ids = torch.as_tensor(dib._prompt_ids(DIFFUSION_PROMPT))[None]
+    got = [D.ddim_loop(m, dib.cfg, x0.to(dev),
+                       D.prompt_embedding(m, ids.to(dev))).cpu()
+           for m, dev in ((dib.params, "cuda"), (cpu, "cpu"))]
+    out["gpu_cpu_max_abs_err"] = float((got[0] - got[1]).abs().max())
+    out["gpu_cpu_tol"] = DIFFUSION_TOL
+
+    def j(action, params):
+        return json.dumps({"action": action, "params": params,
+                           "reasoning": "smoke", "wait": False})
+    backend = MockBackend(
+        scripts={m: [j("generate_images", {"prompt": DIFFUSION_PROMPT,
+                                           "count": 1, "size": "96x64"}),
+                     j("wait", {})] for m in MOCK_POOL},
+        respond=lambda r: j("wait", {}))
+    A = agent_modules()
+    rt = RT.Runtime(RT.RuntimeConfig(
+        db_path=os.path.join(root, "images.db"), image_backend="diffusion",
+        seed=0), backend=backend)
+
+    async def drive():
+        core = await rt.supervisor.start_agent(A.AgentConfig(
+            agent_id="agent-images", task_id="t-images",
+            model_pool=list(MOCK_POOL), working_dir=root))
+        core.post({"type": "user_message", "content": "draw it",
+                   "from": "user"})
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            res = [e for e in core.ctx.history(MOCK_POOL[0])
+                   if e.kind == "result"]
+            if res:
+                break
+            await asyncio.sleep(0.05)
+        await rt.supervisor.terminate_agent("agent-images")
+        return res
+    try:
+        composed = (type(rt.deps.images) is D.DiffusionImageBackend
+                    and rt.deps.images.device.type == "cuda")
+        t0 = time.monotonic()
+        res = asyncio.run(drive())
+        out["action_s"] = time.monotonic() - t0
+    finally:
+        rt.close()
+    if not res:
+        raise AssertionError("generate_images gave no result")
+    result = res[0].content["result"]
+    image = result["images"][0]
+    out["action"] = {"composed_on_cuda": composed,
+                     "status": result["status"], "image": [
+                         image["width"], image["height"]],
+                     "model": image["model"],
+                     "written": os.path.isfile(image["path"])}
+    return out
+
+
+def phase_vlm(torch, R, F, P, kernels, pool_backend) -> dict:
+    """The VLM and the diffusion image backend on the card:
+    (1) native image preprocessing: the library built and loaded; the
+    decide's 640x480 PNG decoded and resized to 224 by the native and the
+    Python paths, timed, their pixels at most one step apart;
+    (2) make_checkpoint's ``vlm`` family at its 1b scale written by the
+    port to a temporary directory outside the checkout, registered, and
+    loaded (full width and depth, bf16, the tower with it) by a
+    TorchBackend beside llama-3-8b (an engine of its own over the decide
+    pool's weights and grammar tables, DEPTH_CUT layers), members in turn;
+    each member's grammar table built in turn and timed; the tower timed
+    alone on the PNG;
+    (3) one ConsensusEngine decide (one round, DECIDE_MAX_TOKENS a member)
+    over messages that build_messages_for_model makes from an agent
+    context holding a fetch_web result with the PNG as ``image_base64``:
+    the VLM's engine must see the image (its generate called with it, the
+    row 256 placeholders longer); then one greedy query with that PNG and
+    one with another, whose texts must differ, timed (prefill ms, ms a
+    decode step). The launch counts are zeroed before the decide and read
+    after the queries: flash_fwd (the VLM's image rows) and ragged_fwd
+    (llama-3-8b's sessioned rows) must have run, the paged and int8
+    kernels not; their first kept inputs are then held against the twins;
+    (4) the first image row again through a ``continuous=True`` backend
+    over the VLM's engine: the same text;
+    (5) the fp32 cut (``vlm_cut``) and the diffusion backend
+    (``vlm_diffusion``)."""
+    from quoracle_tpu_torch.consensus import engine as CE
+    from quoracle_tpu_torch.models import loader
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.make_checkpoint import make_checkpoint
+    from quoracle_tpu_torch.models.vision import vision_encode
+    import base64
+    t_phase = time.monotonic()
+    report = {"phase": "vlm", "scale": VLM_SCALE, "card": nvidia_smi()}
+    root = tempfile.mkdtemp(prefix="chip_smoke_vlm_")
+    backend, cont, kept = None, None, {}
+    orig_flash, orig_ragged = F.flash_attend, P.ragged_attend
+    try:
+        pngs, report["image"] = vlm_native(root)
+        b64 = [base64.b64encode(p).decode() for p in pngs]
+        t0 = time.monotonic()
+        path = make_checkpoint(os.path.join(root, "vlm-1b"), family="vlm",
+                               scale=VLM_SCALE, seed=VLM_SEED)
+        report["write_s"] = time.monotonic() - t0
+        report["bytes_written"] = os.path.getsize(
+            os.path.join(path, "model.safetensors"))
+        cfg = loader.register_hf_checkpoint(path, "vlm-1b-ckpt")
+        spec = "xla:" + cfg.name
+        if cfg.vision is None or cfg.vision.n_patches != 256:
+            raise AssertionError(f"the vlm config: {cfg.vision}")
+        report["config"] = {"dim": cfg.dim, "n_layers": cfg.n_layers,
+                            "vocab": cfg.vocab_size,
+                            "vision": dataclasses.asdict(cfg.vision),
+                            "image_token_id": cfg.image_token_id,
+                            "n_params": cfg.n_params}
+        base_llama = pool_backend.engines[MODEL]
+        llama = GenerateEngine(base_llama.cfg, base_llama.params,
+                               base_llama.tokenizer, seed=0,
+                               device=base_llama.device)
+        llama._json_cache = base_llama._json_cache
+        loads = []
+        orig_load = R.loader.load_params
+
+        def timed_load(*a, **kw):
+            t = time.monotonic()
+            model = orig_load(*a, **kw)
+            torch.cuda.synchronize()
+            loads.append(time.monotonic() - t)
+            return model
+        R.loader.load_params = timed_load
+        try:
+            t0 = time.monotonic()
+            pool = [MODEL, spec]
+            backend = R.TorchBackend(pool, device=base_llama.device,
+                                     engines={MODEL: llama},
+                                     embedder=pool_backend.embedder,
+                                     overlap=False)
+            torch.cuda.synchronize()
+            report["init_s"] = time.monotonic() - t0
+        finally:
+            R.loader.load_params = orig_load
+        report["load_s"] = loads
+        vlm = backend.engines[spec]
+        grammar = {}
+        for s in pool:              # in turn: threads cost ~3.5x
+            t0 = time.monotonic()
+            backend.engines[s]._json_table_device((("wait",),))
+            grammar[s] = time.monotonic() - t0
+        report["grammar_build_s"] = grammar
+        from quoracle_tpu_torch.native.image import preprocess_for_vision
+        px = torch.from_numpy(preprocess_for_vision(pngs[0]))[None].cuda()
+        report["tower_ms"] = cuda_ms(torch, lambda: vision_encode(
+            vlm.params.vision, cfg.vision, px))
+
+        seen = []
+        orig_generate = vlm.generate
+
+        def spy(prompts, *a, images=None, **kw):
+            seen.append((sum(i is not None for i in images or ()),
+                         [len(p) for p in prompts]))
+            return orig_generate(prompts, *a, images=images, **kw)
+        vlm.generate = spy
+
+        def flash_rec(*a, **kw):
+            if "flash_fwd" not in kept:
+                kept["flash_fwd"] = (
+                    [x.clone() if torch.is_tensor(x) else x for x in a],
+                    {n: x.clone() if torch.is_tensor(x) else x
+                     for n, x in kw.items()})
+            return orig_flash(*a, **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        F.flash_attend = flash_rec
+        P.ragged_attend = ragged_recorder(
+            torch, P, kept.setdefault("ragged_fwd", {}), lambda: True)
+        try:
+            outcomes, records = run_decides(
+                R, CE, backend, pool, DECIDE_MAX_TOKENS,
+                max_refinement_rounds=TOK_REFINEMENT_ROUNDS,
+                session_key="agent-vlm", steps=1,
+                messages=vlm_messages(b64[0]))
+            greedy = []
+            for b in b64:
+                t0 = time.monotonic()
+                r = backend.query([image_query(R, spec, b,
+                                               VLM_GREEDY_TOKENS)])[0]
+                if not r.ok:
+                    raise AssertionError(f"the image query: {r.error}")
+                greedy.append({
+                    "wall_ms": (time.monotonic() - t0) * 1e3,
+                    "prompt_tokens": r.usage.prompt_tokens,
+                    "completion_tokens": r.usage.completion_tokens,
+                    "prefill_ms": r.prefill_ms, "decode_ms": r.decode_ms,
+                    "ms_per_decode_step": r.decode_ms / max(
+                        1, r.usage.completion_tokens),
+                    "text": r.text})
+        finally:
+            F.flash_attend, P.ragged_attend = orig_flash, orig_ragged
+            del vlm.generate
+        launches = kernels.launch_counts()
+        report.update(pool=pool, decide=decide_summary(outcomes[0],
+                                                       records[0]),
+                      vlm_generate_calls=seen, greedy=greedy,
+                      launches=launches)
+        t0 = time.monotonic()
+        cont = R.TorchBackend([spec], device=vlm.device,
+                              engines={spec: vlm},
+                              embedder=pool_backend.embedder,
+                              continuous=True)
+        r = cont.query([image_query(R, spec, b64[0], VLM_GREEDY_TOKENS,
+                                    session_id="agent-vlm-cont")])[0]
+        report["continuous"] = {"ok": r.ok, "error": r.error,
+                                "wall_ms": (time.monotonic() - t0) * 1e3,
+                                "text_equal": r.text == greedy[0]["text"]}
+        cont.close()
+        cont = None
+        out = outcomes[0]
+        answered = ({p.model_spec for p in out.proposals}
+                    | {f.model_spec for f in out.failures if f.raw_text})
+        placeholders = cfg.vision.n_patches
+        checks = {
+            # random weights: the status need not be ok, but both members
+            # answered, and the VLM's rows carried the image
+            "decide": answered == set(pool),
+            "vlm_saw_image": bool(seen) and seen[0][0] == 1
+            and all(n > placeholders for n in seen[0][1]),
+            "images_differ": greedy[0]["text"] != greedy[1]["text"],
+            "continuous": report["continuous"]["ok"]
+            and report["continuous"]["text_equal"],
+            "kernels": launches["flash_fwd"] > 0
+            and launches["ragged_fwd"] > 0 and all(
+                launches[n] == 0 for n in ("paged_fwd", "paged_prefill_fwd",
+                                           "ragged_q8_fwd"))}
+        backend.close()
+        del backend
+        backend = None
+        torch.cuda.empty_cache()
+        report["fp32_cut"] = vlm_cut(torch, R, cfg, vlm.tokenizer, b64[0])
+        checks["fp32_cut"] = (report["fp32_cut"]["tower_within"]
+                              and report["fp32_cut"]["texts_equal"])
+        del vlm
+        torch.cuda.empty_cache()
+        report["diffusion"] = d = vlm_diffusion(torch, root)
+        checks["diffusion"] = (
+            d["deterministic"] and d["images"] == [[256, 256]] * 2
+            and d["gpu_cpu_max_abs_err"] <= DIFFUSION_TOL
+            and d["action"]["composed_on_cuda"]
+            and d["action"]["status"] == "ok"
+            and d["action"]["image"] == [96, 64]
+            and d["action"]["written"])
+        report["checks"] = checks
+        if not all(checks.values()):
+            emit(report)
+            raise AssertionError(f"the vlm phase failed its checks: "
+                                 f"{[k for k, v in checks.items() if not v]}")
+    finally:
+        F.flash_attend, P.ragged_attend = orig_flash, orig_ragged
+        for b in (backend, cont):
+            if b is not None:
+                b.close()
+        del backend, cont
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the kept bf16 inputs against the twins (launches not counted)
+    report["ticks"] = {key: ragged_tick_numbers(
+        torch, P, kernels.RAGGED, *kept["ragged_fwd"][key])
+        for key in ("decode", "chunk")}
+    report["flash"] = flash_entry(torch, F, kernels, kept["flash_fwd"],
+                                  launches["flash_fwd"])
+    del kept
+    torch.cuda.empty_cache()
+    report["seconds"] = time.monotonic() - t_phase
+    return report
+
+
 REFERENCE_TIERS = {
     # (int8 weights and pages, engine attributes)
     # the unified kernel (the card's default; forced on the CPU)
@@ -7872,7 +8363,8 @@ def main(argv) -> int:
     only = None
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
               "continuous", "spec", "ckpt", "tiers", "obs", "agent",
-              "runtime", "web", "cluster", "fabric", "tok", "reference")
+              "runtime", "web", "cluster", "fabric", "tok", "vlm",
+              "reference")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -7974,6 +8466,11 @@ def main(argv) -> int:
         emit(phase_tok(torch, R, F, P, kernels,
                        decide_pool_backend(torch, R, backend)[0]))
         return 0
+    if only == "vlm":
+        backend = R.TorchBackend([MODEL], seed=0)
+        emit(phase_vlm(torch, R, F, P, kernels,
+                       decide_pool_backend(torch, R, backend)[0]))
+        return 0
     if only == "reference":
         emit(phase_reference(torch, R))
         return 0
@@ -8037,6 +8534,8 @@ def main(argv) -> int:
     emit(fabric_report)
     tok_report = phase_tok(torch, R, F, P, kernels, pool_backend)
     emit(tok_report)
+    vlm_report = phase_vlm(torch, R, F, P, kernels, pool_backend)
+    emit(vlm_report)
     # phase_spec releases the decide pool once its decide has run
     pools = [pool_backend]
     del pool_backend
@@ -8063,6 +8562,7 @@ def main(argv) -> int:
         e["cluster_launches"] = cluster_report["launches"][e["name"]]
         e["fabric_launches"] = fabric_report["launches"][e["name"]]
         e["tok_launches"] = tok_report["launches"][e["name"]]
+        e["vlm_launches"] = vlm_report["launches"][e["name"]]
         if e["name"] == "ragged_fwd":
             e["verify"] = spec_report["verify_ticks"]["ragged_fwd_bf16"]
             e["verify_fp32"] = spec_report["verify_ticks"]["ragged_fwd"]

@@ -197,7 +197,7 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["procedural", "diffusion"],
                         default="procedural",
                         help="generate_images backend: placeholder PNGs "
-                             "(diffusion is not ported)")
+                             "or the on-device diffusion model")
         sp.add_argument("--draft", action="append", dest="drafts",
                         metavar="TARGET=DRAFT",
                         help="speculative serving: draft model spec for a "

@@ -18,6 +18,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+# the ViT geometry of a VLM member, defined beside its tower and
+# re-exported here with the catalog that names it
+from quoracle_tpu_torch.models.vision import VisionConfig
+
 # Minimum room a consensus round must leave for the response (reference
 # per_model_query.ex:17-18 — 4096 output floor). Effective per-model floor is
 # min(OUTPUT_FLOOR, output_limit); shared by TPUBackend.query and
@@ -87,8 +91,8 @@ class ModelConfig:
     # VLM member (BASELINE config 5): an in-tree ViT tower whose projected
     # patches splice into the prompt at ``image_token_id`` placeholders
     # (models/vision.py). None = text-only model. VisionConfig is a frozen
-    # dataclass, so ModelConfig stays hashable for jit.
-    vision: Optional["VisionConfig"] = None          # noqa: F821
+    # dataclass, so ModelConfig stays hashable.
+    vision: Optional[VisionConfig] = None
     image_token_id: Optional[int] = None
 
     def __post_init__(self):
@@ -241,28 +245,6 @@ TINY_GEMMA = register_model(ModelConfig(
     scale_embeddings=True, rmsnorm_plus_one=True,
     context_window=512, output_limit=128,
 ))
-
-@dataclasses.dataclass(frozen=True)
-class VisionConfig:
-    """ViT tower geometry of a VLM member (data only: the port serves no
-    vision rows yet, but the catalog entry that names one stays whole)."""
-    image_size: int = 224
-    patch_size: int = 14
-    dim: int = 256
-    n_layers: int = 4
-    n_heads: int = 4
-    ffn_dim: int = 1024
-    out_dim: int = 2048           # decoder embedding dim
-    norm_eps: float = 1e-5
-
-    @property
-    def n_patches(self) -> int:
-        side = self.image_size // self.patch_size
-        return side * side
-
-    @property
-    def patch_dim(self) -> int:
-        return self.patch_size * self.patch_size * 3
 
 
 def _tiny_vision():

@@ -15,7 +15,8 @@ A quantized tree (``quoracle_tpu.models.quant.quantize_params``) holds
 ``{"q8", "scale"}`` projection leaves (q8 [in, out], one scale per output
 channel: transposed to a ``QuantLinear``'s [out, in] q8 with the same
 scales) and a ``{"q8", "scale_r"}`` embedding (a ``QuantEmbedding``, no
-transpose).
+transpose). A VLM's ``vision`` subtree becomes the model's tower through
+``models/vision.vision_params_from_jax``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from quoracle_tpu_torch.models.config import ModelConfig
 from quoracle_tpu_torch.models.quant import QuantEmbedding, QuantLinear
 from quoracle_tpu_torch.models.transformer import Transformer
+from quoracle_tpu_torch.models.vision import vision_params_from_jax
 
 # JAX leaf name -> the Layer attribute it fills
 LINEAR_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -40,10 +42,11 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device="cpu",
                     dtype: torch.dtype = torch.float32) -> Transformer:
     """Build the port's Transformer from a numpy params tree with the JAX
     package's structure (stacked [L, ...] layer leaves), on ``device`` in
-    ``dtype`` (int8 payloads and fp32 scales for quantized leaves).
-    Vision leaves are a later slice and raise."""
-    if "vision" in tree:
-        raise NotImplementedError("vision towers are not ported yet")
+    ``dtype`` (int8 payloads and fp32 scales for quantized leaves). A
+    ``vision`` subtree (a VLM config) fills the model's tower."""
+    if ("vision" in tree) != (cfg.vision is not None):
+        raise ValueError(f"params_from_jax: the tree's vision subtree and "
+                         f"{cfg.name!r}'s vision config must come together")
     device = torch.device(device)
     model = Transformer.empty(cfg, device, dtype)
 
@@ -87,4 +90,7 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device="cpu",
     put(model.final_norm, tree["final_norm"])
     if model.lm_head is not None:
         linear(model, "lm_head", tree["lm_head"])
+    if cfg.vision is not None:
+        model.vision = vision_params_from_jax(tree["vision"], cfg.vision,
+                                              device, dtype)
     return model

@@ -74,7 +74,15 @@ phase walls and per-token rates, ledgers its shape key in the engine's
 ``chip_ms``, the MFU roofline) and beats the ``engine.tokens``
 heartbeat. All of it reads host-side counts the engine already holds and
 the walls ``_fence`` already measured: no RNG, no device read, no extra
-sync. Left for later slices: VLM rows and meshes.
+sync.
+
+VLM rows (``generate(images=)`` on a model with a vision tower): image
+rows run sessionless through ``prefill_vlm`` (the tower, the splice of
+its projected patches over the placeholder tokens, the dense prefill:
+flash from 256-token chunks on the GPU) and the dense decode. Vision
+models never share prefixes (no wave split, no radix adoption or
+insert), and speculation never serves an image row. Left for a later
+slice: meshes.
 """
 
 from __future__ import annotations
@@ -104,9 +112,12 @@ from quoracle_tpu_torch.models.quant import (
 )
 from quoracle_tpu_torch.models.sampling import sample_tokens
 from quoracle_tpu_torch.models.transformer import (
-    KVCache, Transformer, forward_hidden, forward_hidden_paged,
-    forward_hidden_paged_prefill, forward_hidden_ragged, init_cache,
-    project_logits,
+    KVCache, Transformer, _embed_lookup, forward_hidden,
+    forward_hidden_paged, forward_hidden_paged_prefill,
+    forward_hidden_ragged, init_cache, project_logits,
+)
+from quoracle_tpu_torch.models.vision import (
+    splice_image_embeds, vision_encode,
 )
 from quoracle_tpu_torch.ops import kernels
 from quoracle_tpu_torch.serving.kvtier import TierManager, dtype_name
@@ -144,11 +155,13 @@ def prefill_chunk(params: Transformer, cfg: ModelConfig,
                   tokens: torch.Tensor, prefix_lens: torch.Tensor,
                   chunk_lens: torch.Tensor, cache: KVCache,
                   kv_off: Optional[torch.Tensor] = None,
+                  input_embeds: Optional[torch.Tensor] = None,
                   ) -> tuple[torch.Tensor, KVCache]:
     """Fill the cache from a right-padded token chunk starting at per-row
     buffer index ``prefix_lens``. Returns (last-token logits [B, V], cache
     with lens = prefix + chunk). The head projects only each row's last
-    hidden state."""
+    hidden state. ``input_embeds`` [B, T, D] replaces the chunk's
+    embedding lookup, prepared by the caller (never re-scaled)."""
     B, T = tokens.shape
     positions = (prefix_lens[:, None]
                  + torch.arange(T, dtype=torch.int32,
@@ -159,7 +172,7 @@ def prefill_chunk(params: Transformer, cfg: ModelConfig,
     hidden, cache = forward_hidden(
         params, cfg, tokens, positions, cache,
         write_offset=prefix_lens.to(torch.int32), kv_lens=total,
-        kv_pos_offset=kv_off)
+        kv_pos_offset=kv_off, input_embeds=input_embeds)
     rows = torch.arange(B, device=tokens.device)
     last_h = hidden[rows, (chunk_lens - 1).long()]             # [B, D]
     cache.lens = total
@@ -167,11 +180,29 @@ def prefill_chunk(params: Transformer, cfg: ModelConfig,
 
 
 def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
-            prompt_lens: torch.Tensor, cache: KVCache
+            prompt_lens: torch.Tensor, cache: KVCache,
+            input_embeds: Optional[torch.Tensor] = None,
             ) -> tuple[torch.Tensor, KVCache]:
     """Fresh prefill = prefill_chunk from position 0."""
     zeros = torch.zeros_like(prompt_lens, dtype=torch.int32)
-    return prefill_chunk(params, cfg, tokens, zeros, prompt_lens, cache)
+    return prefill_chunk(params, cfg, tokens, zeros, prompt_lens, cache,
+                         input_embeds=input_embeds)
+
+
+@torch.no_grad()
+def prefill_vlm(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+                prompt_lens: torch.Tensor, cache: KVCache,
+                pixels: torch.Tensor) -> tuple[torch.Tensor, KVCache]:
+    """VLM prefill: the tower encodes ``pixels`` [B, S, S, 3], the
+    projected patches replace the image-placeholder tokens' embeddings,
+    and the dense prefill runs over the spliced embeddings. Text
+    embeddings are scaled (``scale_embeddings``) BEFORE the splice; the
+    patches enter at the projector's own scale."""
+    img = vision_encode(params.vision, cfg.vision, pixels)
+    embeds = splice_image_embeds(_embed_lookup(params, cfg, tokens), tokens,
+                                 img, cfg.image_token_id)
+    return prefill(params, cfg, tokens, prompt_lens, cache,
+                   input_embeds=embeds)
 
 
 def grammar_mask(logits: torch.Tensor, jstate: torch.Tensor,
@@ -876,6 +907,24 @@ class CompileRegistry:
             }
 
 
+def _pick(seq, idxs: list):
+    """Rows ``idxs`` of a per-row generate argument; a scalar or None
+    applies to every row and passes through."""
+    if seq is None or isinstance(seq, (int, float)):
+        return seq
+    return [seq[i] for i in idxs]
+
+
+def _merge(n: int, *parts: tuple) -> list:
+    """Sub-batches' results, each part (row indices, results), back in
+    the order of the call's ``n`` rows."""
+    merged: list = [None] * n
+    for idxs, res in parts:
+        for j, i in enumerate(idxs):
+            merged[i] = res[j]
+    return merged
+
+
 class GenerateEngine:
     """Stateful serving wrapper around the functional core for ONE model:
     params on one device, shape bucketing, the paged session store, and a
@@ -1082,6 +1131,8 @@ class GenerateEngine:
         constrain_json: Optional[Sequence[bool]] = None,
         action_enums: Optional[Sequence[Optional[Sequence[str]]]] = None,
         initial_json_state: Optional[Sequence[Optional[int]]] = None,
+        images: Optional[Sequence] = None,
+        image_sessions: bool = False,
     ) -> list[GenResult]:
         """``session_ids`` (aligned with prompts; None entries opt out)
         enables KV residency: each row reuses the longest token prefix it
@@ -1094,7 +1145,20 @@ class GenerateEngine:
         ``GenResult.json_state`` returns it) is where the row's sampling
         starts; None or -1 starts at the grammar's start state. The
         continuous batcher (models/scheduler.py) threads it between its
-        chunks."""
+        chunks.
+
+        ``images`` (aligned; None entries are text rows) runs the VLM
+        prefill on a vision model: each entry is a preprocessed [H, W, 3]
+        float array whose projected patches replace the row's
+        image-placeholder tokens. Image rows skip KV sessions (identical
+        placeholder ids under different images must not prefix-match);
+        sessioned text rows in the same call keep theirs, the batch split
+        into an image call and a text call. ``image_sessions=True`` with
+        any session refuses: the JAX engine then sends the rows down its
+        paged tiers, which never run the tower, so the image is dropped
+        (ROADMAP Queue 3)."""
+        has_images = images is not None and any(i is not None
+                                                for i in images)
         if self.role == "prefill":
             budgets = (max_new_tokens if not isinstance(
                 max_new_tokens, int) else [max_new_tokens])
@@ -1104,6 +1168,24 @@ class GenerateEngine:
                     f"(role='prefill'): it builds KV and emits at most "
                     f"one token per row; route decode to a decode-tier "
                     f"replica (serving/cluster.py)")
+        if has_images and self.cfg.vision is None:
+            raise ValueError(f"model {self.cfg.name} has no vision tower")
+        if has_images and image_sessions:
+            if session_ids is not None and any(session_ids):
+                raise ValueError(
+                    "image_sessions=True with sessioned rows: the paged "
+                    "tiers run no vision tower, so the image would be "
+                    "dropped and the row conditioned on placeholder "
+                    "embeddings; send image rows sessionless")
+        elif has_images:
+            txt_idx = [i for i, im in enumerate(images) if im is None]
+            if txt_idx and session_ids is not None and any(
+                    session_ids[i] for i in txt_idx):
+                return self._generate_split(
+                    txt_idx, prompts, temperature, top_p, max_new_tokens,
+                    generator, session_ids, constrain_json, action_enums,
+                    initial_json_state, images)
+            session_ids = None       # image-only (or sessionless) batch
         if session_ids is not None and any(session_ids):
             with self._paged_lock:
                 later = self._prefix_wave_split(prompts, session_ids)
@@ -1119,7 +1201,31 @@ class GenerateEngine:
         return self._generate_impl(prompts, temperature, top_p,
                                    max_new_tokens, generator, None,
                                    constrain_json, action_enums,
-                                   initial_json_state)
+                                   initial_json_state,
+                                   images=images if has_images else None)
+
+    def _generate_split(self, txt_idx, prompts, temperature, top_p,
+                        max_new_tokens, generator, session_ids,
+                        constrain_json, action_enums, initial_json_state,
+                        images) -> list[GenResult]:
+        """A batch mixing image rows with sessioned text rows: the image
+        rows run sessionless through the VLM prefill, then the text rows
+        keep their sessions in a call of their own, as in the JAX
+        engine."""
+        img_idx = [i for i, im in enumerate(images) if im is not None]
+        res_img = self.generate(
+            _pick(prompts, img_idx), _pick(temperature, img_idx),
+            _pick(top_p, img_idx), _pick(max_new_tokens, img_idx),
+            generator, None, _pick(constrain_json, img_idx),
+            _pick(action_enums, img_idx), _pick(initial_json_state, img_idx),
+            images=_pick(images, img_idx))
+        res_txt = self.generate(
+            _pick(prompts, txt_idx), _pick(temperature, txt_idx),
+            _pick(top_p, txt_idx), _pick(max_new_tokens, txt_idx),
+            generator, _pick(session_ids, txt_idx),
+            _pick(constrain_json, txt_idx), _pick(action_enums, txt_idx),
+            _pick(initial_json_state, txt_idx))
+        return _merge(len(prompts), (img_idx, res_img), (txt_idx, res_txt))
 
     def _prefix_wave_split(self, prompts, session_ids) -> list[int]:
         """Intra-batch prefix dedup (the consensus fan-out shape: K new
@@ -1128,8 +1234,9 @@ class GenerateEngine:
         is about to prefill — and that the radix cache does not cover yet
         — are deferred to a second wave, which then adopts the first
         wave's freshly cached pages. Returns the deferred row indices
-        ([] = single wave)."""
-        if not self.prefix_sharing or self.cfg.sliding_window is not None:
+        ([] = single wave). Windowed and vision models never share."""
+        if (not self.prefix_sharing or self.cfg.sliding_window is not None
+                or self.cfg.vision is not None):
             return []
         st = self.sessions
         page = st.page
@@ -1179,17 +1286,12 @@ class GenerateEngine:
         later_set = set(later)
         first_idx = [i for i in range(n) if i not in later_set]
 
-        def pick(seq, idxs):
-            if seq is None or isinstance(seq, (int, float)):
-                return seq
-            return [seq[i] for i in idxs]
-
         def run(idxs):
             return self._generate_impl(
-                [prompts[i] for i in idxs], pick(temperature, idxs),
-                pick(top_p, idxs), pick(max_new_tokens, idxs), generator,
-                pick(session_ids, idxs), pick(constrain_json, idxs),
-                pick(action_enums, idxs), pick(initial_json_state, idxs))
+                _pick(prompts, idxs), _pick(temperature, idxs),
+                _pick(top_p, idxs), _pick(max_new_tokens, idxs), generator,
+                _pick(session_ids, idxs), _pick(constrain_json, idxs),
+                _pick(action_enums, idxs), _pick(initial_json_state, idxs))
 
         res1 = run(first_idx)
         w1 = (self.last_prefill_tokens, self.last_prefill_s,
@@ -1198,21 +1300,26 @@ class GenerateEngine:
         self.last_prefill_tokens += w1[0]
         self.last_prefill_s += w1[1]
         self.last_decode_s += w1[2]
-        merged: list = [None] * n
-        for j, i in enumerate(first_idx):
-            merged[i] = res1[j]
-        for j, i in enumerate(later):
-            merged[i] = res2[j]
-        return merged
+        return _merge(n, (first_idx, res1), (later, res2))
 
     def drop_session(self, session_id: str) -> None:
         """Release a session's pages and discard its host-tier copy,
-        serialized with sessioned generate calls so an in-flight batch
-        never loses pages it references. (The JAX engine also drops the
-        image-keyed variants of a VLM session; the port serves no VLM
-        rows.)"""
+        with its image-digest-keyed variants (``"<sid>|img:<sha>"``, the
+        JAX package's VLM session keys), in the host tier too; serialized
+        with sessioned generate calls so an in-flight batch never loses
+        pages it references."""
         with self._paged_lock:
             self.sessions.drop(session_id)
+            prefix = session_id + "|img:"
+            for key in [k for k in self.sessions._sessions
+                        if k.startswith(prefix)]:
+                self.sessions.drop(key)
+            tier = self.sessions.tier
+            if tier is not None:
+                # a variant may live only in the host tier (hibernated)
+                for key in [k for k in tier.host.sessions
+                            if k.startswith(prefix)]:
+                    tier.discard_session(key)
 
     def session_tokens(self, session_id: str) -> Optional[list[int]]:
         """The session's conversation ids (prompt + retained response), or
@@ -1258,7 +1365,7 @@ class GenerateEngine:
     def _generate_impl(self, prompts, temperature, top_p, max_new_tokens,
                        generator, session_ids, constrain_json,
                        action_enums, initial_json_state,
-                       verify=None) -> list:
+                       verify=None, images=None) -> list:
         t0 = time.monotonic()
         n = len(prompts)
         if n == 0:
@@ -1316,9 +1423,11 @@ class GenerateEngine:
                     # page-aligned prefix adopts those pages: _run_paged
                     # acquires them and uses them as the row's dst prefix,
                     # so only the suffix prefills (windowed models never
-                    # share)
+                    # share, nor do vision models: identical placeholder
+                    # ids can front different images)
                     if (self.prefix_sharing
-                            and cfg.sliding_window is None):
+                            and cfg.sliding_window is None
+                            and cfg.vision is None):
                         # verify: the last K_i positions are the window
                         # and must run through the chunk forward
                         cap = (len(prompts[i]) - 1 if vk is None
@@ -1442,7 +1551,7 @@ class GenerateEngine:
             else:
                 out, n_emitted, jstate_f, t_prefill, now = self._run_dense(
                     tokens, chunk_arr, cache_len, samp_np, jstate_np,
-                    json_table, generator, max_new)
+                    json_table, generator, max_new, images)
         self.last_prefill_tokens = sum(len(s) for s in suffixes)
         self.last_prefill_s = t_prefill - t0
         self.last_decode_s = now - t_prefill
@@ -1585,16 +1694,31 @@ class GenerateEngine:
         }
 
     def _run_dense(self, tokens, chunk_arr, cache_len, samp_np, jstate_np,
-                   json_table, generator, max_new):
+                   json_table, generator, max_new, images=None):
         """Sessionless rows: dense prefill (flash for long chunks on the
-        GPU) into a fresh [L, B, cache_len] cache, then the dense decode."""
+        GPU) into a fresh [L, B, cache_len] cache, then the dense decode.
+        With ``images`` the prefill is the VLM's (``prefill_vlm``): every
+        row of the padded batch runs through the tower, text rows on zero
+        pixels (they hold no placeholder, so nothing is spliced)."""
         dev = self.device
         cfg = self.cfg
         B = tokens.shape[0]
         cache = init_cache(cfg, B, cache_len, dev, dtype=self.cache_dtype)
-        last_logits, cache = prefill(
-            self.params, cfg, torch.as_tensor(tokens, device=dev),
-            torch.as_tensor(chunk_arr, device=dev), cache)
+        tok_t = torch.as_tensor(tokens, device=dev)
+        lens_t = torch.as_tensor(chunk_arr, device=dev)
+        if images is not None:
+            vc = cfg.vision
+            pixels = np.zeros((B, vc.image_size, vc.image_size, 3),
+                              np.float32)
+            for i, img in enumerate(images):
+                if img is not None:
+                    pixels[i] = np.asarray(img, np.float32)
+            last_logits, cache = prefill_vlm(
+                self.params, cfg, tok_t, lens_t, cache,
+                torch.as_tensor(pixels, device=dev))
+        else:
+            last_logits, cache = prefill(self.params, cfg, tok_t, lens_t,
+                                         cache)
         _fence(dev)
         t_prefill = time.monotonic()
         temp, top, active, limits = (torch.as_tensor(a, device=dev)
@@ -1828,11 +1952,12 @@ class GenerateEngine:
             st.put_raw(sid, _Session(tokens=toks, pages=pages,
                                      start_pos=start))
             # every FULL page of a conversation stored from position 0
-            # becomes adoptable (windowed sessions never share); a verify
-            # store-back carries unverified draft tokens at its tail:
-            # resumable (the LCP is token-keyed), but not shared
+            # becomes adoptable (windowed sessions and vision models never
+            # share); a verify store-back carries unverified draft tokens
+            # at its tail: resumable (the LCP is token-keyed), but not
+            # shared
             if (self.prefix_sharing and start == 0 and W is None
-                    and verify is None):
+                    and self.cfg.vision is None and verify is None):
                 st.insert_prefix(toks, pages)
         # temp pages (sessionless rows on the page-reading tiers) die with
         # the call; adoptions no stored session took over release now

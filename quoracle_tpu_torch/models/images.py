@@ -8,9 +8,8 @@ behind it, and the default ProceduralImageBackend produces deterministic
 placeholder PNGs (stdlib-only writer) so the action, cost pipeline, and
 tests work end to end without a diffusion checkpoint.
 
-The PyTorch port's copy of ``quoracle_tpu/models/images.py``: the
-procedural backend only. The on-device diffusion backend
-(``models/diffusion.py``) is ROADMAP Queue 1 item 10.
+The PyTorch port's copy of ``quoracle_tpu/models/images.py``. The
+on-device diffusion backend behind the same seam is models/diffusion.py.
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ target device, so the host holds about one tensor at a time.
 
 Supported architectures: LlamaForCausalLM, MistralForCausalLM,
 GemmaForCausalLM, Qwen2ForCausalLM (the catalog's families). A
-``vision_config`` raises: the VLM is ROADMAP Queue 1 item 10.
+``vision_config`` (the in-tree VLM layout ``make_checkpoint``'s vlm family
+writes, as the JAX loader reads it) adds the ViT tower: its weights sit
+under ``vision_tower.*`` and ``multi_modal_projector.*`` and load into
+the model's ``vision`` module (models/vision.py).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from quoracle_tpu_torch.models.config import ModelConfig, register_model
 from quoracle_tpu_torch.models.generate import resolve_device
 from quoracle_tpu_torch.models.safetensors_io import ShardedReader, save_file
 from quoracle_tpu_torch.models.transformer import Transformer
+from quoracle_tpu_torch.models.vision import VisionConfig
 
 __all__ = [
     "config_from_hf", "export_hf_checkpoint", "load_checkpoint",
@@ -91,11 +95,6 @@ def config_from_hf(hf: dict, name: str,
         raise ValueError(
             f"unsupported architecture {arch!r}; supported: "
             f"{sorted(_FAMILY_DEFAULTS)}")
-    if hf.get("vision_config"):
-        # ROADMAP Queue 1 item 10: the ViT tower is not ported
-        raise NotImplementedError(
-            f"checkpoint {name!r} has a vision_config: vision towers are "
-            f"not ported yet")
     over = dict(_FAMILY_DEFAULTS[arch])
 
     n_heads = hf["num_attention_heads"]
@@ -119,6 +118,26 @@ def config_from_hf(hf: dict, name: str,
     sliding = hf.get("sliding_window")
     if hf.get("use_sliding_window") is False:
         sliding = None
+    # a ``vision_config`` marks the in-tree ViT tower (models/vision.py),
+    # whose weights live under vision_tower.* / multi_modal_projector.*
+    vision = None
+    image_token_id = None
+    vc = hf.get("vision_config")
+    if vc:
+        vision = VisionConfig(
+            image_size=vc["image_size"],
+            patch_size=vc["patch_size"],
+            dim=vc["hidden_size"],
+            n_layers=vc["num_hidden_layers"],
+            n_heads=vc["num_attention_heads"],
+            ffn_dim=vc["intermediate_size"],
+            out_dim=hf["hidden_size"],
+        )
+        if hf.get("image_token_id") is None:
+            raise ValueError(
+                "vision_config present but no image_token_id — the prompt "
+                "builder cannot place soft tokens without it")
+        image_token_id = int(hf["image_token_id"])
     return ModelConfig(
         name=name,
         vocab_size=hf["vocab_size"],
@@ -139,6 +158,8 @@ def config_from_hf(hf: dict, name: str,
         stop_token_ids=tuple(eos_ids[1:]),
         bos_token_id=bos_ids[0] if bos_ids else 1,
         checkpoint_path=checkpoint_path,
+        vision=vision,
+        image_token_id=image_token_id,
         **over,
     )
 
@@ -164,6 +185,16 @@ _BIAS_LEAVES = {
     "self_attn.k_proj.bias": ("wk", "bias"),
     "self_attn.v_proj.bias": ("wv", "bias"),
 }
+# the ViT tower's tensors under "vision_tower.layers.{i}." -> (VisionLayer
+# attribute, its tensor)
+_VISION_LAYER_LEAVES = {
+    "ln1.weight": ("ln1", None),
+    "attn.qkv_proj.weight": ("wqkv", "weight"),
+    "attn.o_proj.weight": ("wo", "weight"),
+    "ln2.weight": ("ln2", None),
+    "mlp.up_proj.weight": ("w_up", "weight"),
+    "mlp.down_proj.weight": ("w_down", "weight"),
+}
 # tensors a checkpoint may carry that the model derives itself: rotary
 # tables some older exports saved
 _DERIVED = ("rotary_emb.inv_freq",)
@@ -188,13 +219,31 @@ def hf_tensors(model: Transformer, cfg: ModelConfig,
     return out
 
 
+def vision_hf_tensors(model: Transformer) -> dict[str, torch.Tensor]:
+    """{tensor name: the tower's tensor} of a VLM (views): the in-tree
+    layout the JAX loader reads; {} for a text-only model."""
+    tower = model.vision
+    if tower is None:
+        return {}
+    out = {"vision_tower.patch_embed.weight": tower.patch_embed.weight,
+           "vision_tower.pos_embed": tower.pos_embed,
+           "vision_tower.final_ln.weight": tower.final_ln,
+           "multi_modal_projector.weight": tower.projector.weight}
+    for i, layer in enumerate(tower.layers):
+        for name, (attr, part) in _VISION_LAYER_LEAVES.items():
+            obj = getattr(layer, attr)
+            out[f"vision_tower.layers.{i}.{name}"] = (
+                obj if part is None else getattr(obj, part))
+    return out
+
+
 @torch.no_grad()
 def load_params(path: str, cfg: ModelConfig, device=None,
                 dtype: torch.dtype = torch.bfloat16) -> Transformer:
     """Read a HF checkpoint directory into a ``Transformer`` on ``device``
-    (None: the card) in ``dtype``. Every weight is filled from the file;
-    a missing tensor, a shape that differs from the config, or a tensor
-    the model would not use raises."""
+    (None: the card) in ``dtype``. Every weight is filled from the file,
+    a VLM's tower too; a missing tensor, a shape that differs from the
+    config, or a tensor the model would not use raises."""
     device = resolve_device(device)
     reader = ShardedReader(path)
     try:
@@ -202,7 +251,8 @@ def load_params(path: str, cfg: ModelConfig, device=None,
         # some exports drop the decoder's "model." prefix
         prefix = "model." if "model.embed_tokens.weight" in names else ""
         model = Transformer.empty(cfg, device, dtype)
-        wanted = hf_tensors(model, cfg, prefix)
+        wanted = {**hf_tensors(model, cfg, prefix),
+                  **vision_hf_tensors(model)}
         extra = sorted(n for n in names - set(wanted)
                        if not n.endswith(_DERIVED)
                        and not (cfg.tie_embeddings and n == "lm_head.weight"))
@@ -229,8 +279,8 @@ def export_hf_checkpoint(model: Transformer, cfg: ModelConfig, out_dir: str,
     HF checkpoint (``model.safetensors`` under the HF names, bf16,
     metadata {"format": "pt"}), with ``config.json`` and the tokenizer
     files copied from ``base_dir`` and ``.complete`` written last. Text
-    decoder only. Each tensor reaches the host only while it is
-    written."""
+    decoder only, as the JAX export. Each tensor reaches the host only
+    while it is written."""
     os.makedirs(out_dir, exist_ok=True)
     for fn in ("config.json", "tokenizer.json", "tokenizer_config.json"):
         src = os.path.join(base_dir, fn)

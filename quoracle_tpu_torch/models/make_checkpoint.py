@@ -75,8 +75,8 @@ FAMILY_CONFIGS = {
             max_position_embeddings=8192, rope_theta=10000.0,
             rms_norm_eps=1e-6, hidden_act="gelu_pytorch_tanh",
             tie_word_embeddings=True),
-        # the JAX package's VLM layout (the port's loader raises on it:
-        # vision towers are ROADMAP Queue 1 item 10)
+        # the JAX package's in-tree VLM layout (a llama-1b decoder and a
+        # ViT tower; models/loader.py reads both)
         "vlm": dict(
             architectures=["LlamaForCausalLM"], vocab_size=32768,
             hidden_size=2048, intermediate_size=5632, num_hidden_layers=16,

@@ -119,8 +119,8 @@ def dequant_weight(m, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
 @torch.no_grad()
 def quantize_params(params, cfg):
     """A NEW ``Transformer`` whose embedding, layer projections and head
-    are int8 (per-channel); norm weights and biases are shared with
-    ``params``, which is left as it was. A model that is already
+    are int8 (per-channel); norm weights, biases and a vision tower are
+    shared with ``params``, which is left as it was. A model that is already
     quantized comes back as it is (engines may share one int8 copy)."""
     from quoracle_tpu_torch.models.transformer import Transformer
     if is_quantized(params.embed):
@@ -135,6 +135,8 @@ def quantize_params(params, cfg):
             setattr(dst, key, QuantLinear.quantize(getattr(src, key)))
     if params.lm_head is not None:
         out.lm_head = QuantLinear.quantize(params.lm_head)
+    # a vision tower stays in the weights' dtype, as in the JAX package
+    out.vision = params.vision
     return out
 
 

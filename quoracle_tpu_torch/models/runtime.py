@@ -43,8 +43,16 @@ free pages and prefix-cache counters, as the JAX backend does.
 ``backend.member`` span. Both backends fire the chaos plane's
 ``pool.member`` seam at each member's query entry (chaos/faults.py): a
 crash fails the member's rows with the structured ``chaos_injected``
-text, a garbage directive perturbs its output. Left for later slices:
-VLM rows (ROADMAP Queue 1 item 10).
+text, a garbage directive perturbs its output.
+VLM rows, as in the JAX backend: on a member with a vision tower, the
+first decodable image part of a request (``image``, ``image_base64`` or
+``image_url`` with inline data) is preprocessed by native/image.py and
+becomes ``n_patches`` placeholder ids where it stood in the rendered
+chat (``_encode_multimodal``); any further image part, or one that fails
+to decode, is the text ``[image]``. Image rows run sessionless through
+the engine's VLM prefill: the baton batcher passes ``images=`` into its
+merged generate, the batch-1 speculative decoder never takes them, and
+under ``continuous`` they take a direct engine call outside the loop.
 """
 
 from __future__ import annotations
@@ -233,6 +241,64 @@ class ModelBackend(abc.ABC):
         return 0
 
 
+IMAGE_PART_TYPES = ("image", "image_base64", "image_url")
+
+
+def _encode_multimodal(engine, messages) -> tuple[list[int],
+                                                  Optional[np.ndarray]]:
+    """VLM prompt construction: the first image part in the conversation
+    becomes ``n_patches`` placeholder ids at its position in the rendered
+    chat (the engine's VLM prefill splices projected patches there); any
+    further image, or one that does not decode, degrades to the text
+    "[image]". Returns (ids, preprocessed HWC image or None)."""
+    import base64
+
+    from quoracle_tpu_torch.native.image import preprocess_for_vision
+
+    cfg = engine.cfg
+    tok = engine.tokenizer
+    SENT = "\x00IMG\x00"
+    image = None
+    flat = []
+    for m in messages:
+        content = m.get("content", "")
+        if isinstance(content, str):
+            flat.append({"role": m.get("role", "user"), "content": content})
+            continue
+        parts_txt = []
+        for part in content if isinstance(content, (list, tuple)) else []:
+            if not isinstance(part, dict):
+                parts_txt.append(str(part))
+                continue
+            if part.get("type") in IMAGE_PART_TYPES:
+                data = (part.get("data") or part.get("image_base64")
+                        or part.get("base64"))
+                if image is None and data:
+                    try:
+                        image = preprocess_for_vision(
+                            base64.b64decode(data),
+                            size=cfg.vision.image_size)
+                        parts_txt.append(SENT)
+                        continue
+                    except Exception:
+                        logger.warning(
+                            "image part could not be decoded; degrading "
+                            "to [image]")
+                parts_txt.append("[image]")
+            else:
+                parts_txt.append(str(part.get("text", "")))
+        flat.append({"role": m.get("role", "user"),
+                     "content": "\n".join(parts_txt)})
+    rendered = tok.render_chat(flat)
+    if image is not None and SENT in rendered:
+        pre, post = rendered.split(SENT, 1)
+        ids = (tok.encode(pre, add_bos=True)
+               + [cfg.image_token_id] * cfg.vision.n_patches
+               + tok.encode(post))
+        return ids, image
+    return tok.encode(rendered, add_bos=True), None
+
+
 class _MemberBatcher:
     """Baton batching for one pool member (the JAX backend's
     ``_MemberBatcher``): concurrent consensus rounds (different agents,
@@ -307,7 +373,10 @@ class _MemberBatcher:
                             if any(r["constrain_json"] for r in rows)
                             else None),
             action_enums=([r["action_enum"] for r in rows]
-                          if any(r["action_enum"] for r in rows) else None))
+                          if any(r["action_enum"] for r in rows) else None),
+            images=([r["image"] for r in rows]
+                    if any(r["image"] is not None for r in rows)
+                    else None))
         phases = (self.engine.last_prefill_s * 1000,
                   self.engine.last_decode_s * 1000)
         for (_, f), g in zip(live, gens):
@@ -740,9 +809,10 @@ class TorchBackend(ModelBackend):
                     requests: Sequence[QueryRequest],
                     results: list, t0: float) -> tuple[list[dict],
                                                        list[int]]:
-        """Row preparation for one member: chat-template encode, session
-        splice, per-row overflow and deadline errors, and the output
-        budget min(output_limit, max(floor, window - prompt))."""
+        """Row preparation for one member: chat-template encode (the VLM
+        splice on a vision member's image rows), session splice, per-row
+        overflow and deadline errors, and the output budget
+        min(output_limit, max(floor, window - prompt))."""
         engine = self.engines[spec]
         tok = engine.tokenizer
         max_seq = engine.max_seq
@@ -750,8 +820,19 @@ class TorchBackend(ModelBackend):
         live_idxs: list[int] = []
         for i in idxs:
             r = requests[i]
-            ids = tok.encode_chat(r.messages)
-            if r.session_id:
+            has_image = engine.cfg.vision is not None and any(
+                isinstance(m.get("content"), (list, tuple))
+                and any(isinstance(p, dict)
+                        and p.get("type") in IMAGE_PART_TYPES
+                        for p in m["content"])
+                for m in r.messages)
+            if has_image:
+                ids, img = _encode_multimodal(engine, r.messages)
+            else:
+                # text rows keep the tokenizer's own chat template (HF
+                # checkpoints); only image rows need the placeholder render
+                ids, img = tok.encode_chat(r.messages), None
+            if r.session_id and not has_image:
                 # share the session's ACTUAL ids (prompt + sampled
                 # response) so the retained response KV resumes too
                 sess_toks = engine.session_tokens(r.session_id)
@@ -791,7 +872,7 @@ class TorchBackend(ModelBackend):
                           else budget,
                 "session_id": r.session_id,
                 "constrain_json": r.constrain_json,
-                "action_enum": r.action_enum,
+                "action_enum": r.action_enum, "image": img,
                 "priority": r.priority, "tenant": r.tenant,
                 "deadline_s": deadline_s,
                 "task_id": r.task_id, "decide": r.decide,
@@ -816,6 +897,7 @@ class TorchBackend(ModelBackend):
         engine = self.engines[spec]
         dec = self._spec_decoders.get(spec)
         if (dec is not None and len(rows) == 1
+                and rows[0]["image"] is None
                 and (rows[0]["temperature"] <= 0
                      or rows[0]["top_p"] >= 1.0)
                 # the decoder sizes its dense caches for prompt + max_new <
@@ -873,13 +955,29 @@ class TorchBackend(ModelBackend):
     def _query_member_continuous(self, spec: str, rows: list[dict],
                                  live_idxs: list[int],
                                  results: list, t0: float) -> None:
-        """Continuous mode: rows join the member's shared decode loop
-        (models/scheduler.py) at chunk boundaries. (The JAX backend sends
-        image rows, which skip KV sessions, straight to the engine; the
-        port serves no VLM rows yet.)"""
+        """Continuous mode: text rows join the member's shared decode loop
+        (models/scheduler.py) at chunk boundaries; image rows, which skip
+        KV sessions, take a direct engine call. That call touches no page
+        pool and the grammar cache has its own lock, so it runs without
+        the engine's paged lock and never stalls the loop's sessioned
+        chunks."""
+        engine = self.engines[spec]
         cb = self._cbatchers[spec]
         futs = []
         for r in rows:
+            if r["image"] is not None:
+                f = Future()
+                try:
+                    f.set_result(engine.generate(
+                        [r["prompt"]], temperature=r["temperature"],
+                        top_p=r["top_p"], max_new_tokens=r["budget"],
+                        constrain_json=[r["constrain_json"]],
+                        action_enums=[r["action_enum"]],
+                        images=[r["image"]])[0])
+                except Exception as e:    # noqa: BLE001 — per-row capture
+                    f.set_exception(e)
+                futs.append(f)
+                continue
             futs.append(cb.submit(
                 r["prompt"], temperature=r["temperature"],
                 top_p=r["top_p"], max_new_tokens=r["budget"],

@@ -29,6 +29,7 @@ from quoracle_tpu_torch.models.config import ModelConfig
 from quoracle_tpu_torch.models.quant import (
     dequant_weight, is_quantized, kv_quant,
 )
+from quoracle_tpu_torch.models.vision import VisionTower, init_vision_params
 from quoracle_tpu_torch.ops.flash_attention import attend_auto
 from quoracle_tpu_torch.ops.paged_attention import (
     DecodeStep, paged_prefill_merge, ragged_attend_auto,
@@ -56,7 +57,8 @@ class Layer(nn.Module):
 
 class Transformer(nn.Module):
     """The whole decoder: embedding, layer stack, final norm, and the
-    untied head (tied models project through the embedding)."""
+    untied head (tied models project through the embedding); a VLM's
+    vision tower (models/vision.py) rides along as ``vision``."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
@@ -68,6 +70,13 @@ class Transformer(nn.Module):
         self.final_norm = nn.Parameter(torch.empty(cfg.dim, **kw))
         self.lm_head = (None if cfg.tie_embeddings else
                         nn.Linear(cfg.dim, cfg.vocab_size, bias=False, **kw))
+        if cfg.vision is not None:
+            if cfg.vision.out_dim != cfg.dim:
+                raise ValueError("the vision projector must target the "
+                                 "decoder dim")
+            self.vision = VisionTower(cfg.vision, **kw)
+        else:
+            self.vision = None
         self._head_f32: Optional[torch.Tensor] = None
         self._head_key: Optional[tuple] = None
 
@@ -108,7 +117,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None, dtype=torch.bfloat16) -> Transformer:
     """Random-init weights (normal / sqrt(fan_in)), tests and smoke runs
     only. Draws in fp32 on the generator's device, then casts. Norm
-    weights start at 1 (0 for plus-one norms), biases at 0."""
+    weights start at 1 (0 for plus-one norms), biases at 0; a vision
+    tower is drawn after the decoder."""
     device = generator.device if device is None else torch.device(device)
     model = Transformer.empty(cfg, device, dtype)
     gen_dev = generator.device
@@ -131,6 +141,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     model.final_norm.fill_(norm_init)
     if model.lm_head is not None:
         normal_(model.lm_head.weight, cfg.dim)
+    if cfg.vision is not None:
+        init_vision_params(model.vision, generator)
     return model
 
 
@@ -251,15 +263,20 @@ def forward_hidden(
     write_offset: torch.Tensor,  # [B] int32: where this chunk's kv lands
     kv_lens: torch.Tensor,       # [B] int32 valid kv count AFTER the chunk
     kv_pos_offset: Optional[torch.Tensor] = None,   # [B] abs pos of idx 0
+    input_embeds: Optional[torch.Tensor] = None,    # [B, T, D]
 ) -> tuple[torch.Tensor, KVCache]:
     """Run the stack over a token chunk, writing its KV into the dense
     cache in place; returns final hidden states [B, T, D] (pre-head) and
     the cache. The buffer is position-ordered, so right-padded rows leave
     garbage beyond ``kv_lens[b]`` that the attention mask ignores. The
-    caller advances ``cache.lens``."""
+    caller advances ``cache.lens``. ``input_embeds`` replaces the
+    embedding lookup (a VLM row's spliced soft tokens): the caller hands
+    them in fully prepared, and ``scale_embeddings`` is not applied
+    again."""
     B, T = tokens.shape
     S = cache.k.shape[2]
-    x = _embed_lookup(params, cfg, tokens)
+    x = (_embed_lookup(params, cfg, tokens) if input_embeds is None
+         else input_embeds)
     # start indices clamp into the buffer like lax.dynamic_update_slice
     start = torch.clamp(write_offset.long(), min=0, max=S - T)
     rows = torch.arange(B, device=tokens.device)[:, None]

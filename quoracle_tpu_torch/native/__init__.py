@@ -5,6 +5,10 @@
 * tokenizer.py  its ctypes binding (``NativeBPETokenizer``) and the
                 identical pure-Python path, which serves only when the
                 build fails (no ``g++``), with a warning
+* image.cpp     PNG decode and bilinear resize for the VLM tower, a copy
+                of the JAX package's; built with ``-lz``
+* image.py      its ctypes binding and the Python path (stdlib ``zlib``,
+                numpy), which serves only when the build fails
 
 ``build_and_load`` compiles one C++ file into ``build/native/`` at the
 repository root (for an installed package, the user's cache directory),

@@ -12,11 +12,12 @@ The PyTorch port's copy of ``quoracle_tpu/runtime.py``. The serving
 backend is ``"mock"`` or ``"torch"`` (``TorchBackend`` on ``device``:
 None means the GPU, and raises without one). What the port has not got
 yet raises at construction and names its ROADMAP Queue 1 item, never
-dropped silently: multi-process and tensor-parallel serving (item 12),
-the training capture store (item 11) and the diffusion image backend
-(item 10). ``replicas`` and ``disaggregate`` serve through a
-``ClusterPlane`` (serving/cluster.py) whose replicas all sit on
-``device``; ``fleet_max`` puts a ``FleetController`` over it, ticked by
+dropped silently: multi-process and tensor-parallel serving (item 12) and
+the training capture store (item 11). ``image_backend="diffusion"``
+serves ``generate_images`` from the on-device diffusion model
+(models/diffusion.py) on ``device``. ``replicas`` and ``disaggregate``
+serve through a ``ClusterPlane`` (serving/cluster.py) whose replicas all
+sit on ``device``; ``fleet_max`` puts a ``FleetController`` over it, ticked by
 the runtime's ``fleet-ticker`` thread; ``chaos_plan`` arms a fault plan
 on the chaos plane before any traffic. The cross-host fabric
 (serving/fabric/): ``fabric_peers`` makes this node a front door with no
@@ -262,10 +263,6 @@ def _refuse_unported(config: "RuntimeConfig") -> None:
             raise NotImplementedError(
                 f"RuntimeConfig.{name}={getattr(config, name)!r} is not "
                 f"ported yet: {item}")
-    if config.image_backend == "diffusion":
-        raise NotImplementedError(
-            "image_backend='diffusion' is not ported yet: ROADMAP Queue 1 "
-            "item 10 (VLM and diffusion)")
 
 
 @dataclasses.dataclass
@@ -291,7 +288,8 @@ class RuntimeConfig:
     # Tensor-parallel size per pool member (multi-GPU: not ported).
     tp: Optional[int] = None
     # generate_images backend: "procedural" (deterministic placeholder
-    # PNGs, zero compute); "diffusion" (an on-device UNet) is not ported.
+    # PNGs, zero compute) or "diffusion" (models/diffusion.py: a UNet
+    # on ``device``, weights from ``seed``).
     image_backend: str = "procedural"
     # Speculative serving (models/speculative.py): {target_spec:
     # draft_spec} — eligible member queries draft-K/verify-one-chunk;
@@ -376,6 +374,19 @@ class Runtime:
         if config.chaos_plan:
             from quoracle_tpu_torch.chaos.faults import FaultPlan
             chaos_plan = FaultPlan.from_json(config.chaos_plan)
+        # the image backend too: the diffusion model's weights go on
+        # ``device`` (a missing card raises here, with nothing built)
+        if config.image_backend == "diffusion":
+            from quoracle_tpu_torch.models.diffusion import (
+                DiffusionImageBackend,
+            )
+            images = DiffusionImageBackend(seed=config.seed,
+                                           device=config.device)
+        else:
+            from quoracle_tpu_torch.models.images import (
+                ProceduralImageBackend,
+            )
+            images = ProceduralImageBackend()
         self.config = config
         self.db = Database(config.db_path,
                            encryption_key=config.encryption_key)
@@ -470,8 +481,6 @@ class Runtime:
         self.skills = SkillsLoader(global_dir=skills_dir)
         from quoracle_tpu_torch.infra.http import urllib_http
         from quoracle_tpu_torch.infra.mcp import MCPManager
-        from quoracle_tpu_torch.models.images import ProceduralImageBackend
-        images = ProceduralImageBackend()
         from quoracle_tpu_torch.persistence.store import CredentialStore
         self.credentials = CredentialStore(self.db)
         self.mcp = MCPManager(

@@ -147,7 +147,7 @@ UNPORTED_FLAGS = [
     (["--sim-seed", "3"], None),
     (["--capture-dir", "capture"], "item 11"),
     (["--capture-mb", "64"], "item 11"),
-    (["--image-backend", "diffusion"], "item 10"),
+    (["--image-backend", "diffusion"], None),
 ]
 TAKEN = {"--replicas": ("replicas", 2), "--disaggregate": ("disaggregate",
                                                            True),
@@ -158,7 +158,8 @@ TAKEN = {"--replicas": ("replicas", 2), "--disaggregate": ("disaggregate",
          "--fabric-peers": ("fabric_peers", "h:1", ["h:1"]),
          "--prefixd": ("prefixd", "h:1"),
          "--sim-trace": ("sim_trace", "trace.json"),
-         "--sim-seed": ("sim_seed", 3)}
+         "--sim-seed": ("sim_seed", 3),
+         "--image-backend": ("image_backend", "diffusion")}
 
 
 @pytest.mark.parametrize("flags,item", UNPORTED_FLAGS,

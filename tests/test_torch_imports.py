@@ -128,7 +128,10 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.sim.calibrate",
              "quoracle_tpu_torch.models.tokenizer_pipeline",
              "quoracle_tpu_torch.native",
-             "quoracle_tpu_torch.native.tokenizer"):
+             "quoracle_tpu_torch.native.tokenizer",
+             "quoracle_tpu_torch.native.image",
+             "quoracle_tpu_torch.models.vision",
+             "quoracle_tpu_torch.models.diffusion"):
     assert name in names, name
 from quoracle_tpu_torch.governance import grove, skills
 groves = grove.list_groves(os.path.join({repo!r}, "groves"))

@@ -232,13 +232,82 @@ def test_config_from_hf_raises_where_jax_raises(hf):
     assert str(terr.value) == str(jerr.value)
 
 
+VISION_HF = _hf(image_token_id=3, vision_config=dict(
+    image_size=28, patch_size=14, hidden_size=32, num_hidden_layers=1,
+    num_attention_heads=2, intermediate_size=64))
+
+
 def test_vision_config_raises_not_implemented():
-    hf = _hf(image_token_id=3, vision_config=dict(
-        image_size=28, patch_size=14, hidden_size=32, num_hidden_layers=1,
-        num_attention_heads=2, intermediate_size=64))
-    assert jload.config_from_hf(hf, "vlm").vision is not None
-    with pytest.raises(NotImplementedError, match="vision"):
-        tload.config_from_hf(hf, "vlm")
+    """Once refused, now read as the JAX loader reads it: a
+    ``vision_config`` gives the same ModelConfig field for field (the
+    tower's geometry included), and a missing ``image_token_id`` the same
+    error."""
+    got = tload.config_from_hf(VISION_HF, "vlm")
+    want = jload.config_from_hf(VISION_HF, "vlm")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.vision.n_patches == want.vision.n_patches == 4
+    bad = {k: v for k, v in VISION_HF.items() if k != "image_token_id"}
+    with pytest.raises(ValueError) as jerr:
+        jload.config_from_hf(bad, "vlm")
+    with pytest.raises(ValueError) as terr:
+        tload.config_from_hf(bad, "vlm")
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_vlm_checkpoint_roundtrip_and_serves_images(tmp_path):
+    """tests/test_loader.py's vlm case on both packages: the JAX
+    make_checkpoint's tiny vlm directory registers with the same config,
+    loads the same weights, the tower's bit for bit (fp32 and bf16), and
+    both backends serve a multimodal message with the same text (fp32
+    engines over the loaded weights, the checkpoint's tokenizer)."""
+    import base64
+    from quoracle_tpu.models import embeddings as jemb
+    from quoracle_tpu.models import runtime as jrt
+    from quoracle_tpu.models import tokenizer as jtok
+    from quoracle_tpu.models.images import write_png
+    from quoracle_tpu_torch.models import runtime as trt
+    from quoracle_tpu_torch.models import tokenizer as ttok
+
+    out = jmk.make_checkpoint(str(tmp_path / "vlm"), family="vlm",
+                              scale="tiny")
+    jcfg = jload.register_hf_checkpoint(out, name="ck-vlm-test")
+    tcfg = tload.register_hf_checkpoint(out, name="ck-vlm-test")
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.vision.n_patches == 4 and tcfg.image_token_id is not None
+    for dtype in (torch.float32, torch.bfloat16):
+        _, model = _assert_loads_as_jax(out, dtype)
+        tower = model.vision
+        assert tower.layers[0].wqkv.weight.shape == (3 * tcfg.vision.dim,
+                                                     tcfg.vision.dim)
+        assert tower.projector.weight.shape == (tcfg.dim, tcfg.vision.dim)
+
+    rng = np.random.default_rng(3)
+    png = str(tmp_path / "i.png")
+    write_png(png, rng.integers(0, 255, (28 * 28 * 3,),
+                                dtype=np.uint8).tobytes(), 28, 28)
+    b64 = base64.b64encode(open(png, "rb").read()).decode()
+    spec = "xla:ck-vlm-test"
+    msgs = [{"role": "user", "content": [
+        {"type": "text", "text": "describe"},
+        {"type": "image_base64", "data": b64}]}]
+    jp = jax.tree.map(jnp.asarray, jload.load_params(out, jcfg, np.float32))
+    je = jgen.GenerateEngine(jcfg, jp, jtok.get_tokenizer(spec))
+    te = tgen.GenerateEngine(tcfg, tload.load_params(out, tcfg, device="cpu",
+                                                     dtype=torch.float32),
+                             ttok.get_tokenizer(spec), device="cpu")
+    jb = jrt.TPUBackend([spec], engines={spec: je},
+                        embedder=jemb.EmbeddingEncoder(jcfg, jp,
+                                                       je.tokenizer))
+    tb = trt.TorchBackend([spec], device="cpu", engines={spec: te})
+    got = []
+    for b, mod in ((jb, jrt), (tb, trt)):
+        r = b.query([mod.QueryRequest(spec, msgs, temperature=0.0,
+                                      max_tokens=6)])[0]
+        assert r.ok, r.error
+        got.append((r.text, r.usage.prompt_tokens,
+                    r.usage.completion_tokens))
+    assert got[1] == got[0]
+    assert got[1][1] > tcfg.vision.n_patches
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ tests/_agent_parity.py, and the watchdog's time is scripted."""
 import json
 
 import pytest
+import torch
 
 from _agent_parity import (
     BOTH, JAX, PORT, SEQUENCE_ID, db_view, first_difference, idle,
@@ -174,7 +175,7 @@ NOT_PORTED = [
     ("sim_seed", 3, None),
     ("capture_dir", "capture", "item 11"),
     ("capture_mb", 64.0, "item 11"),
-    ("image_backend", "diffusion", "item 10"),
+    ("image_backend", "diffusion", None),
 ]
 
 
@@ -188,8 +189,9 @@ def test_each_left_out_field_raises_and_names_its_item(field, value, item,
     runtime builds, on the CPU here: a ClusterPlane for ``replicas`` and
     ``disaggregate`` (the fleet fields with a plane under them), a
     FleetController ticked by the ``fleet-ticker`` thread for
-    ``fleet_max``, an armed plan for ``chaos_plan``, and the fabric and
-    simulator fields as ``_fabric_or_sim_field`` checks them."""
+    ``fleet_max``, an armed plan for ``chaos_plan``, the fabric and
+    simulator fields as ``_fabric_or_sim_field`` checks them, and the
+    diffusion image backend as ``_diffusion_field`` does."""
     if item is not None:
         cfg = PORT.rt.RuntimeConfig(backend="torch", device="cpu",
                                     model_pool=["xla:tiny"],
@@ -204,6 +206,9 @@ def test_each_left_out_field_raises_and_names_its_item(field, value, item,
         return
     if field.startswith(("fabric", "prefixd", "sim")):
         _fabric_or_sim_field(field, tmp_path)
+        return
+    if field == "image_backend":
+        _diffusion_field(value)
         return
     from quoracle_tpu_torch.chaos.faults import CHAOS
     kw = {field: value}
@@ -241,6 +246,37 @@ def test_each_left_out_field_raises_and_names_its_item(field, value, item,
         rt.close()
         rt.backend.close()
     assert rt._fleet_thread is None
+
+
+def _diffusion_field(value: str) -> None:
+    """``image_backend="diffusion"`` composes each package's
+    ``DiffusionImageBackend`` as the agents' image backend (the JAX
+    runtime's test, tests/test_diffusion.py), the port's on the runtime's
+    device, seeded from the config's seed; without a device the port
+    looks for the card, and raises here."""
+    from quoracle_tpu.models.diffusion import DiffusionImageBackend as JDIB
+    from quoracle_tpu_torch.models.diffusion import (
+        DiffusionImageBackend as TDIB,
+    )
+    jrt = JAX.rt.Runtime(JAX.rt.RuntimeConfig(image_backend=value))
+    try:
+        assert isinstance(jrt.deps.images, JDIB)
+    finally:
+        jrt.close()
+    rt = PORT.rt.Runtime(PORT.rt.RuntimeConfig(image_backend=value,
+                                               device="cpu", seed=3))
+    try:
+        images = rt.deps.images
+        assert isinstance(images, TDIB)
+        assert images.device.type == "cpu"
+        assert images.cfg == TDIB(seed=3, device="cpu").cfg
+        for a, b in zip(images.params.parameters(),
+                        TDIB(seed=3, device="cpu").params.parameters()):
+            assert torch.equal(a, b)
+    finally:
+        rt.close()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PORT.rt.Runtime(PORT.rt.RuntimeConfig(image_backend=value))
 
 
 def _fabric_or_sim_field(field: str, tmp_path) -> None:
