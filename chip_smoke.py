@@ -94,7 +94,8 @@ never prints its last line):
              adopter's pages stay bit-identical on the card, and both
              devices give identical texts, cached counts and counters;
              (3) a second agent's first decide over the decide pool (one
-             round, SECOND_AGENT_ROUNDS), same action set and messages:
+             round of SECOND_AGENT_TOKENS new tokens), same action set
+             and messages:
              cached tokens of at least 128 on
              llama-3-8b and gemma-7b, 0 on mistral-7b (windowed models
              never share); its status and latency are printed
@@ -265,9 +266,9 @@ never prints its last line):
              refused but the fitting write); the status, agents, kv,
              resources (the device block's named parts within its used
              bytes, which are within WEB_MEM_MARGIN of the script's own
-             mem_get_info), costs, models, tree, trace, chaos, sim and
-             /metrics routes answer 200, /api/train 501; the task
-             pauses over HTTP (sessions dropped, pages back, the row
+             mem_get_info), costs, models, tree, trace, chaos, sim, train
+             (the JAX payload's keys) and /metrics routes answer 200; the
+             task pauses over HTTP (sessions dropped, pages back, the row
              "paused") and resumes (the restored tick "ok", its cached
              tokens reported); ragged ran, the paged and int8 kernels did
              not. Last, cli.main run --backend torch --grove over
@@ -486,6 +487,30 @@ never prints its last line):
              flash (gather), ragged (unified: decode and chunk ticks),
              paged_fwd and paged_prefill_fwd (direct_full) are kept and
              each kernel is held against its twin and timed beside SDPA
+  train      training on the card (models/train.py, training/,
+             tools/finetune.py): make_checkpoint's llama at its 1b scale
+             (hidden 2048, 16 layers, 16/4 heads of 128, vocab 32,768)
+             written to a temporary directory and fine-tuned in fp32 by
+             train_corpus over build_format_corpus, batch 8, seq 256,
+             TRAIN_STEPS steps (the launch counts zeroed just before and
+             read just after: flash_fwd and flash_bwd each layers x
+             steps; the loss must fall; ms a step, tokens/s, MFU, peak
+             memory); flash_bwd held against flash_attend_bwd_ref on the
+             finetune's first backward inputs and on a llama-3-8b bf16
+             chunk (1,024 queries, S 1,088), each timed beside its bound,
+             the twin and autograd through SDPA's backward; a
+             TRAIN_CUT_LAYERS cut of the 1b width GPU against CPU (loss,
+             every gradient, the parameters after two steps) and a run
+             killed after its saved first step, resumed on fresh weights:
+             bit-equal; the flywheel: a second 1b checkpoint (the same
+             tokenizer.json) drafts the first behind a TorchBackend under
+             a Runtime with capture_dir, FLY_PROMPTS greedy rows are
+             captured, train_from_capture trains the draft (fp32),
+             evaluate.compare replays a held-out slice through
+             verify_chunk, the default Promoter gates it, a permissive
+             one promotes it (the same texts served) and rolls it back on
+             a forced regression, and GET /api/train over HTTP shows the
+             records and the rollout
   sweep      each kernel's time and bound over the lengths it serves:
              ragged decode ticks (bf16 and int8 pages side by side) and
              the paged decode over resident lengths (with S and the grid
@@ -504,7 +529,7 @@ never prints its last line):
              phase's two decides, greedy (the port engine's
              temperature_for_round pointed at 0.0 for this phase only: a
              decide never samples at 0 by itself), one refinement round at
-             most and 4 new tokens, over 1-layer fp32 cuts of all three
+             most and 3 new tokens, over 1-layer fp32 cuts of all three
              members at full width, served in turn: identical outcomes
              (status, decision, rounds, cached tokens, every member's
              texts) on the GPU and the CPU, and the embedder's vectors
@@ -512,7 +537,8 @@ never prints its last line):
              one tokenizer share the JSON grammar's host table
 
 in that order but for batch, continuous, obs, agent, runtime, web,
-cluster, fabric, tok, vlm and spec, which run after prefix, and ckpt, tiers and calib, after trace; then the card's nvidia-smi
+cluster, fabric, tok, vlm and spec, which run after prefix, and ckpt,
+tiers, calib and train, after trace; then the card's nvidia-smi
 line, the kernels JSON line and, last,
 ``{"ok": true, "device": {...}}``. The script points
 QUORACLE_PAGED_CALIB at build/chip_smoke_pinned_gates.json, a file it
@@ -528,10 +554,13 @@ phase and then the prefix phase after the build (no last line);
 ``--only calib``, ``--only batch``, ``--only continuous``, ``--only
 spec``, ``--only tiers``, ``--only obs``, ``--only agent``, ``--only
 runtime``, ``--only web``, ``--only cluster``, ``--only fabric``,
-``--only tok`` and ``--only vlm`` run that phase after
+``--only tok``, ``--only vlm`` and ``--only train`` run that phase after
 the build, over weights drawn here (no last line); ``--only reference`` runs
 the reference phase after the build (no last line); ``--only ckpt`` runs the serve phase and then the ckpt phase after
-the build (no last line). Every
+the build (no last line); ``--only cuts`` runs the serve phase and then
+times the trace phase, the second agent's decide and the reference
+decide at the token counts cut for the train phase and at the counts
+before the cut, old, new, new, old (no last line). Every
 comparison runs with TF32 off (torch.backends.cuda.matmul.allow_tf32 =
 False, and cudnn's too). The script imports torch and the port, never
 JAX or the JAX package.
@@ -610,8 +639,9 @@ MAX_TOKENS = 32             # new tokens per row in the serve phase
 # new tokens a row of the profiled calls (the trace phase, serve_int8's
 # trace), below MAX_TOKENS for the script's time limit: the profiler's
 # own processing grows with the launches it records (~2,600 a decode
-# step at full depth)
-TRACE_TOKENS = 16
+# step at full depth). Cut to 12 (was 16) for the train phase (46.6 s of
+# a whole run on an H100 80GB HBM3 at 700 W; the trace phase took 38.1 s)
+TRACE_TOKENS = 12
 # layers of the full-width fp32 cuts that also run on the CPU (the
 # prefix phase's copy-on-write, the reference phase's tiers), kept low
 # for the script's time limit: the CPU forward is most of their time
@@ -650,10 +680,11 @@ GATES_FILE = os.path.join(REPO, "build", "paged_gates.json")
 # the tier before left (was: two rounds each from fresh sessions); the
 # decide's members cut to 1 layer (was 2) and 4 new tokens (was 12);
 # every engine of one tokenizer builds its JSON grammar tables once
-# (host tables shared, each device's copy made from them)
+# (host tables shared, each device's copy made from them). For the train
+# phase the decide's new tokens cut to 3 (was 4)
 REFERENCE_TOKENS = 3
 REFERENCE_DECIDE_LAYERS = 1
-REFERENCE_DECIDE_TOKENS = 4
+REFERENCE_DECIDE_TOKENS = 3
 PINNED_GATES = os.path.join(REPO, "build", "chip_smoke_pinned_gates.json")
 
 
@@ -2075,11 +2106,14 @@ def prefix_cow(torch, R) -> dict:
     return report
 
 
-# the second agent's decide takes one round: its check reads the first
-# round's cached tokens only (cut for the script's 1,200 s when the vlm
-# phase came: at the default four rounds it took 24.1-36.1 s of a slow
-# H100 host's whole run)
+# the second agent's decide takes one round of SECOND_AGENT_TOKENS new
+# tokens: its check reads the first round's cached tokens only (the
+# rounds cut for the script's 1,200 s when the vlm phase came: at the
+# default four rounds it took 24.1-36.1 s of a slow H100 host's whole
+# run; the tokens, DECIDE_MAX_TOKENS before, for the train phase's:
+# 31.3 s of a whole run on an H100 80GB HBM3 at 700 W)
 SECOND_AGENT_ROUNDS = 0
+SECOND_AGENT_TOKENS = 64
 
 
 def prefix_second_agent(torch, R, kernels, pool_backend) -> dict:
@@ -2091,7 +2125,7 @@ def prefix_second_agent(torch, R, kernels, pool_backend) -> dict:
     from quoracle_tpu_torch.consensus import engine as CE
     kernels.reset_launch_counts()
     outcomes, records = run_decides(
-        R, CE, pool_backend, DECIDE_POOL, DECIDE_MAX_TOKENS,
+        R, CE, pool_backend, DECIDE_POOL, SECOND_AGENT_TOKENS,
         max_refinement_rounds=SECOND_AGENT_ROUNDS,
         session_key="agent-second", steps=1)
     torch.cuda.synchronize()
@@ -3747,22 +3781,59 @@ def traced(torch, label: str, fn) -> dict:
             "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
 
 
-def phase_trace(torch, R, backend, hist) -> dict:
+def phase_trace(torch, R, backend, hist, tokens=TRACE_TOKENS) -> dict:
     """Where the time of a resumed round and of a sessionless row goes,
     after the serve phase has paid every first-call cost."""
     eng = backend.engines[MODEL]
     calls = []
     for label, fn in (
             ("resumed consensus round", lambda: consensus_round(
-                R, backend, MODEL, hist, TEMPS, TRACE_TOKENS)),
+                R, backend, MODEL, hist, TEMPS, tokens)),
             ("sessionless long row", lambda: sessionless_row(
-                R, backend, MODEL, TRACE_TOKENS, N_RULES))):
+                R, backend, MODEL, tokens, N_RULES))):
         row = traced(torch, label, fn)
         row.update(prefill_ms=eng.last_prefill_s * 1e3,
                    decode_ms=eng.last_decode_s * 1e3,
                    prefill_tokens=eng.last_prefill_tokens)
         calls.append(row)
     return {"phase": "trace", "model": MODEL, "calls": calls}
+
+
+def phase_cuts(torch, R, backend, hist) -> dict:
+    """Seconds of the parts cut for the train phase, at the cut token
+    count and at the count before, each old, new, new, old in one run,
+    each part's line printed as it ends: the reference decide
+    (REFERENCE_DECIDE_TOKENS, 4 before; first, while the card holds only
+    the serve phase's weights), the trace phase (TRACE_TOKENS, 16
+    before), and the second agent's decide over the decide pool
+    (SECOND_AGENT_TOKENS, DECIDE_MAX_TOKENS before; after a decide of 3
+    tokens that caches the system prompt and builds the grammar tables,
+    each on a session of its own)."""
+    from quoracle_tpu_torch.consensus import engine as CE
+    out = {"phase": "cuts"}
+
+    def timed(key, old, new, fn):
+        out[key] = []
+        for n in (old, new, new, old):
+            t0 = time.monotonic()
+            fn(n)
+            out[key].append({"tokens": n, "s": time.monotonic() - t0})
+        emit({"phase": "cuts", key: out[key]})
+    timed("reference_decide", 4, REFERENCE_DECIDE_TOKENS,
+          lambda n: reference_decide(torch, R, n))
+    timed("trace", 16, TRACE_TOKENS,
+          lambda n: phase_trace(torch, R, backend, hist, n))
+    pool_backend = decide_pool_backend(torch, R, backend)[0]
+    keys = iter(range(1_000))
+
+    def second_agent(n):
+        run_decides(R, CE, pool_backend, DECIDE_POOL, n,
+                    max_refinement_rounds=SECOND_AGENT_ROUNDS,
+                    session_key=f"cuts-agent-{next(keys)}", steps=1)
+    second_agent(3)
+    timed("second_agent", DECIDE_MAX_TOKENS, SECOND_AGENT_TOKENS,
+          second_agent)
+    return out
 
 
 # -- the obs phase -------------------------------------------------------------
@@ -5202,7 +5273,7 @@ def phase_web(torch, R, kernels, decide_backend) -> dict:
             report["trace_spans"] = routes["/api/trace"][1]["n_spans"]
             report["tree_nodes"] = len(routes["/api/tree"][1].get("nodes")
                                        or [])
-            report["not_ported"] = {"/api/train": routes["/api/train"][1]}
+            report["train_keys"] = sorted(routes["/api/train"][1])
             report["costs_nominal"] = routes["/api/costs"][1]["nominal"][
                 "total_amount"]
 
@@ -5363,12 +5434,9 @@ def phase_web(torch, R, kernels, decide_backend) -> dict:
         "written": (report["written"] == '{"score": 0.5}'
                     and "'status': 'ok'" in acts[2]),
         "hard_rule": "blocked by grove hard rule: no network" in acts[3],
-        "routes": all(report["routes"][p] == 200 for p in report["routes"]
-                      if p not in report["not_ported"]),
-        "not_ported": all(
-            report["routes"][p] == 501 and b["roadmap"].startswith(
-                "ROADMAP Queue 1 item")
-            for p, b in report["not_ported"].items()),
+        "routes": all(s == 200 for s in report["routes"].values()),
+        "train_route": report["train_keys"] == ["capture", "counters",
+                                                "promoter"],
         "device_block": (device is not None and device["consistent"]
                          and sum(device["parts"].values())
                          <= device["used_bytes"]
@@ -7717,9 +7785,9 @@ def text_of_tokens(tok, lo: int, hi: int) -> str:
     return text
 
 
-def reference_decide(torch, R) -> dict:
+def reference_decide(torch, R, tokens=REFERENCE_DECIDE_TOKENS) -> dict:
     """The decide phase's two decides, greedy and small (one refinement
-    round at most, REFERENCE_DECIDE_TOKENS new tokens), through fp32 cuts
+    round at most, ``tokens`` new tokens), through fp32 cuts
     of the three members (REFERENCE_DECIDE_LAYERS layers, full width) on
     the GPU (kernels) and on the CPU (plain twins), one set of
     weights (``fp32_cut``: drawn on the card, copied to the CPU), the
@@ -7768,7 +7836,7 @@ def reference_decide(torch, R) -> dict:
                                      overlap=False)
             t0 = time.monotonic()
             outcomes, records = run_decides(
-                R, CE, backend, pool, max_tokens=REFERENCE_DECIDE_TOKENS,
+                R, CE, backend, pool, max_tokens=tokens,
                 max_refinement_rounds=1)
             t1 = time.monotonic()
             vecs = {T: backend.embed([t])[0] for T, t in texts.items()}
@@ -8343,6 +8411,653 @@ def phase_tiers(torch, R, P, kernels, backend) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# The train phase: the flash backward kernel, a llama-1b finetune, the
+# flywheel (models/train.py, training/, tools/finetune.py)
+# ---------------------------------------------------------------------------
+
+# make_checkpoint's llama at its 1b scale: hidden 2048, 16 layers, 16
+# heads over 4 KV heads of 128, vocab 32,768 (~0.86 B parameters), loaded
+# in fp32 as the JAX train_corpus loads it; batch and seq are the JAX
+# trainer's and finetune's defaults, so every layer's attention takes
+# the flash kernel forward and backward (a chunk of 256 tokens)
+TRAIN_SCALE = "1b"
+TRAIN_SEED = 23
+TRAIN_BATCH = 8
+TRAIN_SEQ = 256
+TRAIN_STEPS = 4
+# tools/finetune.py's default of 3e-4 overshoots at the 1b width from
+# random weights (AdamW's first steps move every element by ~lr): losses
+# 10.61, 8.29, 14.93, 11.61 on an H100 80GB HBM3 at 700 W
+TRAIN_LR = 5e-5
+TRAIN_CORPUS = 64           # format-corpus rows drawn for the finetune
+# the GPU-vs-CPU cut: the 1b width at this depth, one row of TRAIN_SEQ
+# tokens (the flash kernels take chunks of 256 or more), two steps on
+# each side from the same weights; the CPU side is most of its time
+TRAIN_CUT_LAYERS = 1
+TRAIN_CUT_STEPS = 2
+# the flywheel: prompts served speculatively (temperature 0) with the
+# capture store installed, their new tokens, and the distillation steps
+# on the draft
+FLY_PROMPTS = 4
+FLY_TOKENS = 16
+FLY_STEPS = 2
+# the flash backward kernel beside the finetune's inputs: a serve-phase
+# prefill chunk of llama-3-8b in bf16 (1,024 queries after a 64-token
+# prefix: S = 1,088; 32 heads over 8 KV heads of 128)
+BWD_CHUNK = ((1, 1024, 1088, 32, 8, 128, 64), "bfloat16")
+# the bars of flash_bwd against flash_attend_bwd_ref (handed the same
+# forward output), per element: |got - ref| <= atol + rtol |ref| + ptol
+# * abs, where abs is the same sum over absolute terms (the twin's
+# abs_terms: |dS||k|, |dS||q|, P |dout|), all held on inputs of unit
+# scale: both sides sum fp32 products in another order, which errs in
+# proportion to the terms, not to the (cancelling) result; bf16 rounds
+# each gradient once on each side, so the two may land one bf16 ulp apart
+# (2^-7 |x|)
+for _n in ("dq", "dk", "dv"):
+    TOL[(f"flash_bwd.{_n}", "float32")] = (1e-5, 1e-5)
+    TOL[(f"flash_bwd.{_n}", "bfloat16")] = (1e-5, 2.0 ** -7)
+    P_TOL[(f"flash_bwd.{_n}", "float32")] = 1e-5
+    P_TOL[(f"flash_bwd.{_n}", "bfloat16")] = 1e-5
+
+
+def bwd_inputs(torch, F, shape, dtype: str, seed: int) -> tuple:
+    """Random q/k/v/dout on the card (one generator), causal positions
+    from the first query's, full kv_len, and flash_fwd's output for them."""
+    B, T, S, H, KV, hd, q0 = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device="cuda").to(dt)
+    q, k, v, dout = rnd(B, T, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd), \
+        rnd(B, T, H, hd)
+    qp = (q0 + torch.arange(T, device="cuda", dtype=torch.int32))[None] \
+        .repeat(B, 1)
+    kv_len = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    off = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        out = F.flash_attend(q, k, v, qp, kv_len, None, off)
+    return q, k, v, out, dout, qp, kv_len, None, off
+
+
+def flash_bwd_work(q, k, qp, kv_len, window, off) -> tuple[int, int]:
+    """Bytes: q, out and dout read, dq written (q's dtype), the visible
+    K/V rows read, dk and dv written whole, the int inputs; operations:
+    2.5x the forward's over the visible pairs (S, dP, dv, dk, dq: five
+    products of 2 hd operations a pair and head, against QK^T and PV)."""
+    from quoracle_tpu_torch.ops.attention import attention_mask
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    mask = attention_mask(qp, kv_len, S, window, off)
+    keys = int(mask.any(dim=1).sum())
+    pairs = int(mask.sum())
+    es = q.element_size()
+    nbytes = (4 * q.numel() * es + 2 * keys * KV * hd * es
+              + 2 * k.numel() * es + 4 * (qp.numel() + 2 * B))
+    return nbytes, 10 * hd * H * pairs
+
+
+def flash_bwd_library(torch, q, k, v, qp, kv_len, dout, window, off):
+    """Autograd through scaled_dot_product_attention's backward over the
+    same K/V and mask in its layout ([B, H, T, hd], transposed
+    beforehand); the forward runs once outside the timing."""
+    from quoracle_tpu_torch.ops.attention import attention_mask
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    mask = attention_mask(qp, kv_len, k.shape[1], window, off)[:, None]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    dt = dout.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dt,
+                                       retain_graph=True)
+
+
+def flash_bwd_check(torch, F, args: tuple, mutants: bool = False) -> dict:
+    """flash_bwd on ``args`` (q, k, v, out, dout, q_pos, kv_len, window,
+    offset), each gradient against the twin handed the same forward
+    output, held to the BWD bars (``abs_terms`` gives the sum-order
+    scale). ``mutants``: also hold wrong gradients to the same bars, each
+    of which must fail: a batch element of dq zeroed (a batch-offset
+    fault), dq scaled by 1 + 1e-3, dq without its delta term (dS = P dP:
+    the twin handed a zero forward output), dv shifted by one batch
+    element, dk shifted by one KV head (a GQA fault)."""
+    q, k, v, out, dout, qp, kv_len, window, off = args
+    got = F.flash_bwd(q, k, v, out, dout, qp, kv_len, window, off)
+    ref = F.flash_attend_bwd_ref(q, k, v, qp, kv_len, dout, window, off,
+                                 out=out)
+    absr = F.flash_attend_bwd_ref(q, k, v, qp, kv_len, dout, window, off,
+                                  out=out, abs_terms=True)
+    what = {"dtype": dtype_name(q)}
+    names = ("dq", "dk", "dv")
+    rows = [check(torch, f"flash_bwd.{n}", g, r, what, a)
+            for n, g, r, a in zip(names, got, ref, absr)]
+    rep = {"max_abs_err": max(r["max_abs_err"] for r in rows),
+           "bar_used": max(r["bar_used"] for r in rows),
+           "errors": {n: r["max_abs_err"] for n, r in zip(names, rows)},
+           "ref_max": {n: float(r.float().abs().max())
+                       for n, r in zip(names, ref)}}
+    if mutants:
+        dq, dk, dv = got
+        wrong = {"dq_batch_zeroed": (0, torch.cat([dq[:-1],
+                                                   dq[-1:] * 0])),
+                 "dq_scaled_1e-3": (0, dq.float() * (1 + 1e-3)),
+                 "dq_no_delta": (0, F.flash_attend_bwd_ref(
+                     q, k, v, qp, kv_len, dout, window, off,
+                     out=torch.zeros_like(out))[0]),
+                 "dv_batch_shifted": (2, dv.roll(1, 0)),
+                 "dk_head_shifted": (1, dk.roll(1, 2))}
+        caught = {}
+        for name, (i, w) in wrong.items():
+            try:
+                check(torch, f"flash_bwd.{names[i]}", w, ref[i], what,
+                      absr[i])
+                caught[name] = False
+            except AssertionError:
+                caught[name] = True
+        rep["mutants_caught"] = caught
+        if not all(caught.values()):
+            raise AssertionError(f"flash_bwd: a wrong gradient passed the "
+                                 f"bars: {caught}")
+    return rep
+
+
+def flash_bwd_entry(torch, F, kernels, args: tuple, launches: int,
+                    mutants: bool) -> dict:
+    """flash_bwd on ``args`` checked (``flash_bwd_check``), device
+    times, and the bound from these inputs."""
+    q, k, v, out, dout, qp, kv_len, window, off = args
+    rep = flash_bwd_check(torch, F, args, mutants)
+    nbytes, flops = flash_bwd_work(q, k, qp, kv_len, window, off)
+    b_ms, b_by = bound(nbytes, flops, dtype_name(q))
+    return {
+        "name": "flash_bwd", "route": "cuda",
+        "source": kernels.FLASH_BWD.source,
+        "replaces": kernels.FLASH_BWD.replaces, "launches": launches,
+        "max_abs_err": rep.pop("max_abs_err"),
+        "ms": cuda_ms(torch, lambda: F.flash_bwd(
+            q, k, v, out, dout, qp, kv_len, window, off)),
+        "plain_ms": cuda_ms(torch, lambda: F.flash_attend_bwd_ref(
+            q, k, v, qp, kv_len, dout, window, off, out=out)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(torch, flash_bwd_library(
+            torch, q, k, v, qp, kv_len, dout, window, off)),
+        **rep,
+        "shape": {"q": list(q.shape), "k": list(k.shape),
+                  "dtype": dtype_name(q), "bytes": nbytes, "flops": flops}}
+
+
+def train_model_flops(cfg, batch: int, seq: int) -> int:
+    """Operations of one training step (forward + backward, 3x the
+    forward): 2 per weight of every projection and the head a token, and
+    the causal attention's 4 hd a visible (query, key) pair and head."""
+    linear = cfg.n_layers * (
+        cfg.dim * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+        + cfg.n_heads * cfg.head_dim * cfg.dim
+        + 3 * cfg.dim * cfg.ffn_dim) + cfg.dim * cfg.vocab_size
+    attn = cfg.n_layers * 4 * cfg.head_dim * cfg.n_heads \
+        * seq * (seq + 1) // 2
+    return 3 * batch * (2 * linear * seq + attn)
+
+
+def train_finetune(torch, F, kernels, root: str, report: dict):
+    """tools/finetune.py's format corpus on make_checkpoint's llama-1b
+    through train_corpus (the user's entry), the launch counts zeroed
+    just before it and read just after. Returns (checkpoint path, cfg,
+    the kept flash_bwd inputs of the first call)."""
+    from quoracle_tpu_torch.models.make_checkpoint import make_checkpoint
+    from quoracle_tpu_torch.models.tokenizer import HFAutoTokenizer
+    from quoracle_tpu_torch.tools.finetune import build_format_corpus
+    from quoracle_tpu_torch.training.trainer import (
+        TrainerConfig, train_corpus,
+    )
+    t0 = time.monotonic()
+    path = make_checkpoint(os.path.join(root, "llama-1b"), family="llama",
+                           scale=TRAIN_SCALE, seed=TRAIN_SEED)
+    report["write_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    tok = HFAutoTokenizer(path)
+    rows = build_format_corpus(tok, tok.eos_id, TRAIN_CORPUS, TRAIN_SEED,
+                               TRAIN_SEQ)
+    report["corpus_s"] = time.monotonic() - t0
+    marks = []
+
+    def log(msg: str) -> None:          # once a step, after its loss sync
+        marks.append((time.monotonic(),
+                      float(msg.split("loss ")[1].split()[0])))
+    kept = {}
+    orig_bwd = F.flash_bwd
+
+    def keep_bwd(*a):
+        if not kept:
+            kept["args"] = tuple(x.detach().clone()
+                                 if torch.is_tensor(x) else x for x in a)
+        return orig_bwd(*a)
+    from quoracle_tpu_torch.models import loader
+    orig_load = loader.load_params
+    loads = []
+
+    def timed_load(*a, **kw):
+        t = time.monotonic()
+        out = orig_load(*a, **kw)
+        torch.cuda.synchronize()
+        loads.append(time.monotonic() - t)
+        return out
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         lr=TRAIN_LR, seed=TRAIN_SEED, log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    F.flash_bwd = keep_bwd
+    loader.load_params = timed_load
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        cfg, state = train_corpus(path, rows, TRAIN_STEPS, TRAIN_BATCH,
+                                  TRAIN_SEQ, TRAIN_LR, TRAIN_SEED, log,
+                                  tcfg=tcfg)
+        torch.cuda.synchronize()
+    finally:
+        F.flash_bwd = orig_bwd
+        loader.load_params = orig_load
+    launches = kernels.launch_counts()
+    wall = time.monotonic() - t0
+    step_s = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    step_s.sort()
+    ms = step_s[len(step_s) // 2] * 1e3
+    flops = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    report["finetune"] = {
+        "config": {"dim": cfg.dim, "n_layers": cfg.n_layers,
+                   "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                   "head_dim": cfg.head_dim, "ffn_dim": cfg.ffn_dim,
+                   "vocab": cfg.vocab_size,
+                   "n_params": sum(p.numel()
+                                   for p in state.params.parameters())},
+        "dtype": "float32", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "corpus_rows": len(rows),
+        "losses": [m[1] for m in marks], "wall_s": wall,
+        "to_first_step_s": marks[0][0] - t0 if marks else None,
+        "load_s": loads,
+        "step_ms": ms, "step_ms_all": [s * 1e3 for s in step_s],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+        "model_flops": flops,
+        "mfu_fp32": flops / (ms / 1e3) / H100_OPS_PER_S["float32"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}
+    want = cfg.n_layers * TRAIN_STEPS
+    if not (launches["flash_fwd"] == launches["flash_bwd"] == want):
+        raise AssertionError(f"train: flash launches {launches} are not "
+                             f"layers x steps = {want}")
+    if len(marks) != TRAIN_STEPS or not marks[-1][1] < marks[0][1]:
+        raise AssertionError(f"train: the loss did not fall: {marks}")
+    del state
+    return path, cfg, kept["args"]
+
+
+def train_cut(torch, cfg, path: str) -> dict:
+    """The 1b width at TRAIN_CUT_LAYERS, fp32, one row: the loss and
+    every gradient of each of TRAIN_CUT_STEPS steps, and the parameters
+    after them, the card against the CPU from the same weights and rows;
+    then the card's run again, saved after its first step and killed in
+    its second, resumed on fresh weights: bit-equal to the uninterrupted
+    run."""
+    from quoracle_tpu_torch.models.tokenizer import HFAutoTokenizer
+    from quoracle_tpu_torch.tools.finetune import build_format_corpus
+    from quoracle_tpu_torch.training.trainer import (
+        DraftTrainer, TrainerConfig, corpus_rows,
+    )
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    tok = HFAutoTokenizer(path)
+    rows = corpus_rows(build_format_corpus(tok, tok.eos_id, 8, TRAIN_SEED,
+                                           TRAIN_SEQ),
+                       seq=TRAIN_SEQ, pad_id=cfg.eos_token_id)
+    tcfg = TrainerConfig(steps=TRAIN_CUT_STEPS, batch=1, seq=TRAIN_SEQ,
+                         lr=TRAIN_LR, seed=TRAIN_SEED)
+    gpu, cpu = fp32_cut(torch, cut, TRAIN_SEED + 5, cpu_copy=True)
+    again = fp32_cut(torch, cut, TRAIN_SEED + 5)    # the same weights
+    out, sides = {}, {}
+    for name, params in (("cuda", gpu), ("cpu", cpu)):
+        t0 = time.monotonic()
+        tr = DraftTrainer(cut, params, tcfg)
+        losses, grads = [], []
+        step, update = tr.step, tr.optimizer.update
+
+        def kept_step(*batch):          # each step's loss, as it runs
+            loss = step(*batch)
+            losses.append(float(loss))
+            return loss
+
+        def kept_update(g, *a):         # each step's gradients
+            grads.append([x.detach().cpu() for x in g])
+            return update(g, *a)
+        tr.step, tr.optimizer.update = kept_step, kept_update
+        tr.run(rows)
+        sides[name] = {"losses": losses, "grads": grads,
+                       "params": [p.detach().cpu()
+                                  for p in params.parameters()]}
+        out[f"{name}_s"] = time.monotonic() - t0
+    g, c = sides["cuda"], sides["cpu"]
+    out["losses"] = [g["losses"], c["losses"]]
+    # the losses: the first from the same weights, the rest after the
+    # card's and the CPU's updates (sound runs read 1.6e-7 relative on
+    # the last)
+    rel = [abs(a - b) / abs(b) for a, b in zip(g["losses"], c["losses"])]
+    out["loss_rel_err"] = rel
+    if len(rel) != TRAIN_CUT_STEPS or max(rel) > 1e-5:
+        raise AssertionError(f"train cut: losses {out['losses']}")
+    # gradients of every step, each element against its tensor's
+    # largest: fp32 sums of up to 8,192-long products in another order on
+    # each side, within 1e-4 from the same weights (the first step);
+    # after an update the sides' weights differ where a near-zero
+    # gradient's sign flipped (below), which moves the next gradients:
+    # 1e-3 (a sound run read 3.6e-4 at the second step), and the L2 error
+    # of each tensor recorded beside it
+    worst, l2 = [], []
+    for ga, gb in zip(g["grads"], c["grads"]):
+        w = e = 0.0
+        for a, b in zip(ga, gb):
+            scale = float(b.abs().max()) or 1.0
+            w = max(w, float((a - b).abs().max()) / scale)
+            e = max(e, float((a - b).norm()) / (float(b.norm()) or 1.0))
+        worst.append(w)
+        l2.append(e)
+    out["grad_err_over_max"], out["grad_l2_rel"] = worst, l2
+    if len(worst) != TRAIN_CUT_STEPS or worst[0] > 1e-4 \
+            or max(worst) > 1e-3:
+        raise AssertionError(f"train cut: gradients {worst}")
+    # parameters: AdamW moves an element about +-lr a step wherever
+    # |g| >> eps, so a near-zero gradient of the other sign on the other
+    # side moves it up to 2 lr apart a step; such elements are few (sound
+    # runs: 561 of 179 M more than 1e-6 apart), a wrong update moves most
+    n = sum(a.numel() for a in g["params"])
+    out["param_max_diff"] = max(float((a - b).abs().max())
+                                for a, b in zip(g["params"], c["params"]))
+    out["params_over_1e-6"] = sum(int(((a - b).abs() > 1e-6).sum())
+                                  for a, b in zip(g["params"], c["params"]))
+    out["params_n"], out["params_bar"] = n, n // 100_000
+    if out["params_over_1e-6"] > out["params_bar"]:
+        raise AssertionError(f"train cut: parameters {out}")
+    # saved, killed, resumed: bit-equal to the uninterrupted card run
+    ck = tempfile.mkdtemp(prefix="chip_smoke_train_ck_")
+    try:
+        t0 = time.monotonic()
+        first = DraftTrainer(cut, again, dataclasses.replace(
+            tcfg, ckpt_dir=ck, ckpt_every=1))
+        real_step = first.step
+
+        def killed(*batch):
+            if first.state.step == 1:
+                raise RuntimeError("killed")
+            return real_step(*batch)
+        first.step = killed
+        try:
+            first.run(rows)
+        except RuntimeError as e:
+            if str(e) != "killed":
+                raise
+        second = DraftTrainer(cut, fp32_cut(torch, cut, TRAIN_SEED + 7),
+                              dataclasses.replace(tcfg, ckpt_dir=ck))
+        rep = second.run(rows)
+        out["resume"] = {"resumed_from": rep["resumed_from"],
+                         "steps_run": rep["steps_run"],
+                         "seconds": time.monotonic() - t0}
+        same = all(torch.equal(a.cpu(), b) for a, b in
+                   zip(second.params.parameters(), g["params"]))
+        out["resume"]["bit_equal"] = same
+        if not (same and rep["resumed_from"] == 1
+                and rep["final_loss"] == g["losses"][-1]):
+            raise AssertionError(f"train cut: resume {out['resume']}")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    return out
+
+
+def train_flywheel(torch, R, kernels, root: str, target_path: str,
+                   report: dict) -> dict:
+    """capture -> train -> evaluate -> promote at the 1b width: the
+    finetune's checkpoint as the target and a second 1b checkpoint (the
+    same tokenizer.json, asserted byte-identical) as its draft, served by
+    a TorchBackend under a Runtime with ``capture_dir``; the captured
+    rounds train a candidate (train_from_capture), evaluate.compare
+    replays a held-out slice through verify_chunk, the Promoter gates it
+    (default policy), then promotes under a permissive policy, serves,
+    and rolls back on a forced regression; GET /api/train over HTTP shows
+    the records and the rollout."""
+    import filecmp
+
+    from quoracle_tpu_torch import runtime as RT
+    from quoracle_tpu_torch.models import loader
+    from quoracle_tpu_torch.models.generate import GenerateEngine
+    from quoracle_tpu_torch.models.make_checkpoint import make_checkpoint
+    from quoracle_tpu_torch.tools.finetune import SYSTEM, _format_sample
+    from quoracle_tpu_torch.training import evaluate, promote
+    from quoracle_tpu_torch.training.capture import CAPTURE
+    from quoracle_tpu_torch.training.trainer import (
+        TrainerConfig, heldout_split, train_from_capture,
+    )
+    from quoracle_tpu_torch.web import DashboardServer
+    out = {}
+    t0 = time.monotonic()
+    d_path = make_checkpoint(os.path.join(root, "draft-1b"), family="llama",
+                             scale=TRAIN_SCALE, seed=TRAIN_SEED + 1)
+    out["write_s"] = time.monotonic() - t0
+    if not filecmp.cmp(os.path.join(target_path, "tokenizer.json"),
+                       os.path.join(d_path, "tokenizer.json"),
+                       shallow=False):
+        raise AssertionError("flywheel: the draft's tokenizer.json differs")
+    tcfg = loader.register_hf_checkpoint(target_path, "flywheel-target")
+    dcfg = loader.register_hf_checkpoint(d_path, "flywheel-draft")
+    tspec, dspec = "xla:" + tcfg.name, "xla:" + dcfg.name
+    t0 = time.monotonic()
+    backend = R.TorchBackend([tspec], seed=0, continuous=True,
+                             draft_map={tspec: dspec}, draft_k=4)
+    out["backend_build_s"] = time.monotonic() - t0
+    rng = random.Random(TRAIN_SEED)
+    prompts = [[{"role": "system", "content": SYSTEM},
+                {"role": "user", "content": _format_sample(rng)[0]}]
+               for _ in range(FLY_PROMPTS)]
+
+    def serve(tag: str) -> list:
+        res = backend.query([R.QueryRequest(
+            tspec, m, temperature=0.0, max_tokens=FLY_TOKENS,
+            session_id=f"fly-{tag}-{i}") for i, m in enumerate(prompts)])
+        if not all(r.ok for r in res):
+            raise AssertionError(f"flywheel: {[r.error for r in res]}")
+        return res
+
+    async def main():
+        rt = RT.Runtime(RT.RuntimeConfig(
+            backend="torch", capture_dir=os.path.join(root, "capture"),
+            capture_mb=64.0, db_path=os.path.join(root, "fly.db")),
+            backend=backend)
+        loop = asyncio.get_running_loop()
+        server = None
+        try:
+            server = await DashboardServer(rt, host="127.0.0.1",
+                                           port=0).start()
+            if not CAPTURE.active:
+                raise AssertionError("flywheel: capture_dir installed no "
+                                     "store")
+            t0 = time.monotonic()
+            kernels.reset_launch_counts()
+            served = await loop.run_in_executor(None, serve, "cap")
+            torch.cuda.synchronize()
+            out["serve"] = {"seconds": time.monotonic() - t0,
+                            "launches": kernels.launch_counts(),
+                            "spec_rounds": sum(r.spec_rounds
+                                               for r in served),
+                            "acceptance": backend.spec_stats()}
+            store = CAPTURE.store
+            store.flush()
+            records = list(store.read_all("spec"))
+            out["capture"] = {"records": len(records),
+                              "stats": store.stats()}
+            if not records or any(r["kind"] != "spec_round"
+                                  for r in records):
+                raise AssertionError(f"flywheel: records {out['capture']}")
+            # train the candidate from the captured rounds (fp32 draft)
+            t0 = time.monotonic()
+            dparams = loader.load_params(d_path, dcfg, dtype=torch.float32)
+            out["draft_load_s"] = time.monotonic() - t0
+            kernels.reset_launch_counts()
+            t0 = time.monotonic()
+            trainer, trep = train_from_capture(
+                dcfg, dparams, store,
+                TrainerConfig(steps=FLY_STEPS, batch=TRAIN_BATCH,
+                              seq=TRAIN_SEQ, lr=TRAIN_LR, seed=TRAIN_SEED))
+            torch.cuda.synchronize()
+            trep["seconds"] = time.monotonic() - t0
+            trep["launches"] = kernels.launch_counts()
+            out["train"] = trep
+            if trep["rows"] < 1 or trep["steps_run"] != FLY_STEPS \
+                    or trep["launches"]["flash_bwd"] \
+                    != dcfg.n_layers * FLY_STEPS:
+                raise AssertionError(f"flywheel: training {trep}")
+            weights = sorted({float(w) for rec in records
+                              for w in _row_weights(rec)})
+            out["row_weights"] = weights
+            if not set(weights) <= {0.0, 0.25, 1.0} or 1.0 not in weights:
+                raise AssertionError(f"flywheel: row weights {weights}")
+            # evaluate on the held-out slice through verify_chunk
+            target = backend.engines[tspec]
+            incumbent = backend.engines[dspec]
+            candidate = GenerateEngine(dcfg, trainer.params,
+                                       target.tokenizer, seed=0,
+                                       device=target.device)
+            _, held = heldout_split(records, frac=0.25, seed=TRAIN_SEED)
+            held = held or records[:2]
+            t0 = time.monotonic()
+            cmp_rep = evaluate.compare(target, incumbent, candidate, held,
+                                       max_k=4)
+            ids = target.tokenizer.encode_chat(prompts[0])
+            greedy_ok = evaluate.greedy_equal(target, candidate, [ids],
+                                              k=4, max_new=8)
+            out["evaluate"] = {**cmp_rep, "greedy_equal": greedy_ok,
+                               "seconds": time.monotonic() - t0}
+            for role in ("incumbent", "candidate"):
+                if set(cmp_rep[role]) != {"n", "p50", "p95", "mean"} \
+                        or cmp_rep[role]["n"] != len(held):
+                    raise AssertionError(f"flywheel: report {cmp_rep}")
+            # the default policy's verdict, then the mechanics: a
+            # permissive promotion, served, and a forced regression
+            t0 = time.monotonic()
+            strict = promote.Promoter()
+            out["gate"] = strict.promote_backend(
+                backend, tspec, lambda: candidate,
+                draft_name="flywheel-candidate", report=cmp_rep,
+                greedy_ok=greedy_ok)
+            if out["gate"]["promoted"]:
+                strict.observe(tspec, 0.0, 10 ** 6, backend=backend)
+                strict.observe(tspec, 0.0, 10 ** 6, backend=backend)
+                strict.observe(tspec, 0.0, 10 ** 6, backend=backend)
+            elif not out["gate"]["reason"]:
+                raise AssertionError(f"flywheel: gate {out['gate']}")
+            loose = promote.Promoter(promote.PromotionPolicy(
+                margin_p50=-1.0, min_examples=1, min_rounds=0,
+                trip_after=1))
+            rt._promoter = loose
+            res = loose.promote_backend(
+                backend, tspec, lambda: candidate,
+                draft_name="flywheel-candidate", report=cmp_rep,
+                greedy_ok=True)
+            if not res["promoted"] or backend.draft_map[tspec] \
+                    != "flywheel-candidate":
+                raise AssertionError(f"flywheel: promotion {res}")
+            # served through the candidate; in bf16 the texts need not be
+            # the same bits as before (a verify tick sums in another order
+            # than a decode tick, ROADMAP Queue 3): recorded, not gated
+            again = await loop.run_in_executor(None, serve, "promoted")
+            same = [a.text == b.text for a, b in zip(served, again)]
+            # a forced regression: an EWMA below any floor (the floor is
+            # candidate p50 x floor_frac, 0 when the p50 is 0)
+            rb = loose.observe(tspec, -1.0, 10 ** 6, backend=backend)
+            out["promote"] = {"result": res, "texts_equal": same,
+                              "rollback": rb,
+                              "draft_after": backend.draft_map[tspec],
+                              "seconds": time.monotonic() - t0}
+            if rb is None or backend.draft_map[tspec] != dspec:
+                raise AssertionError(f"flywheel: {out['promote']}")
+            status, body = await loop.run_in_executor(
+                None, web_call, server.url + "/api/train")
+            out["api_train"] = {"status": status,
+                                "capture": body["capture"],
+                                "promoter": body["promoter"]}
+            roll = body["promoter"]["rollouts"]
+            if status != 200 or not body["capture"]["installed"] \
+                    or body["capture"]["store"]["disk_records"] \
+                    < len(records) or not roll \
+                    or not roll[0]["rolled_back"]:
+                raise AssertionError(f"flywheel: /api/train {body}")
+        finally:
+            if server is not None:
+                await server.stop()
+            await rt.shutdown()
+            backend.close()
+        if CAPTURE.active:
+            raise AssertionError("flywheel: the store outlived close()")
+
+    asyncio.run(main())
+    return out
+
+
+def _row_weights(rec: dict) -> list:
+    """The weights rows_from_capture gives one record's proposal."""
+    j = int(rec.get("accepted") or 0)
+    return [0.25 if t < j else 1.0 if t == j else 0.0
+            for t in range(len(rec.get("proposal") or []))]
+
+
+def phase_train(torch, R, F, kernels) -> dict:
+    """Training on the card: see the module docstring's train entry."""
+    t_phase = time.monotonic()
+    report = {"phase": "train", "card": nvidia_smi()}
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train_parts(torch, R, F, kernels, root, report)
+    except BaseException:
+        emit(report)                    # what ran before the failure
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    report["seconds"] = time.monotonic() - t_phase
+    return report
+
+
+def train_parts(torch, R, F, kernels, root: str, report: dict) -> None:
+    """The train phase's parts in order, each filling ``report``."""
+    path, cfg, kept = train_finetune(torch, F, kernels, root, report)
+    torch.cuda.empty_cache()
+    report["launches"] = report["finetune"]["launches"]
+    # the gradients are linear in dout: the kept dout (the loss's, ~1/(B
+    # T) an element) rescaled to unit RMS, so that the bars' absolute
+    # floor is small beside the gradients they hold
+    q, k, v, out, dout, *rest = kept
+    kept = (q, k, v, out, dout / dout.float().square().mean().sqrt(),
+            *rest)
+    report["entry"] = flash_bwd_entry(torch, F, kernels, kept,
+                                      report["launches"]["flash_bwd"],
+                                      mutants=True)
+    # unit-scale random inputs at the finetune's shape, beside the kept
+    report["bwd_unit"] = flash_bwd_check(torch, F, bwd_inputs(
+        torch, F, (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads,
+                   cfg.n_kv_heads, cfg.head_dim, 0), "float32",
+        TRAIN_SEED + 1), mutants=True)
+    args = bwd_inputs(torch, F, *BWD_CHUNK, TRAIN_SEED)
+    report["bwd_chunk"] = flash_bwd_entry(torch, F, kernels, args, 0,
+                                          mutants=False)
+    del args, kept, q, k, v, out, dout, rest
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    report["cut"] = train_cut(torch, cfg, path)
+    report["cut"]["seconds"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    report["flywheel"] = train_flywheel(torch, R, kernels, root, path,
+                                        report)
+    report["flywheel"]["seconds"] = time.monotonic() - t0
+
+
 def ptxas_entries(log: str) -> list:
     """One entry per compiled kernel of the nvcc log (``--ptxas-options
     =-v``): its (mangled) name, the register line and the stack and spill
@@ -8364,7 +9079,7 @@ def main(argv) -> int:
     phases = ("kernels", "sweep", "decide", "prefix", "calib", "batch",
               "continuous", "spec", "ckpt", "tiers", "obs", "agent",
               "runtime", "web", "cluster", "fabric", "tok", "vlm",
-              "reference")
+              "train", "reference", "cuts")
     if argv[1:2] == ["--only"] and argv[2:3] and argv[2] in phases:
         only = argv[2]          # env, build, then that phase; no last line
     elif argv[1:]:
@@ -8473,6 +9188,15 @@ def main(argv) -> int:
         return 0
     if only == "reference":
         emit(phase_reference(torch, R))
+        return 0
+    if only == "train":
+        emit(phase_train(torch, R, F, kernels))
+        return 0
+    if only == "cuts":
+        backend, report, *_, hist = phase_serve(torch, R, F, P, kernels,
+                                                CharDFA(max_depth=4))
+        emit(report)
+        emit(phase_cuts(torch, R, backend, hist))
         return 0
     if only == "ckpt":
         dfa = CharDFA(max_depth=4)
@@ -8585,6 +9309,12 @@ def main(argv) -> int:
     emit(phase_calib(torch, F, P, kernels, params))
     del params
     torch.cuda.empty_cache()
+    train_report = phase_train(torch, R, F, kernels)
+    emit(train_report)
+    for e in entries:
+        e["train_launches"] = train_report["launches"][e["name"]]
+    entries.append({**train_report["entry"],
+                    "train_launches": train_report["launches"]["flash_bwd"]})
 
     emit(phase_sweep(torch, F, P))
 

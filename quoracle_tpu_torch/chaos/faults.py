@@ -59,8 +59,10 @@ fleet.migrate           FleetController._migrate_all (per      crash, fail
 accepts is accepted here. ``fabric.send`` fires in the fabric's
 ``Transport.request`` per wire attempt (drop, delay, corrupt a frame) and
 ``fabric.prefixd`` in ``PrefixdClient`` (unavailable: a local miss);
-``train.capture`` and ``train.promote`` (training) fire nowhere in the
-port until their modules are ported (ROADMAP Queue 1 item 11).
+``train.capture`` fires once per batch of records in the capture plane
+(training/capture.py: drop, corrupt, crash) and ``train.promote`` in
+``FleetController.swap_draft`` during a promotion rollout
+(training/promote.py).
 
 ``crash`` kinds raise :class:`InjectedFault` out of ``fire()``: a
 structured error naming point and key, so the recovery paths exercise

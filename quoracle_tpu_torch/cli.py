@@ -313,10 +313,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "diurnal-mix trace from this seed")
         sp.add_argument("--capture-dir", dest="capture_dir", default=None,
                         metavar="DIR",
-                        help="serving flywheel capture store (not ported)")
+                        help="serving flywheel: install the replay capture "
+                             "store here at boot (speculation rounds + "
+                             "consensus winners, crc-framed segments); "
+                             "GET /api/train shows it")
         sp.add_argument("--capture-mb", dest="capture_mb", type=float,
                         default=256.0,
-                        help="capture store disk budget (not ported)")
+                        help="capture store disk budget, oldest segment "
+                             "evicted first")
         sp.add_argument("--qos", action="store_true",
                         help="serving QoS: weighted-fair admission + "
                              "overload shedding + SLO demotion with "

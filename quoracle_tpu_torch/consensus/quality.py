@@ -27,9 +27,9 @@ The module-level ``QUALITY`` is deliberately process-wide: records carry
 their own task/agent attribution, and tests that need a hermetic view
 construct their own :class:`ConsensusQuality`. The layer is strictly
 READ-ONLY: it observes outcomes the engine already computed, never
-touches the backend, RNG, or device state. The JAX package also registers
-the training flywheel's capture store as a sink; the flywheel is not in
-the port (Queue 1 item 11), so no sink is registered here.
+touches the backend, RNG, or device state. The training flywheel's
+capture store (training/capture.py) is registered as a sink, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -475,3 +475,15 @@ class ConsensusQuality:
 # task/agent attribution, so cross-Runtime isolation comes from filtering.
 QUALITY = ConsensusQuality()
 
+
+def _capture_sink(record: dict) -> None:
+    """Serving-flywheel intake: every audit record is offered to the
+    replay capture store. The plane's fast path is one attribute read
+    when no store is installed, and it absorbs every failure, so
+    registering unconditionally costs serving nothing. Lazy import:
+    quality must not pull the training package at module load."""
+    from quoracle_tpu_torch.training.capture import CAPTURE
+    CAPTURE.observe_consensus(record)
+
+
+QUALITY.add_sink(_capture_sink)

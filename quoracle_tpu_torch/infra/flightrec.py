@@ -382,7 +382,7 @@ FLIGHT_EVENTS: dict = {
                            "spawn — observed signal only (no policy "
                            "acts on it yet); fires once per "
                            "(tree, node) with the overspend",
-    # serving flywheel (quoracle_tpu/training/)
+    # serving flywheel (training/)
     "train_capture_degraded": "the capture plane absorbed a write "
                               "failure (real or injected) and dropped "
                               "the record — serving is unaffected by "

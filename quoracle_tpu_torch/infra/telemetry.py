@@ -1144,7 +1144,7 @@ INTROSPECT_WAIT_SKEW_TOTAL = METRICS.counter(
     "means an instrumentation bug (DEPLOY §19 WaitStateSkew)")
 
 # -- serving flywheel ---------------------------------------------
-# Training plane (the JAX package's training/, not ported): replay capture store,
+# Training plane (training/): replay capture store,
 # draft-distillation trainer, and the bench-gated promotion pipeline.
 # The capture series is read-only measurement like the two planes above
 # — temp-0 on/off bit-equality depends on capture never touching a

@@ -44,9 +44,10 @@ Two integrations, as in the JAX package:
 The draft and the target must share one tokenizer and vocab, and both
 must use full attention. The speculator declares the rows' chip-ms keys
 before each engine call (``costobs``), adds each call's charge to the
-rows, and records re-probes and disengages in the flight recorder. Left
-out of this copy: the training-flywheel capture of rounds (``CAPTURE``,
-``spec_example``; Queue 1 item 11).
+rows, and records re-probes and disengages in the flight recorder. When
+the training flywheel's capture plane is live (training/capture.py), each
+round's rows are copied to it after the commit math: pure reads, so
+temp-0 output is the same bits with capture on or off.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ from quoracle_tpu_torch.models.sampling import sample_tokens
 from quoracle_tpu_torch.models.transformer import (
     KVCache, Transformer, forward_hidden, init_cache, project_logits,
 )
+from quoracle_tpu_torch.training.capture import CAPTURE, spec_example
 
 
 def _row_keys(rows) -> list:
@@ -722,7 +724,10 @@ class BatchedSpeculator:
 
         finishes: dict = {}
         drafted = accepted = committed_total = 0
-        for r, props, v in zip(rows, proposals, vres):
+        # the flywheel's intake: each row's (ctx, proposal, verdicts,
+        # correction) copied AFTER the commit math below
+        cap_rows: Optional[list] = [] if CAPTURE.active else None
+        for r, ctx, props, v in zip(rows, ctxs, proposals, vres):
             ids, probs = v["ids"], v["probs"]
             r.chip_ms = getattr(r, "chip_ms", 0.0) + v.get("chip_ms", 0.0)
             if r.n_cached_first is None:
@@ -784,8 +789,11 @@ class BatchedSpeculator:
                         s = int(table[s, t])
                 r.json_state = s
             finishes[id(r)] = finish
-            # (the JAX speculator copies each row's round to the training
-            # flywheel's capture plane here: Queue 1 item 11)
+            if cap_rows is not None:
+                cap_rows.append(spec_example(
+                    ctx, props, [int(x) for x in ids[:len(props)]],
+                    j, correction, r.temperature, r.constrain,
+                    r.action_enum))
 
         with self._lock:
             self.rounds += 1
@@ -808,6 +816,10 @@ class BatchedSpeculator:
             SPEC_K.set(self._k, model=self.model)
             SPEC_ENGAGED.set(1.0 if self._engaged else 0.0,
                              model=self.model)
+        if cap_rows:
+            # outside every lock; the plane absorbs all failures
+            CAPTURE.observe_spec_round(self.model, self.draft.cfg.name,
+                                       cap_rows)
         return finishes
 
     def _adapt_locked(self) -> bool:

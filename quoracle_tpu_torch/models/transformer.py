@@ -299,6 +299,39 @@ def forward_hidden(
     return x, cache
 
 
+def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+    """Differentiable full-sequence forward for training (the JAX
+    ``forward`` as ``models/train.loss_fn`` calls it: write offset 0,
+    ``kv_lens`` = T): the stack of ``forward_hidden`` (the same
+    ``_qkv``/``rope``/``attend_auto``/``_wo``/``_mlp``), attending over the
+    chunk's own K/V with no cache, then fp32 logits [B, T, V] through a head
+    upcast to fp32 WITH its gradient (``Transformer.head_f32`` keeps a
+    detached copy for serving). On the card a chunk of 256 tokens or more
+    runs the flash kernel forward and its backward kernel."""
+    B, T = tokens.shape
+    if is_quantized(params.embed) or (params.lm_head is not None
+                                      and is_quantized(params.lm_head)):
+        raise ValueError("forward: a quantized model does not train")
+    kv_lens = torch.full((B,), T, dtype=torch.int32, device=tokens.device)
+    x = _embed_lookup(params, cfg, tokens)
+    for p in params.layers:
+        q, k, v = _qkv(x, p, cfg, B, T)
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        attn = attend_auto(q, k, v, positions, kv_len=kv_lens,
+                           sliding_window=cfg.sliding_window)
+        x = x + _wo(attn, p, cfg)
+        x = _mlp(x, p, cfg)
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps, cfg.rmsnorm_plus_one)
+    head = params.embed if params.lm_head is None else params.lm_head
+    logits = F.linear(x.float(), head.weight.float())
+    if cfg.final_logit_softcap is not None:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
 def _kept_slots(flat_dst: torch.Tensor, n_tok: int):
     """The JAX scatters ``.at[flat_dst].set(mode="drop")`` silently drop
     out-of-range slots (the n_tok sentinel of padding and overflow

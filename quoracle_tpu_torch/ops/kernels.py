@@ -45,7 +45,7 @@ def _build_dir() -> str:
 
 
 BUILD_DIR = _build_dir()
-SOURCES = ("flash_fwd.cu", "ragged_fwd.cu", "ragged_q8_fwd.cu",
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "ragged_fwd.cu", "ragged_q8_fwd.cu",
            "paged_fwd.cu", "paged_prefill_fwd.cu")
 HEADERS = ("common.cuh", "tc_attention.cuh", "split_kv.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -88,6 +88,12 @@ FLASH = Kernel(
     "flash_fwd", "quoracle_tpu_torch/csrc/flash_fwd.cu",
     "quoracle_tpu/ops/flash_attention.py:37",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P])
+# the backward of _flash_kernel, which the JAX package has not got: the
+# TPU kernel it differentiates
+FLASH_BWD = Kernel(
+    "flash_bwd", "quoracle_tpu_torch/csrc/flash_bwd.cu",
+    "quoracle_tpu/ops/flash_attention.py:37",
+    [_P] * 13 + [_I] * 7 + [_F, _I, _P])
 RAGGED = Kernel(
     "ragged_fwd", "quoracle_tpu_torch/csrc/ragged_fwd.cu",
     "quoracle_tpu/ops/paged_attention.py:642",
@@ -104,7 +110,7 @@ PAGED_PREFILL = Kernel(
     "paged_prefill_fwd", "quoracle_tpu_torch/csrc/paged_prefill_fwd.cu",
     "quoracle_tpu/ops/paged_attention.py:399",
     [_P] * 8 + [_I] * 9 + [_F, _I, _P])
-KERNELS = (FLASH, RAGGED, RAGGED_Q8, PAGED, PAGED_PREFILL)
+KERNELS = (FLASH, FLASH_BWD, RAGGED, RAGGED_Q8, PAGED, PAGED_PREFILL)
 
 
 def launch_counts() -> dict[str, int]:

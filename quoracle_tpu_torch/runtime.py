@@ -12,8 +12,10 @@ The PyTorch port's copy of ``quoracle_tpu/runtime.py``. The serving
 backend is ``"mock"`` or ``"torch"`` (``TorchBackend`` on ``device``:
 None means the GPU, and raises without one). What the port has not got
 yet raises at construction and names its ROADMAP Queue 1 item, never
-dropped silently: multi-process and tensor-parallel serving (item 12) and
-the training capture store (item 11). ``image_backend="diffusion"``
+dropped silently: multi-process and tensor-parallel serving (item 12).
+``capture_dir`` installs the training flywheel's capture store
+(training/capture.py) before traffic and uninstalls it at close.
+``image_backend="diffusion"``
 serves ``generate_images`` from the on-device diffusion model
 (models/diffusion.py) on ``device``. ``replicas`` and ``disaggregate``
 serve through a ``ClusterPlane`` (serving/cluster.py) whose replicas all
@@ -222,8 +224,6 @@ _NOT_PORTED = {
     "coordinator_address": _MULTI_PROCESS,
     "num_processes": _MULTI_PROCESS,
     "process_id": _MULTI_PROCESS,
-    "capture_dir": "ROADMAP Queue 1 item 11 (training capture)",
-    "capture_mb": "ROADMAP Queue 1 item 11 (training capture)",
 }
 
 
@@ -351,9 +351,15 @@ class RuntimeConfig:
     # on a cluster, forecast priors offered to the fleet controller's
     # shadow seam, results on GET /api/sim and TOPIC_SIM); ``sim_seed``
     # with no trace regenerates the canonical diurnal-mix trace from that
-    # seed. The serving flywheel's capture store is not ported.
+    # seed.
     sim_trace: Optional[str] = None
     sim_seed: Optional[int] = None
+    # Serving flywheel (training/): ``capture_dir`` installs the replay
+    # capture store at boot — the BatchedSpeculator and consensus-quality
+    # taps feed it crc-framed training examples, size-bounded to
+    # ``capture_mb`` (oldest-first segment eviction). None (the default)
+    # = no store, and the taps cost one attribute read per round. The
+    # whole plane is env-killable via QUORACLE_TRAIN_CAPTURE=0.
     capture_dir: Optional[str] = None
     capture_mb: float = 256.0
 
@@ -446,6 +452,12 @@ class Runtime:
         if chaos_plan is not None:
             from quoracle_tpu_torch.chaos.faults import CHAOS
             CHAOS.arm(chaos_plan)
+        # Serving flywheel: install the replay capture store before
+        # traffic so the first speculative round is captured.
+        if config.capture_dir:
+            from quoracle_tpu_torch.training.capture import CAPTURE
+            CAPTURE.install(config.capture_dir,
+                            budget_mb=config.capture_mb)
         from quoracle_tpu_torch.infra.resources import ResourceCollector
         self._resource_collector = ResourceCollector(self.backend)
         METRICS.register_collector(self._resource_collector)
@@ -730,6 +742,9 @@ class Runtime:
             self._fabric_peer._server.close()
             self._fabric_peer._server = None
         self.watchdog.close()
+        if self.config.capture_dir:
+            from quoracle_tpu_torch.training.capture import CAPTURE
+            CAPTURE.uninstall()
         from quoracle_tpu_torch.infra import introspect
         introspect.shutdown()
         METRICS.remove_collector(self._resource_collector)

@@ -896,7 +896,7 @@ class ClusterPlane(ModelBackend):
         The fleet controller's ``swap_draft`` is the production path —
         per-replica quiesce plus the deterministic action ledger; this
         primitive is what it drives (the promoter that calls it is
-        training's, ROADMAP Queue 1 item 11)."""
+        training/promote.py)."""
         out = []
         for rep in self.replicas:
             if not rep.alive or tspec not in rep.backend.draft_map:

@@ -423,9 +423,8 @@ class FleetController:
             return a
         return a
 
-    # -- draft hot-swap: the promotion primitive (training's promoter,
-    #    ROADMAP Queue 1 item 11, is its only caller that passes a
-    #    chaos_point) --------------------------------------------------
+    # -- draft hot-swap: the promotion primitive (training/promote.py's
+    #    Promoter is its only caller that passes a chaos_point) ---------
 
     def swap_draft(self, replica_id: str, tspec: str, engine_factory,
                    *, draft_name: str, reason: str = "promotion",

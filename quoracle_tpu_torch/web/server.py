@@ -48,9 +48,11 @@ Endpoints (reference routes at lib/quoracle_web/router.ex:22-32):
                             outcomes, tier census, virtual goodput),
                             the last gate report, the sim counters
                             (sim/)
-  GET  /api/train           501 in the port: the training capture store
-                            is not ported (the body names the ROADMAP
-                            item)
+  GET  /api/train           serving flywheel: capture store state
+                            (segment census, byte budget, degraded
+                            flag), the promoter's rollout/guard table
+                            when one is registered, the flywheel
+                            counters (training/)
   GET  /api/costs           chip-economics panel: nominal
                             Decimal billing rows beside the measured
                             chip-second ledgers (per-stage/tenant/class
@@ -99,9 +101,9 @@ calls bridge into the runtime's asyncio loop with run_coroutine_threadsafe —
 the dashboard never touches agent state off-loop.
 
 The PyTorch port's copy of ``quoracle_tpu/web/server.py``, over the
-port's ``Runtime`` and planes. Routes whose planes the port has not got
-answer 501 with a JSON body naming the ROADMAP item that ports them
-(``NOT_PORTED``), never an empty payload that looks real; the same
+port's ``Runtime`` and planes. A route whose plane the port has not got
+would answer 501 with a JSON body naming the ROADMAP item that ports it
+(``NOT_PORTED``, empty now), never an empty payload that looks real; such
 planes are listed as not ported on the /telemetry page.
 """
 
@@ -125,10 +127,9 @@ logger = logging.getLogger(__name__)
 API_CALL_TIMEOUT_S = 60.0
 
 # The API routes whose modules the port has not got, with the ROADMAP
-# Queue 1 item that ports each.
-NOT_PORTED = {
-    "/api/train": "ROADMAP Queue 1 item 11 (training capture)",
-}
+# Queue 1 item that ports each (none left: the training plane was the
+# last).
+NOT_PORTED: dict[str, str] = {}
 
 
 class DashboardServer:
@@ -597,6 +598,30 @@ class DashboardServer:
         }
         return payload
 
+    def train_payload(self) -> dict:
+        """GET /api/train: the serving flywheel — capture store state
+        (segment census, byte budget, degraded flag), the promoter's
+        rollout/guard table when one is registered (``runtime._promoter``),
+        and the flywheel counter series. ``capture.installed`` False when
+        no --capture-dir was given."""
+        from quoracle_tpu_torch.infra.telemetry import (
+            TRAIN_CAPTURE_EVICTIONS_TOTAL, TRAIN_CAPTURE_RECORDS_TOTAL,
+            TRAIN_PROMOTIONS_TOTAL, TRAIN_STEPS_TOTAL,
+        )
+        from quoracle_tpu_torch.training.capture import CAPTURE
+        payload: dict = {"capture": CAPTURE.stats()}
+        promoter = getattr(self.runtime, "_promoter", None)
+        payload["promoter"] = (promoter.stats() if promoter is not None
+                               else {"enabled": False})
+        payload["counters"] = {
+            "capture_records": TRAIN_CAPTURE_RECORDS_TOTAL._snapshot(),
+            "capture_evictions":
+                TRAIN_CAPTURE_EVICTIONS_TOTAL._snapshot(),
+            "steps": TRAIN_STEPS_TOTAL._snapshot(),
+            "promotions": TRAIN_PROMOTIONS_TOTAL._snapshot(),
+        }
+        return payload
+
     def costs_payload(self) -> dict:
         """GET /api/costs: the chip-economics panel —
         nominal Decimal billing (catalog-rate CostEntry rows, newest
@@ -906,6 +931,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json(d.chaos_payload())
             elif parsed.path == "/api/sim":
                 self._send_json(d.sim_payload())
+            elif parsed.path == "/api/train":
+                self._send_json(d.train_payload())
             elif parsed.path in NOT_PORTED:
                 self._send_json({"error": "not ported",
                                  "route": parsed.path,

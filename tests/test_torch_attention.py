@@ -229,6 +229,12 @@ def test_cpu_tensors_take_plain_paths_and_never_count_launches():
     assert torch.equal(dec[:, 0], tpaged.merge_partials(
         tpaged.paged_attend_ref(qd, *pools, tables, lens, off, qpos, 8),
         tpaged.tail_attend_partials(qd, tk, tv, 3, off + lens, qpos, 8)))
-    assert kernels.launch_counts() == {"flash_fwd": 0, "ragged_fwd": 0,
+    # the backward on the CPU is autograd through the twin
+    qg = q.clone().requires_grad_()
+    tflash.flash_attend(qg, k, v, qp, kl, sliding_window=window,
+                        kv_pos_offset=off).sum().backward()
+    assert qg.grad is not None
+    assert kernels.launch_counts() == {"flash_fwd": 0, "flash_bwd": 0,
+                                       "ragged_fwd": 0,
                                        "ragged_q8_fwd": 0, "paged_fwd": 0,
                                        "paged_prefill_fwd": 0}

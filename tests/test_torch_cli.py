@@ -145,8 +145,8 @@ UNPORTED_FLAGS = [
     (["--chaos-plan", "plan.json"], None),
     (["--sim-trace", "trace.json"], None),
     (["--sim-seed", "3"], None),
-    (["--capture-dir", "capture"], "item 11"),
-    (["--capture-mb", "64"], "item 11"),
+    (["--capture-dir", "capture"], None),
+    (["--capture-mb", "64"], None),
     (["--image-backend", "diffusion"], None),
 ]
 TAKEN = {"--replicas": ("replicas", 2), "--disaggregate": ("disaggregate",
@@ -159,7 +159,9 @@ TAKEN = {"--replicas": ("replicas", 2), "--disaggregate": ("disaggregate",
          "--prefixd": ("prefixd", "h:1"),
          "--sim-trace": ("sim_trace", "trace.json"),
          "--sim-seed": ("sim_seed", 3),
-         "--image-backend": ("image_backend", "diffusion")}
+         "--image-backend": ("image_backend", "diffusion"),
+         "--capture-dir": ("capture_dir", "capture"),
+         "--capture-mb": ("capture_mb", 64.0)}
 
 
 @pytest.mark.parametrize("flags,item", UNPORTED_FLAGS,

@@ -561,13 +561,12 @@ def test_grove_task_shows_todos_and_costs_in_dom(tmp_path):
                 assert models.find_all("li")
                 models.children = []
         if path == "/telemetry":
-            # the port lists its unported planes; the numbers and the
-            # latency panel are process-wide: the skeletons of the
-            # metric tables are compared
-            ported = port_page.find("ul", id="not-ported")
-            assert ported is not None and {
-                li.attrs["data-plane"] for li in ported.find_all("li")} == {
-                "train"}
+            # the port has no unported plane left to list (the training
+            # plane was the last); the numbers and the latency panel are
+            # process-wide: the skeletons of the metric tables are
+            # compared
+            assert port_page.find("ul", id="not-ported") is None
+            assert jax_page.find("ul", id="not-ported") is None
             jt, pt = ([t.attrs for t in p.find_all("table", cls="metrics")]
                       for p in (jax_page, port_page))
             assert pt == jt
@@ -647,9 +646,10 @@ def test_spa_js_dom_and_api_contract():
 
 # The routes the port answered 501 for before their planes were ported,
 # with the ROADMAP item that ports each; None: ported since (the chaos
-# plane, the simulator), the route answers 200 with its payload.
+# plane, the simulator, the training plane), the route answers 200 with
+# its payload.
 UNPORTED_ROUTES = [("/api/chaos", None), ("/api/sim", None),
-                   ("/api/train", "item 11 (training capture)")]
+                   ("/api/train", None)]
 
 
 @pytest.mark.parametrize("route,item", UNPORTED_ROUTES, ids=[
@@ -669,6 +669,17 @@ def test_unported_routes_answer_501_with_their_item(route, item):
                              "last_report", "counters"}
         assert set(body["counters"]) == {"events", "replays",
                                          "gate_failures"}
+    elif item is None and route == "/api/train":
+        # the JAX payload's keys; no --capture-dir: nothing installed
+        assert status == 200
+        assert set(body) == {"capture", "promoter", "counters"}
+        assert set(body["capture"]) == {"enabled", "installed",
+                                        "degraded"}
+        assert body["capture"]["installed"] is False
+        assert body["promoter"] == {"enabled": False}
+        assert set(body["counters"]) == {"capture_records",
+                                         "capture_evictions", "steps",
+                                         "promotions"}
     elif item is None:
         from quoracle_tpu_torch.chaos.faults import INJECTION_POINTS
         assert status == 200 and body["armed"] is False

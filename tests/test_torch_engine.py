@@ -76,7 +76,8 @@ def test_sessionless_rows_identical(tiny):
     tres = te.generate(prompts, **kw)
     _same(jres, tres)
     assert all(r.n_gen_tokens > 0 for r in tres)
-    assert te.kernel_launches() == {"flash_fwd": 0, "ragged_fwd": 0,
+    assert te.kernel_launches() == {"flash_fwd": 0, "flash_bwd": 0,
+                                    "ragged_fwd": 0,
                                     "ragged_q8_fwd": 0, "paged_fwd": 0,
                                     "paged_prefill_fwd": 0}
 

@@ -9,7 +9,9 @@ with ``governance/frontmatter.py`` and checks grove schemas with
 ``governance/jsonschema_lite.py``: the probe loads the shipped groves,
 reads and writes a skill and validates a payload to show it), nor
 ``cryptography``, which it may lack (the persistence vault imports it
-when it is given a key). (Only the parity tests import them.)"""
+when it is given a key), nor ``optax`` or ``orbax`` (the training plane
+writes the optimizer and its checkpoints itself). (Only the parity tests
+import them.)"""
 
 import os
 import subprocess
@@ -131,7 +133,17 @@ for name in ("quoracle_tpu_torch.utils.calibration",
              "quoracle_tpu_torch.native.tokenizer",
              "quoracle_tpu_torch.native.image",
              "quoracle_tpu_torch.models.vision",
-             "quoracle_tpu_torch.models.diffusion"):
+             "quoracle_tpu_torch.models.diffusion",
+             "quoracle_tpu_torch.models.train",
+             "quoracle_tpu_torch.training",
+             "quoracle_tpu_torch.training.capture",
+             "quoracle_tpu_torch.training.trainer",
+             "quoracle_tpu_torch.training.evaluate",
+             "quoracle_tpu_torch.training.promote",
+             "quoracle_tpu_torch.training.draft_check",
+             "quoracle_tpu_torch.tools.train_draft",
+             "quoracle_tpu_torch.tools.finetune",
+             "quoracle_tpu_torch.governance.bench_scoring"):
     assert name in names, name
 from quoracle_tpu_torch.governance import grove, skills
 groves = grove.list_groves(os.path.join({repo!r}, "groves"))
@@ -154,7 +166,7 @@ for form in ("mistral", "gemma"):
     assert tok.decode(tok.encode("x 漢字 y")) == "x 漢字 y", form
 BANNED = ("jax", "jaxlib", "quoracle_tpu", "safetensors", "tokenizers",
           "transformers", "sentencepiece", "regex", "ml_dtypes", "yaml",
-          "jsonschema", "cryptography")
+          "jsonschema", "cryptography", "optax", "orbax")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 print(len(names), bad)
 """

@@ -157,8 +157,8 @@ def test_cluster_and_serving_flags_require_a_real_backend(kw):
 
 # Every field the port refused before its module was ported, with the
 # ROADMAP item that ports it; None: ported since (the multi-replica plane,
-# the chaos plane, the cross-host fabric and the simulator), the field is
-# taken.
+# the chaos plane, the cross-host fabric, the simulator and the training
+# capture store), the field is taken.
 NOT_PORTED = [
     ("tp", 2, "item 12"), ("coordinator_address", "h:1", "item 12"),
     ("num_processes", 2, "item 12"), ("process_id", 0, "item 12"),
@@ -173,8 +173,8 @@ NOT_PORTED = [
     ("chaos_plan", "plan.json", None),
     ("sim_trace", "trace.json", None),
     ("sim_seed", 3, None),
-    ("capture_dir", "capture", "item 11"),
-    ("capture_mb", 64.0, "item 11"),
+    ("capture_dir", "capture", None),
+    ("capture_mb", 64.0, None),
     ("image_backend", "diffusion", None),
 ]
 
@@ -209,6 +209,9 @@ def test_each_left_out_field_raises_and_names_its_item(field, value, item,
         return
     if field == "image_backend":
         _diffusion_field(value)
+        return
+    if field.startswith("capture"):
+        _capture_field(field, value, tmp_path)
         return
     from quoracle_tpu_torch.chaos.faults import CHAOS
     kw = {field: value}
@@ -246,6 +249,36 @@ def test_each_left_out_field_raises_and_names_its_item(field, value, item,
         rt.close()
         rt.backend.close()
     assert rt._fleet_thread is None
+
+
+def _capture_field(field: str, value, tmp_path) -> None:
+    """``capture_dir`` (with ``capture_mb`` its budget) installs each
+    package's replay capture store when the runtime is built and
+    uninstalls it at close, as the JAX runtime does: the same stats
+    either side."""
+    from quoracle_tpu.training.capture import CAPTURE as JCAP
+    from quoracle_tpu_torch.training.capture import CAPTURE as TCAP
+    seen = []
+    for pkg, cap in ((JAX, JCAP), (PORT, TCAP)):
+        kw = {"capture_dir": str(tmp_path / pkg.name / value)} \
+            if field == "capture_dir" else \
+            {"capture_dir": str(tmp_path / pkg.name / "cap"), field: value}
+        cap.reset()
+        rt = pkg.rt.Runtime(pkg.rt.RuntimeConfig(**kw),
+                            backend=pkg.runtime.MockBackend())
+        try:
+            assert cap.active
+            st = cap.stats()
+            seen.append({**st, "store": {k: v for k, v in st["store"].items()
+                                         if k != "path"}})
+            assert st["store"]["path"] == kw["capture_dir"]
+        finally:
+            rt.close()
+        assert cap.store is None and not cap.active
+        cap.reset()
+    assert seen[1] == seen[0]
+    assert seen[1]["store"]["budget_mb"] == (value if field == "capture_mb"
+                                             else 256.0)
 
 
 def _diffusion_field(value: str) -> None:
